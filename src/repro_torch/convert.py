@@ -1,0 +1,55 @@
+"""Carry state from the JAX package to the port.
+
+ALID has no weights; its state is the LSH tables, the LID states and the
+fitted `Clustering`. Each function here takes the JAX package's objects as
+numpy arrays (`np.asarray` of its jax arrays, or its `to_dict()`) and
+returns the port's counterpart, so that tests can hand both packages the
+same tables and states.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.alid import Clustering
+from repro_torch.core.lid import LIDState
+from repro_torch.lsh.pstable import LSHTables
+
+
+def lsh_tables_from_numpy(proj, bias, sorted_keys, perm,
+                          device="cpu") -> LSHTables:
+    """proj (L, m, d) f32, bias (L, m) f32, sorted_keys (L, n) uint32,
+    perm (L, n) int32 -> LSHTables (keys held as int64 uint32 values)."""
+    return LSHTables(
+        proj=torch.as_tensor(np.asarray(proj, np.float32), device=device),
+        bias=torch.as_tensor(np.asarray(bias, np.float32), device=device),
+        sorted_keys=torch.as_tensor(
+            np.asarray(sorted_keys).astype(np.uint32).astype(np.int64),
+            device=device),
+        perm=torch.as_tensor(np.asarray(perm).astype(np.int64),
+                             device=device))
+
+
+def lid_state_from_numpy(beta_idx, beta_mask, v_beta, x, ax, n_iters,
+                         converged, device="cpu") -> LIDState:
+    """The fields of one LIDState (unbatched, as one seed of the JAX
+    package) or of a vmapped batch of them -> a batched LIDState."""
+    beta_idx = np.asarray(beta_idx, np.int32)
+    batched = beta_idx.ndim == 2
+
+    def lane(a, dtype):
+        a = np.asarray(a, dtype)
+        return torch.as_tensor(a if batched else a[None], device=device)
+
+    return LIDState(beta_idx=lane(beta_idx, np.int32),
+                    beta_mask=lane(beta_mask, bool),
+                    v_beta=lane(v_beta, np.float32),
+                    x=lane(x, np.float32), ax=lane(ax, np.float32),
+                    n_iters=lane(n_iters, np.int32),
+                    converged=lane(converged, bool))
+
+
+def clustering_from_dict(d: dict) -> Clustering:
+    """The JAX package's `Clustering.to_dict()` -> the port's Clustering."""
+    return Clustering.from_dict({k: np.asarray(v) for k, v in d.items()})

@@ -1,0 +1,219 @@
+"""ALID, the complete algorithm (paper Alg. 2): config, the batched ALID run
+from a batch of seeds, bucket-based seed sampling (Sec. 4.6), and the
+`Clustering` result object.
+
+One ALID instance iterates (LID -> ROI -> CIVS) from a seed vertex until the
+local dense subgraph is immune against everything the ROI can still add, or
+c > C. The JAX package vmaps instances over a batch of seeds; here the batch
+is the lanes of every tensor, each lane with its own done mask, and each
+outer iteration runs only on the lanes still going. The peel-reduce driver
+lives in `repro_torch.core.engine`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as trandom
+from repro_torch.core.civs import civs_update, top_k
+from repro_torch.core.lid import (density, init_state, lid_solve, put_lanes,
+                                  take_lanes)
+from repro_torch.core.roi import estimate_roi
+from repro_torch.lsh.pstable import LSHParams, LSHTables
+
+
+class EngineSpec(NamedTuple):
+    """Declarative engine selection, folded into ALIDConfig.
+
+    engine:  "replicated": the full dataset and the monolithic LSH tables
+             on one device. The sharded, mesh and streamed engines of the
+             JAX package are not ported yet (ROADMAP A10, A11, A13).
+    backend: kernel backend for every hot-path op: "auto" (the CUDA kernels
+             for tensors on the card, the plain versions on the CPU), "ref"
+             (the plain PyTorch versions anywhere) or "kernel". See
+             `repro_torch.kernels.ops.resolve_backend`.
+    dtype:   point storage dtype; "float32" only (bf16 storage is ROADMAP
+             queue item "bf16 storage in the four kernels").
+    """
+    engine: str = "replicated"
+    backend: str = "auto"
+    dtype: str = "float32"
+
+
+class ALIDConfig(NamedTuple):
+    """Static algorithm configuration (hashable)."""
+    k: float | None = None        # Laplacian scale; None -> estimate_k at setup
+    p: float = 2.0                # norm (paper uses p=2 in all experiments)
+    a_cap: int = 64               # max support (cluster) size tracked
+    delta: int = 128              # paper's delta: max CIVS retrievals
+    t_lid: int = 256              # LID iteration cap (paper's T)
+    c_outer: int = 16             # ALID iteration cap (paper's C)
+    tol: float = 1e-5
+    support_eps: float = 1e-6
+    density_min: float = 0.75     # paper: keep clusters with pi(x) >= 0.75
+    r0: float = 0.4               # paper: ROI radius for c == 1
+    stop_frac: float = 0.95       # declare global immunity once R >= frac*R_out
+    lsh: LSHParams = LSHParams()
+    seeds_per_round: int = 32
+    max_rounds: int = 128
+    min_bucket: int = 5           # paper: seed from buckets with > 5 items
+    exhaustive: bool = False      # peel until no active point remains
+    spec: EngineSpec = EngineSpec()
+    sweep_steps: int = 8          # LID iterations fused per lid_sweep launch
+    refresh_every: int = 0        # in-sweep exact Ax refresh period (0 = off)
+
+    @property
+    def cap(self) -> int:
+        return self.a_cap + self.delta
+
+    @property
+    def backend(self) -> str:
+        return self.spec.backend
+
+
+class SeedResult(NamedTuple):
+    member_idx: torch.Tensor   # (B, cap) global indices of the final beta
+    member_w: torch.Tensor     # (B, cap) weights (support = w > support_eps)
+    member_mask: torch.Tensor  # (B, cap) validity & support
+    density: torch.Tensor      # (B,) pi(x*)
+    n_outer: torch.Tensor      # (B,) ALID iterations used
+    overflow: torch.Tensor     # (B,) support hit a_cap
+
+
+def _npz_path(path) -> str:
+    """np.savez's suffix rule, applied symmetrically on save and load."""
+    p = os.fspath(path)
+    return p if p.endswith(".npz") else p + ".npz"
+
+
+class Clustering(NamedTuple):
+    """Clustering result: labels + per-cluster weighted supports, with the
+    same .npz layout as the JAX package's, so a file saved by either loads
+    in the other. `predict` is not ported yet (ROADMAP A9)."""
+    labels: np.ndarray      # (n,) int32, -1 = unclustered / noise
+    densities: np.ndarray   # (n_clusters,)
+    n_rounds: int
+    k: float
+    support_idx: Optional[np.ndarray] = None  # (C, cap) int32, -1 pad
+    support_w: Optional[np.ndarray] = None    # (C, cap) f32, simplex per row
+    support_v: Optional[np.ndarray] = None    # (C, cap, d) f32, 0 on pad
+
+    @property
+    def n_clusters(self) -> int:
+        return int(len(self.densities))
+
+    def predict(self, queries, threshold: float = 0.5, batch_size: int = 0,
+                backend: str = "auto") -> np.ndarray:
+        raise NotImplementedError(
+            "Clustering.predict needs the assign kernel, which is not ported "
+            "yet (ROADMAP A9)")
+
+    def to_dict(self) -> dict:
+        out = {
+            "labels": np.asarray(self.labels, np.int32),
+            "densities": np.asarray(self.densities, np.float32),
+            "n_rounds": np.int32(self.n_rounds),
+            "k": np.float32(self.k),
+        }
+        if self.support_idx is not None:
+            out["support_idx"] = np.asarray(self.support_idx, np.int32)
+            out["support_w"] = np.asarray(self.support_w, np.float32)
+            out["support_v"] = np.asarray(self.support_v, np.float32)
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Clustering":
+        return cls(
+            labels=np.asarray(d["labels"], np.int32),
+            densities=np.asarray(d["densities"], np.float32),
+            n_rounds=int(d["n_rounds"]),
+            k=float(d["k"]),
+            support_idx=np.asarray(d["support_idx"], np.int32)
+            if "support_idx" in d else None,
+            support_w=np.asarray(d["support_w"], np.float32)
+            if "support_w" in d else None,
+            support_v=np.asarray(d["support_v"], np.float32)
+            if "support_v" in d else None,
+        )
+
+    def save(self, path) -> str:
+        """Write the result as .npz and return the path written."""
+        path = _npz_path(path)
+        np.savez(path, **self.to_dict())
+        return path
+
+    @classmethod
+    def load(cls, path) -> "Clustering":
+        with np.load(_npz_path(path)) as z:
+            return cls.from_dict({k: z[k] for k in z.files})
+
+
+def alid_from_seed(points: torch.Tensor, active: torch.Tensor,
+                   tables: LSHTables, seed_idx: torch.Tensor, k: float,
+                   cfg: ALIDConfig) -> SeedResult:
+    """Alg. 2: one complete ALID run from each seed of seed_idx:(B,).
+
+    The lanes follow the JAX package's vmap of a while loop: an outer
+    iteration runs on every lane with ~done & c <= C, and a lane that has
+    stopped keeps its state."""
+    state = init_state(points, seed_idx, cfg.cap)
+    bsz = seed_idx.shape[0]
+    dev = points.device
+    c = torch.ones(bsz, dtype=torch.int32, device=dev)
+    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    solve = dict(max_iters=cfg.t_lid, tol=cfg.tol, p=cfg.p,
+                 backend=cfg.backend, sweep_steps=cfg.sweep_steps,
+                 refresh_every=cfg.refresh_every, support_eps=cfg.support_eps)
+    while True:
+        lanes = torch.nonzero((~done) & (c <= cfg.c_outer))[:, 0]
+        if lanes.numel() == 0:
+            break
+        sub = lid_solve(take_lanes(state, lanes), k, **solve)
+        cl = c[lanes]
+        roi = estimate_roi(sub.v_beta, sub.beta_idx, sub.beta_mask, sub.x, k,
+                           cl, r0=cfg.r0, p=cfg.p,
+                           support_eps=cfg.support_eps, backend=cfg.backend)
+        res = civs_update(sub, roi, points, active, tables, cfg.lsh, k,
+                          a_cap=cfg.a_cap, delta=cfg.delta, tol=cfg.tol,
+                          support_eps=cfg.support_eps, p=cfg.p,
+                          backend=cfg.backend)
+        # Global immunity: nothing infective was retrievable AND the ROI has
+        # essentially reached the outer ball (Prop. 1 then guarantees no
+        # infective vertex exists anywhere)
+        grown = roi.radius >= cfg.stop_frac * roi.r_out
+        stop = (~res.infective_found) & (grown | (res.n_candidates == 0)) \
+            & (cl > 1)
+        state = put_lanes(state, lanes, res.state)
+        c[lanes] = cl + 1
+        done[lanes] = stop
+        overflow[lanes] |= res.overflow
+    # final polish: converge LID on the last beta
+    state = lid_solve(state, k, **solve)
+
+    sup = state.beta_mask & (state.x > cfg.support_eps)
+    return SeedResult(
+        member_idx=torch.where(sup, state.beta_idx, -1),
+        member_w=torch.where(sup, state.x, 0.0),
+        member_mask=sup,
+        density=density(state),
+        n_outer=c - 1,
+        overflow=overflow,
+    )
+
+
+def _sample_seeds(active: torch.Tensor, bsizes: torch.Tensor,
+                  rng: torch.Tensor, cfg: ALIDConfig):
+    """Gumbel-top-k sampling, biased to large LSH buckets (paper Sec. 4.6).
+    Returns (seeds (S,) int32, valid (S,) bool, any_eligible bool)."""
+    eligible = active & (bsizes > cfg.min_bucket)
+    any_eligible = bool(eligible.any())
+    w = torch.where(eligible, 1.0, torch.where(active, 1e-6, 0.0))
+    logw = torch.where(w > 0, torch.log(w), float("-inf"))
+    g = trandom.gumbel(rng, logw.shape, device=active.device)
+    vals, seeds = top_k(logw + g, cfg.seeds_per_round)
+    return seeds.to(torch.int32), vals > float("-inf"), any_eligible

@@ -1,0 +1,266 @@
+"""Plain PyTorch versions of the fit's kernels: the oracles every CUDA
+kernel is checked against, and what `ops` runs for a tensor on the CPU.
+
+Each function mirrors its twin in the JAX package's `kernels/ref.py` op for
+op (same formulas, same masking conventions, same `MASK_VALUE` and -inf
+sentinels), with one difference: where the JAX op was vmapped over a batch
+of seeds, these take the batch as a leading tensor dimension.
+
+Every sum that feeds the output of `roi_filter`, `affinity_matvec` or
+`lid_sweep` is taken in a PINNED order, so that a CUDA kernel computing
+the same products in the same order gives the same bits as its plain
+version on the card (an argmax near-tie in LID turns any other rounding
+into other labels):
+
+- `pinned_sum` (d-long sums: |v|^2, dots, pi, the ROI distance): products
+  rounded, then 32 running sums over the chunks of 32 (element t goes to
+  sum t mod 32, chunk after chunk), then a halving tree over the 32;
+- `tree_matvec` (the matvec's weighted sum): a halving tree over the
+  zero-padded power of two, as the JAX package pins it.
+
+Multiplies and adds stay separate operations (no fused multiply-add), in
+both the plain versions and those kernels. The `lsh_hash` kernel sums in
+its own order: its keys are integers, which differ only where a
+projection lies within rounding of a bucket edge
+(`kernels/lsh_hash.py` `key_flips`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK_VALUE = -1e30
+
+
+def tree_matvec(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., m, n) @ (..., n) with a FIXED binary-tree reduction order.
+
+    The products are zero-padded to a power-of-two width and summed by
+    halving, p[:half] + p[half:], exactly as the JAX package pins it, so
+    equal products give bit-equal sums on every backend (the CUDA matvec
+    reduces in shared memory in this same order)."""
+    p = a.float() * w.float().unsqueeze(-2)
+    n = p.shape[-1]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        p = torch.nn.functional.pad(p, (0, size - n))
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+_LANES = 32
+
+
+def _tree32(acc: torch.Tensor) -> torch.Tensor:
+    """Halving tree over a last dim of 32: s[l] = s[l] + s[l + half]."""
+    width = acc.shape[-1]
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    return acc[..., 0]
+
+
+def _pad32(t: torch.Tensor) -> torch.Tensor:
+    d = t.shape[-1]
+    dp = -(-d // _LANES) * _LANES
+    return torch.nn.functional.pad(t, (0, dp - d)) if dp != d else t
+
+
+def pinned_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in the pinned order: zero-pad to a multiple of
+    32, add the chunks of 32 in turn, then a halving tree over the 32."""
+    p = _pad32(p)
+    acc = p[..., :_LANES]
+    for c in range(_LANES, p.shape[-1], _LANES):
+        acc = acc + p[..., c:c + _LANES]
+    return _tree32(acc)
+
+
+def pinned_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(..., m, d) x (..., n, d) -> (..., m, n) dots in the pinned order,
+    without materializing the (..., m, n, d) products."""
+    q, c = _pad32(q), _pad32(c)
+    qe, ce = q.unsqueeze(-2), c.unsqueeze(-3)
+    acc = qe[..., :_LANES] * ce[..., :_LANES]
+    for k in range(_LANES, q.shape[-1], _LANES):
+        acc = acc + qe[..., k:k + _LANES] * ce[..., k:k + _LANES]
+    return _tree32(acc)
+
+
+def pairwise_distance_ref(q: torch.Tensor, c: torch.Tensor,
+                          p: float = 2.0) -> torch.Tensor:
+    """||q_i - c_j||_p in f32: (..., m, d), (..., n, d) -> (..., m, n).
+
+    p=2 uses the expansion |q|^2 + |c|^2 - 2 q c^T, clamped at 0, the form
+    the kernels compute, with every d-sum in the pinned order; other p fall
+    back to broadcast abs-power."""
+    q32 = q.float()
+    c32 = c.float()
+    if p == 2.0:
+        q2 = pinned_sum(q32 * q32).unsqueeze(-1)
+        c2 = pinned_sum(c32 * c32).unsqueeze(-2)
+        d2 = q2 + c2 - 2.0 * pinned_dot(q32, c32)
+        return torch.sqrt(torch.clamp_min(d2, 0.0))
+    diff = (q32.unsqueeze(-2) - c32.unsqueeze(-3)).abs()
+    return diff.pow(p).sum(-1).pow(1.0 / p)
+
+
+def affinity_ref(q: torch.Tensor, c: torch.Tensor, k_scale: float,
+                 p: float = 2.0) -> torch.Tensor:
+    """exp(-k * ||q_i - c_j||_p): no diagonal logic. k is the fit's one
+    f32 scale, as a Python float."""
+    dist = pairwise_distance_ref(q, c, p)
+    return torch.exp(-k_scale * dist).to(q.dtype)
+
+
+def affinity_matvec_ref(q, q_idx, c, c_idx, w, k_scale,
+                        p: float = 2.0) -> torch.Tensor:
+    """out_i = sum_j [q_idx_i != c_idx_j] * exp(-k ||q_i - c_j||) * w_j.
+
+    q:(..., m, d), q_idx:(..., m), c:(..., n, d), c_idx:(..., n),
+    w:(..., n) -> (..., m) f32, contracted in `tree_matvec` order."""
+    a = affinity_ref(q, c, k_scale, p).float()
+    a = torch.where(q_idx.unsqueeze(-1) == c_idx.unsqueeze(-2), 0.0, a)
+    return tree_matvec(a, w)
+
+
+def roi_filter_ref(vc, center, radius, valid):
+    """Fused ROI distance filter: the DIRECT per-row sqrt(sum((v - c)^2)).
+
+    vc:(..., C, d), center:(..., d), radius:() or (...,), valid:(..., C) ->
+    (dist f32, ok = valid & dist <= radius, neg = -dist where ok else -inf).
+    """
+    diff = vc.float() - center.float().unsqueeze(-2)
+    dist = torch.sqrt(pinned_sum(diff * diff))
+    r = torch.as_tensor(radius, dtype=torch.float32, device=dist.device)
+    ok = valid & (dist <= (r.unsqueeze(-1) if r.dim() else r))
+    neg = torch.where(ok, -dist, float("-inf"))
+    return dist, ok, neg
+
+
+def lid_sweep_ref(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
+                  k_scale, n_steps: int, max_iters: int, tol: float,
+                  p: float = 2.0, refresh_every: int = 0,
+                  support_eps: float = 1e-6):
+    """Up to `n_steps` LID iterations (paper Sec. 4.1, Eq. 9-14) per seed.
+
+    v_beta:(B, cap, d), beta_idx:(B, cap) int32, beta_mask:(B, cap) bool,
+    x/ax:(B, cap) f32, n_iters:(B,) int32 (cumulative), converged:(B,) bool,
+    k_scale: float -> (x, ax, n_iters, converged).
+
+    The seeds are lanes with per-lane masks: each step runs for the whole
+    batch, and a lane whose guard `~converged & n_iters < max_iters` is
+    false (or whose step detected convergence) keeps its state unchanged,
+    which is the semantics of the JAX package's vmap over this op.
+    """
+    v32 = v_beta.float()
+    idx = beta_idx
+    mask = beta_mask
+    bsz, cap, _ = v32.shape
+    x = x.float().clone()
+    ax = ax.float().clone()
+    it = n_iters.to(torch.int32).clone()
+    cv = converged.clone()
+    lanes = torch.arange(bsz, device=v32.device)
+    slot = torch.arange(cap, device=v32.device)
+    for _ in range(n_steps):
+        live = (~cv) & (it < max_iters)
+        if not bool(live.any()):
+            break
+        pi = pinned_sum(x * ax)
+        r = torch.where(mask, ax - pi[:, None], 0.0)
+        c1 = mask & (r > tol)
+        c2 = mask & (r < -tol) & (x > 0.0)
+        score = torch.where(c1 | c2, r.abs(), float("-inf"))
+        i = torch.argmax(score, dim=-1)
+        done = score[lanes, i] <= tol
+        upd = live & ~done
+
+        ri = r[lanes, i]
+        xi = x[lanes, i]
+        mu = torch.where(ri > 0.0, 1.0,
+                         xi / torch.clamp_max(xi - 1.0, -1e-12))
+        num = mu * ri
+        den = mu * mu * (-2.0 * ax[lanes, i] + pi)
+        eps = torch.where(den < 0.0, torch.clamp_max(-num / den, 1.0), 1.0)
+        scale = (eps * mu)[:, None]
+        vi = v32[lanes, i].unsqueeze(1)                       # (B, 1, d)
+        col = affinity_ref(v32, vi, k_scale, p)[..., 0]       # (B, cap)
+        col = torch.where(idx == idx[lanes, i][:, None], 0.0, col)
+        col = torch.where(mask, col, 0.0)
+        onehot = (slot[None, :] == i[:, None]).float()
+        x_new = torch.clamp_min(x + scale * (onehot - x), 0.0)
+        ax_new = ax + scale * (col - ax)
+        if refresh_every > 0:
+            hit = upd & ((it + 1) % refresh_every == 0)
+            if bool(hit.any()):
+                w = torch.where(mask & (x_new > support_eps), x_new, 0.0)
+                full = affinity_matvec_ref(v32, idx, v32, idx, w, k_scale,
+                                           p)
+                full = torch.where(mask, full, 0.0)
+                ax_new = torch.where(hit[:, None], full, ax_new)
+        x = torch.where(upd[:, None], x_new, x)
+        ax = torch.where(upd[:, None], ax_new, ax)
+        it = torch.where(live, it + 1, it)
+        cv = torch.where(live, done, cv)
+    return x, ax, it, cv
+
+
+def lsh_hash_ref(x, proj, bias, seg_len: float) -> torch.Tensor:
+    """x:(n, d), proj:(L, m, d), bias:(L, m) -> (n, L) int32 key bits.
+
+    f32 projection, floor(z / seg_len) with the f32-rounded seg_len, then
+    the per-table multiply-xor fold (seed 0x811C9DC5, xor, times 0x9E3779B1
+    mod 2**32, xor >> 15). The fold runs on int64 masked to 32 bits, since
+    torch has no uint32 shift on the CPU; the result is handed back as the
+    int32 with the same bits, as the JAX kernels return it. The projection
+    is taken in the pinned order (the CUDA kernel's is its own), a block of
+    rows at a time."""
+    n_tables, n_proj, d = proj.shape
+    w = proj.float().reshape(n_tables * n_proj, d)
+    b = bias.float().reshape(n_tables * n_proj)
+    seg = torch.full((), seg_len, dtype=torch.float32, device=x.device)
+    out = torch.empty((x.shape[0], n_tables), dtype=torch.int32,
+                      device=x.device)
+    for lo in range(0, x.shape[0], _HASH_ROWS):
+        z = pinned_dot(x[lo:lo + _HASH_ROWS].float(), w) + b
+        h = torch.floor(z / seg).to(torch.int64) & 0xFFFFFFFF
+        out[lo:lo + _HASH_ROWS] = mix_fold(h.reshape(-1, n_tables, n_proj))
+    return out
+
+
+# rows hashed per block by lsh_hash_ref: bounds its (rows, L*m, 32) products
+_HASH_ROWS = 1 << 15
+
+
+def mix_fold(h: torch.Tensor) -> torch.Tensor:
+    """Fold (..., m) lattice words (int64 in [0, 2**32)) into (...,) int32
+    key bits: the multiply-xor fold that the JAX package's `_mix_fold` and
+    LSH kernels share."""
+    acc = torch.full(h.shape[:-1], 0x811C9DC5, dtype=torch.int64,
+                     device=h.device)
+    for j in range(h.shape[-1]):
+        acc = mul32(acc ^ h[..., j], 0x9E3779B1)
+        acc = acc ^ (acc >> 15)
+    return to_int32_bits(acc)
+
+
+def mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a * b mod 2**32 for int64 words in [0, 2**32), without overflowing
+    int64: the product is split on b's 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def to_int32_bits(u: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 -> the int32 with the same 32 bits."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+def to_uint32(a: torch.Tensor) -> torch.Tensor:
+    """int32 key bits -> int64 holding the uint32 value (sorts in uint32
+    order)."""
+    return a.to(torch.int64) & 0xFFFFFFFF

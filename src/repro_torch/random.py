@@ -1,0 +1,143 @@
+"""Counter-based random numbers that reproduce `jax.random` bit for bit.
+
+The JAX package draws every random number of a fit from threefry2x32 in
+partitionable mode (the jax 0.9 default): the LSH projections and biases
+(`lsh.pstable.make_projections`), the round keys of the fit driver and the
+Gumbel top-k seeding (`core.alid._sample_seeds`). Labels can only match the
+reference if the port draws the same numbers, so this module ports that
+generator instead of using `torch.Generator`.
+
+A key is an int64 tensor of shape (2,) holding two uint32 words. Torch has
+no uint32 shift on the CPU, so all 32-bit words live in int64 tensors whose
+values stay in [0, 2**32): every add is masked back to 32 bits, and the
+logical right shift of a non-negative int64 is the uint32 one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT0 = (13, 15, 26, 6)
+_ROT1 = (17, 29, 16, 24)
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` with 32-bit seeds: [0, seed mod 2**32]."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
+
+
+def _words(key: torch.Tensor) -> tuple[int, int]:
+    k = key.tolist()
+    return int(k[0]), int(k[1])
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def _rounds(x0, x1, rot):
+    for r in rot:
+        x0 = (x0 + x1) & _M32
+        x1 = x0 ^ _rotl(x1, r)
+    return x0, x1
+
+
+def threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
+    """The Threefry-2x32 block cipher (20 rounds), as `jax._src.prng`
+    computes it, on int64 tensors holding uint32 words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        x0, x1 = _rounds(x0, x1, _ROT0 if i % 2 == 0 else _ROT1)
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _counts(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`iota_2x32_shape`: the row-major flat index as (hi, lo) words."""
+    n = math.prod(shape)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    return lo >> 32, lo & _M32
+
+
+def _bits_pair(key, shape, device):
+    k1, k2 = _words(key)
+    hi, lo = _counts(shape, device)
+    return threefry2x32(k1, k2, hi, lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split` (fold-like, partitionable): (num, 2) keys."""
+    b1, b2 = _bits_pair(key, (num,), key.device)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+    """32 random bits per element (int64 in [0, 2**32)), jax's
+    `_threefry_random_bits_partitionable` with bit_width=32."""
+    b1, b2 = _bits_pair(key, tuple(shape), device)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+    """`jax.random.uniform` in float32: 23 random mantissa bits under the
+    exponent of 1.0, minus 1, scaled into [minval, maxval)."""
+    bits = random_bits(key, shape, device)
+    fbits = (bits >> 9) | 0x3F800000
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# XLA's float32 erf_inv (Giles' approximation, as StableHLO's chlo
+# legalization writes it out)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, term for term as XLA computes it."""
+    w = -torch.log1p(x * (-x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype,
+                                        device=x.device))
+
+    p = coeff(0)
+    for i in range(1, 9):
+        p = coeff(i) + p * w
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+
+
+def normal(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.normal` in float32: sqrt(2) * erf_inv(u) with u uniform
+    on [nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return torch.tensor(np.sqrt(2), dtype=torch.float32,
+                        device=device) * erf_inv(u)
+
+
+def gumbel(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+    """`jax.random.gumbel` in float32, its default "low" mode:
+    -log(-log(u)) with u uniform on [tiny, 1)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, shape, tiny, 1.0, device)
+    return -torch.log(-torch.log(u))

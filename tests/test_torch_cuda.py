@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. `roi_filter`, `affinity_matvec` and `lid_sweep` sum in the pinned
+order of `repro_torch.kernels.ref` with separate multiplies and adds, so
+their outputs must be bit-equal. `lsh_hash` sums in its own order: its
+keys may differ only where z / seg_len lies within 1e-4 of an integer
+(`kernels.lsh_hash.key_flips`), and on these inputs at most one pair in
+10,000 may. Small shapes with ragged tails; chip_smoke.py checks the main
+path's shapes.
+
+This file imports neither jax nor the JAX package, so it runs where only
+PyTorch is installed: `PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_cuda.py`. Without a CUDA device every test skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.lid import LIDState, refresh_ax
+from repro_torch.kernels import ops
+from repro_torch.kernels.lsh_hash import key_flips
+
+K = 0.45
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "and run only on the card")
+    return torch.device("cuda", 0)
+
+
+def _states(dev, bsz=3, cap=48, d=16, n_valid=None):
+    """Full-range LID states of clustered rows, x at slot 0, exact Ax."""
+    rng = np.random.default_rng(bsz * 100 + cap + d)
+    centers = rng.normal(size=(bsz, 4, d)) * 3.0
+    pts = centers[:, rng.integers(0, 4, cap)] + rng.normal(size=(bsz, cap, d))
+    n_valid = cap if n_valid is None else n_valid
+    mask = torch.zeros((bsz, cap), dtype=torch.bool, device=dev)
+    mask[:, :n_valid] = True
+    v = torch.where(mask[..., None],
+                    torch.tensor(pts, dtype=torch.float32, device=dev), 0.0)
+    idx = torch.arange(cap, dtype=torch.int32, device=dev).repeat(bsz, 1)
+    x = torch.zeros((bsz, cap), device=dev)
+    x[:, 0] = 1.0
+    st = LIDState(idx, mask, v, x, torch.zeros_like(x),
+                  torch.zeros(bsz, dtype=torch.int32, device=dev),
+                  torch.zeros(bsz, dtype=torch.bool, device=dev))
+    return refresh_ax(st, K, backend="ref")
+
+
+def _both(fn):
+    return fn("kernel"), fn("ref")
+
+
+def _equal(a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(p, q) for p, q in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(777, 24), (5000, 128), (3, 100)])
+def test_lsh_hash_matches_plain(dev, n, d):
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(n, d)).astype(np.float32) * 4,
+                     device=dev)
+    proj = torch.tensor(rng.normal(size=(3, 5, d)).astype(np.float32),
+                        device=dev)
+    bias = torch.tensor(rng.uniform(0, 2, (3, 5)).astype(np.float32),
+                        device=dev)
+    got, want = _both(lambda b: ops.lsh_hash(x, proj, bias, 2.0, backend=b))
+    n_flip, near = key_flips(x, proj, bias, 2.0, got, want)
+    assert near and n_flip <= 1e-4 * got.numel(), n_flip
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_seed,d", [(350, 24), (7168, 128), (5, 100)])
+def test_roi_filter_bitwise(dev, per_seed, d):
+    rng = np.random.default_rng(per_seed)
+    vc = torch.tensor(rng.normal(size=(2, per_seed, d)).astype(np.float32),
+                      device=dev)
+    center = torch.tensor(rng.normal(size=(2, d)).astype(np.float32),
+                          device=dev)
+    radius = torch.tensor([np.sqrt(2 * d), 0.9 * np.sqrt(2 * d)],
+                          dtype=torch.float32, device=dev)
+    valid = torch.tensor(rng.integers(0, 2, (2, per_seed)).astype(bool),
+                         device=dev)
+    assert _equal(*_both(lambda b: ops.roi_filter(vc, center, radius, valid,
+                                                  backend=b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n,d", [(48, 37, 16), (240, 112, 128),
+                                     (130, 130, 100)])
+def test_affinity_matvec_bitwise(dev, cap, n, d):
+    st = _states(dev, cap=cap, d=d)
+    w = st.x[:, :n] + 0.1
+    assert _equal(*_both(lambda b: ops.affinity_matvec(
+        st.v_beta, st.beta_idx, st.v_beta[:, :n], st.beta_idx[:, :n], w, K,
+        backend=b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,d,refresh", [(48, 16, 0), (48, 16, 2),
+                                           (240, 128, 0), (240, 256, 4),
+                                           (100, 30, 3)])
+def test_lid_sweep_bitwise(dev, cap, d, refresh):
+    st = _states(dev, cap=cap, d=d, n_valid=cap - 5)
+    got, want = _both(lambda b: ops.lid_sweep(
+        st.v_beta, st.beta_idx, st.beta_mask, st.x, st.ax, st.n_iters,
+        st.converged, K, n_steps=8, max_iters=64, tol=1e-5,
+        refresh_every=refresh, backend=b))
+    assert int(want[2].min()) > 1, "the states did not iterate"
+    assert _equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_counts_and_no_fallback(dev):
+    """"auto" on a CUDA tensor launches the kernel (the count moves);
+    "ref" never does."""
+    st = _states(dev)
+    before = ops.launch_counts()
+    ops.affinity_matvec(st.v_beta, st.beta_idx, st.v_beta, st.beta_idx,
+                        st.x, K, backend="ref")
+    assert ops.launch_counts() == before
+    ops.affinity_matvec(st.v_beta, st.beta_idx, st.v_beta, st.beta_idx,
+                        st.x, K)
+    assert ops.launch_counts()["affinity_matvec"] == \
+        before["affinity_matvec"] + 1

@@ -1,0 +1,151 @@
+"""Guards of the port's boundaries: it never imports the JAX package or
+jax, its entry points run on the card unless the caller asks for the CPU,
+and a kernel backend never falls back to the plain version."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import alid as talid
+from repro_torch.core.engine import fit, make_engine
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    """The port, its chip script, and its on-card tests (which must run
+    where only PyTorch is installed)."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "tests" / "test_torch_cuda.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in files for mod, line in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card():
+    """Without device=, fit and make_engine run on CUDA; where there is no
+    card they raise instead of running on the CPU."""
+    pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert make_engine(talid.EngineSpec()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_engine(talid.EngineSpec())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(pts, talid.ALIDConfig(max_rounds=1))
+
+
+def _cpu_args():
+    rng = np.random.default_rng(0)
+    v = torch.tensor(rng.normal(size=(2, 8, 4)).astype(np.float32))
+    idx = torch.arange(8, dtype=torch.int32).repeat(2, 1)
+    mask = torch.ones((2, 8), dtype=torch.bool)
+    x = torch.zeros((2, 8))
+    x[:, 0] = 1.0
+    return dict(
+        lsh_hash=lambda b: ops.lsh_hash(v[0], torch.ones(2, 3, 4),
+                                        torch.zeros(2, 3), 1.0, backend=b),
+        roi_filter=lambda b: ops.roi_filter(v, v[:, 0], torch.ones(2), mask,
+                                            backend=b),
+        affinity_matvec=lambda b: ops.affinity_matvec(v, idx, v, idx, x, 0.5,
+                                                      backend=b),
+        lid_sweep=lambda b: ops.lid_sweep(
+            v, idx, mask, x, x.clone(), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.bool), 0.5, n_steps=2, max_iters=4,
+            tol=1e-5, backend=b),
+        pairwise_distance=lambda b: ops.pairwise_distance(v[0], v[1],
+                                                          backend=b),
+    )
+
+
+@pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
+                                "lid_sweep", "pairwise_distance"])
+def test_kernel_backend_on_cpu_raises(op):
+    call = _cpu_args()[op]
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        call("kernel")
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        call("pallas")
+    call("ref")
+    call("auto")                      # the plain version, on the CPU
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("op", ["roi_filter", "affinity_matvec",
+                                "lid_sweep"])
+def test_kernel_path_refuses_other_norms(op, monkeypatch):
+    """The kernels compute p = 2 only. Where an op would take the kernel
+    path (forced here on a CPU tensor, as a CUDA tensor would be), p = 1
+    raises before any kernel or plain version runs; on the plain path the
+    same call computes the p = 1 result."""
+    rng = np.random.default_rng(1)
+    v = torch.tensor(rng.normal(size=(2, 8, 4)).astype(np.float32))
+    idx = torch.arange(8, dtype=torch.int32).repeat(2, 1)
+    mask = torch.ones((2, 8), dtype=torch.bool)
+    x = torch.full((2, 8), 1.0 / 8)
+    calls = dict(
+        roi_filter=lambda b: ops.roi_filter(v, v[:, 0], torch.ones(2), mask,
+                                            p=1.0, backend=b),
+        affinity_matvec=lambda b: ops.affinity_matvec(
+            v, idx, v, idx, x, 0.5, p=1.0, backend=b),
+        lid_sweep=lambda b: ops.lid_sweep(
+            v, idx, mask, x, x.clone(), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.bool), 0.5, n_steps=2, max_iters=4,
+            tol=1e-5, p=1.0, backend=b),
+    )
+    out = calls[op]("ref")
+    assert all(torch.isfinite(t.float()).any() for t in
+               (out if isinstance(out, tuple) else (out,)))
+    before = ops.launch_counts()
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
+    with pytest.raises(NotImplementedError, match="p=1.0"):
+        calls[op]("auto")
+    assert ops.launch_counts() == before
+
+
+def test_fit_refuses_other_norms_on_the_kernel_path(monkeypatch):
+    """On the plain path (the CPU) p = 1 runs; where fit would take the
+    kernel path it raises before it builds the LSH tables."""
+    pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    cfg = talid.ALIDConfig(p=1.0, max_rounds=1, a_cap=8, delta=8,
+                           seeds_per_round=2)
+    res = fit(pts, cfg, device="cpu")
+    assert res.labels.shape == (40,)
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
+    monkeypatch.setattr(
+        "repro_torch.core.engine.ReplicatedEngine.build_source",
+        lambda *a: pytest.fail("built before refusing p=1"))
+    with pytest.raises(NotImplementedError, match="p=1.0"):
+        fit(pts, cfg, device="cpu")
+
+
+@pytest.mark.cuda
+def test_fit_on_card_refuses_other_norms():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="p=1.0"):
+        fit(pts, talid.ALIDConfig(p=1.0, max_rounds=1), device="cuda")
