@@ -20,7 +20,20 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    versions, both on the card, at n = 20,000 x 128: equal canonical labels
    and round counts, densities within tolerance;
 4. the full-width fit, SIFT1M's shape (1,000,000 x 128 f32) in the paper's
-   size-limited regime, with every kernel's launch count, which must be > 0;
+   size-limited regime, with every fit kernel's launch count, which must
+   be > 0;
+5. serving at full width on phase 4's Clustering (2,048 clusters x 240
+   supports x 128): the assign kernel against its plain version on 256
+   queries of the serving mix (dataset rows, jittered rows, far noise) and
+   on a NaN-poisoned, masked 64-slot batch (labels and scores bit-equal);
+   its device time for one 64-slot batch, per-call time, the plain
+   version's time, the bound, and the device time of the cuBLAS
+   composition (matmul expansion, exp, segment sum, argmax) as a
+   yardstick the port never calls; then the serving path from launch
+   counts at 0: a 4,096-row bulk `predict`, `ClusterService(batch_slots=
+   64)` over 1,024 queries, and `run_palid._serve_bench` (ClusterServer +
+   open-loop traffic at 2,000 requests/s), whose labels must equal
+   per-query assignment and whose `assign` launches must be > 0;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -51,13 +64,17 @@ TIMED_RUNS = 25
 PARITY_N = 20_000
 DEVICE = "cuda:0"
 
-# the JAX package's Pallas kernels the four CUDA kernels replace
+# the JAX package's Pallas kernels the five CUDA kernels replace
 REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:41",
     "roi_filter": "src/repro/kernels/roi_filter.py:46",
     "affinity_matvec": "src/repro/kernels/affinity_matvec.py:50",
     "lid_sweep": "src/repro/kernels/lid_sweep.py:149",
+    "assign": "src/repro/kernels/assign.py:52",
 }
+# serving: run_palid's defaults, and the bulk predict's rows
+SERVE_RATE = 2000.0
+BULK_ROWS = 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -117,14 +134,16 @@ def graph_ms(fn, runs: int = TIMED_RUNS, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def timings(kernel, plain, plain_in_graph: bool = True) -> dict:
+def timings(kernel, plain, plain_in_graph: bool = True,
+            plain_runs: int = TIMED_RUNS) -> dict:
     """The kernel's device time (CUDA graph) and per-call time, and the
     plain version's time measured as the kernel's device time is, from a
-    CUDA graph; per call (CUDA events, the host's enqueue included) only
-    where the plain version waits on the host inside a call, as
-    lid_sweep's does after every step, so that no graph can hold it."""
+    CUDA graph (of `plain_runs` calls); per call (CUDA events, the host's
+    enqueue included) only where the plain version waits on the host
+    inside a call, as lid_sweep's does after every step, so that no graph
+    can hold it."""
     return dict(ms=graph_ms(kernel), call_ms=call_ms(kernel),
-                plain_ms=graph_ms(plain) if plain_in_graph
+                plain_ms=graph_ms(plain, runs=plain_runs) if plain_in_graph
                 else call_ms(plain), plain_in_graph=plain_in_graph)
 
 
@@ -483,8 +502,157 @@ def full_fit(dev, spec, lshp):
     need(res.n_clusters > 0, "the full-width fit found no cluster")
     need(np.isfinite(res.densities).all()
          and res.labels.shape == (n,), "full-width fit output")
-    for name, c in counts.items():
-        need(c > 0, f"kernel {name} was never launched by the fit")
+    for name in REPLACES:
+        if name != "assign":
+            need(counts[name] > 0,
+                 f"kernel {name} was never launched by the fit")
+    return res, counts
+
+
+# ------------------------------------------------------------- serving ----
+def serving_mix(points, n: int, seed: int = 3) -> np.ndarray:
+    """benchmarks/serving_latency.py's query mix on this data: dataset rows,
+    rows jittered by N(0, 0.05), and far noise (uniform in [-60, 60] + 300),
+    in the proportions 7 : 7 : 2, shuffled."""
+    rng = np.random.default_rng(seed)
+    n_far = n // 8
+    n_rows = (n - n_far) // 2
+    base = points[rng.integers(0, len(points), size=n - n_far)]
+    jitter = rng.normal(scale=0.05, size=base.shape)
+    jitter[:n_rows] = 0.0
+    far = rng.uniform(-60, 60, size=(n_far, points.shape[1])) + 300.0
+    queries = np.concatenate([base + jitter, far]).astype(np.float32)
+    rng.shuffle(queries)
+    return queries
+
+
+def composition(q, sup_v, sup_w, dens, k: float, t: float):
+    """The assignment as PyTorch library calls (cuBLAS matmul expansion,
+    exp, segment sum, argmax, threshold): timed as a yardstick, never
+    called by the port."""
+    n_c, a_cap, d = sup_v.shape
+    s = sup_v.reshape(n_c * a_cap, d)
+    d2 = ((q * q).sum(-1)[:, None] + (s * s).sum(-1)[None]
+          - 2.0 * torch.matmul(q, s.T))
+    aff = torch.exp(-k * torch.sqrt(d2.clamp_min(0.0)))
+    score = (aff.view(-1, n_c, a_cap) * sup_w).sum(-1)
+    best = score.argmax(-1)
+    bscore = score.gather(1, best[:, None])[:, 0]
+    return torch.where(bscore >= t * dens[best], best, -1), bscore
+
+
+def check_assign(dev, out, res, mix):
+    """The assign kernel against its plain version at full width."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign import assign_cuda, smem_plan
+    sup_v, sup_w, dens = (torch.as_tensor(x, device=dev) for x in
+                          (res.support_v, res.support_w, res.densities))
+    n_c, a_cap, d = sup_v.shape
+    k, thr = res.k, 0.5
+    q = torch.as_tensor(mix[:256], device=dev)
+    got = assign_cuda(q, sup_v, sup_w, dens, k, thr)
+    want = ref.assign_ref(q, sup_v, sup_w, dens, k, thr)
+    torch.cuda.synchronize()
+    err = float((got[1] - want[1]).abs().max())
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    labelled = int((got[0] >= 0).sum())
+    print(f"[serve] assign m=256 C={n_c} A={a_cap} d={d} k={k:.6g} "
+          f"threshold={thr} smem_plan={smem_plan(d)}: labelled={labelled} "
+          f"max_abs_err={err:.3e} bitwise_equal={same}")
+    need(same, "assign: labels or scores differ from the plain version")
+    need(labelled > 0, "assign: no query of the mix was labelled")
+    # a NaN-poisoned, masked 64-slot batch: pads -1 / 0.0, real rows equal
+    valid = torch.arange(64, device=dev) < 40
+    dirty = q[:64].clone()
+    dirty[40:] = float("nan")
+    g = assign_cuda(dirty, sup_v, sup_w, dens, k, thr, valid)
+    w = ref.assign_ref(dirty, sup_v, sup_w, dens, k, thr, valid)
+    need(torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]),
+         "assign: masked batch differs from the plain version")
+    need(bool((g[0][40:] == -1).all()) and bool((g[1][40:] == 0.0).all()),
+         "assign: masked pad slots must come out -1 and 0.0")
+    need(torch.equal(g[0][:40], got[0][:40])
+         and torch.equal(g[1][:40], got[1][:40]),
+         "assign: poisoned pad rows changed the real rows")
+    print("[serve] assign masked 64-slot batch, NaN pads: bitwise_equal=True")
+    q64 = q[:64]
+    t = timings(lambda: assign_cuda(q64, sup_v, sup_w, dens, k, thr),
+                lambda: ref.assign_ref(q64, sup_v, sup_w, dens, k, thr),
+                plain_runs=3)
+    lib = composition(q64, sup_v, sup_w, dens, k, thr)
+    agree = float((lib[0] == got[0][:64]).float().mean())
+    lib_ms = graph_ms(lambda: composition(q64, sup_v, sup_w, dens, k, thr))
+    m = 64
+    b_ms, b_by = bound(4 * (m * d + n_c * a_cap * (d + 1) + n_c) + 8 * m,
+                       2 * m * n_c * a_cap * d + 2 * n_c * a_cap * d
+                       + 2 * m * d + 9 * m * n_c * a_cap + 2 * m * n_c)
+    out["assign"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    print(f"[serve] assign one 64-slot batch: {time_line(t)} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library_ms=null (no one PyTorch "
+          "call computes distance + exp + segment sum + argmax + "
+          f"threshold); cuBLAS composition {lib_ms:.4f} ms (device time, "
+          f"CUDA graph; yardstick, labels agree on {agree:.4f} of the rows)")
+    return sup_v, sup_w, dens
+
+
+def check_serving(dev, res, points, mix, sup):
+    """The serving path from launch counts at 0: bulk predict, the
+    ClusterService, and run_palid's open-loop ClusterServer bench."""
+    from repro_torch.core.alid import assign_labels
+    from repro_torch.kernels import ops
+    from repro_torch.launch import run_palid
+    from repro_torch.serve import ClusterService
+    queries = run_palid.serve_queries(points)
+    # the reference: each query assigned alone, through predict's own path
+    # (assign_labels) on the resident supports
+    t0 = time.perf_counter()
+    alone = np.asarray([assign_labels(v[None], *sup, res.k, 0.5,
+                                      device=dev)[0] for v in queries],
+                       np.int32)
+    print(f"[serve] per-query assignment of {len(queries)} queries: "
+          f"{time.perf_counter() - t0:.2f}s, labelled="
+          f"{int((alone >= 0).sum())}")
+    ops.reset_launch_counts()
+
+    bulk_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bulk = res.predict(mix, device=dev)
+        bulk_s.append(time.perf_counter() - t0)
+    print(f"[serve] bulk predict of {len(mix)} rows (supports uploaded per "
+          f"call, host clock): {' '.join(f'{x * 1e3:.2f}' for x in bulk_s)} "
+          f"ms, labelled={int((bulk >= 0).sum())}")
+    need(bulk.shape == (len(mix),) and bulk.dtype == np.int32,
+         "bulk predict output")
+
+    svc = ClusterService(res, batch_slots=64, device=dev)
+    t0 = time.perf_counter()
+    rids = [svc.submit(v) for v in queries]
+    served = svc.serve()
+    svc_s = time.perf_counter() - t0
+    svc_labels = np.asarray([served[r] for r in rids], np.int32)
+    print(f"[serve] ClusterService(batch_slots=64) over {len(queries)} "
+          f"queries: {svc_s * 1e3:.2f} ms, equal to per-query "
+          f"assignment: {np.array_equal(svc_labels, alone)}")
+    need(np.array_equal(svc_labels, alone),
+         "ClusterService labels differ from per-query assignment")
+
+    out = run_palid._serve_bench(res, points, SERVE_RATE, device=dev)
+    need(out is not None, "serve bench skipped")
+    same = np.array_equal(out["labels"], svc_labels)
+    st = out["stats"]
+    print(f"[serve] ClusterServer open loop at {SERVE_RATE:.0f} req/s: "
+          f"p50={out['latency_ms_p50']:.4f} ms p99="
+          f"{out['latency_ms_p99']:.4f} ms max={out['latency_ms_max']:.4f} "
+          f"ms throughput={out['throughput_rps']:.1f} req/s occupancy="
+          f"{out['occupancy']:.4f} batches={st['batches']} compute_s="
+          f"{st['compute_s']:.4f} pack_s={st['pack_s']:.4f} queue_wait_s="
+          f"{st['queue_wait_s']:.4f}; labels equal to the service's: {same}")
+    need(same, "ClusterServer labels differ from ClusterService labels")
+    counts = ops.launch_counts()
+    print(f"[serve] launches of the serving path: {counts}")
+    need(counts["assign"] > 0, "the serving path never launched assign")
     return counts
 
 
@@ -514,7 +682,11 @@ def main() -> int:
     check_affinity_matvec(dev, stats)
     check_lid_sweep(dev, stats)
     check_parity_fit(dev)
-    counts = full_fit(dev, spec, lshp)
+    res, counts = full_fit(dev, spec, lshp)
+    mix = serving_mix(spec.points, BULK_ROWS)
+    sup = check_assign(dev, stats, res, mix)
+    counts["assign"] = check_serving(dev, res, spec.points, mix,
+                                     sup)["assign"]
 
     table = []
     for name, s in stats.items():

@@ -7,7 +7,8 @@ local dense subgraph is immune against everything the ROI can still add, or
 c > C. The JAX package vmaps instances over a batch of seeds; here the batch
 is the lanes of every tensor, each lane with its own done mask, and each
 outer iteration runs only on the lanes still going. The peel-reduce driver
-lives in `repro_torch.core.engine`.
+lives in `repro_torch.core.engine`; `assign_labels` is the one assignment
+path of `Clustering.predict` and the serving layer (`repro_torch.serve`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,20 @@ from repro_torch.core.civs import civs_update, top_k
 from repro_torch.core.lid import (density, init_state, lid_solve, put_lanes,
                                   take_lanes)
 from repro_torch.core.roi import estimate_roi
+from repro_torch.core.source import (InMemorySource, is_data_source,
+                                     iter_source_chunks)
+from repro_torch.kernels import ops
 from repro_torch.lsh.pstable import LSHParams, LSHTables
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
 
 
 class EngineSpec(NamedTuple):
@@ -84,6 +98,58 @@ class SeedResult(NamedTuple):
     overflow: torch.Tensor     # (B,) support hit a_cap
 
 
+def assign_labels(q, sup_v, sup_w, densities, k, threshold: float,
+                  backend: str = "auto", valid=None,
+                  device="cuda") -> np.ndarray:
+    """Label queries by max weighted support affinity, -1 below the bar.
+
+    Shared by `Clustering.predict` and the serving layer. Array arguments
+    may be numpy arrays or tensors; tensors already on `device` are used in
+    place, which is how `serve.batching.Tenant` keeps the supports resident
+    on the card instead of uploading them per batch. The score, argmax and
+    threshold chain is one kernel-layer op (`ops.assign_clusters`).
+
+    `valid` ((m,) bool, optional) is the slot-validity mask of a padded
+    fixed-shape batch: pad slots come out -1, real slots are bitwise the
+    unmasked call's. Returns host int32 labels (the call is synchronous).
+    """
+    dev = resolve_device(device)
+
+    def on(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    labels, _ = ops.assign_clusters(
+        on(q, torch.float32), on(sup_v, torch.float32),
+        on(sup_w, torch.float32), on(densities, torch.float32), k,
+        threshold, None if valid is None else on(valid, torch.bool),
+        backend=backend)
+    return labels.cpu().numpy()
+
+
+def assign_labels_source(source, sup_v, sup_w, densities, k,
+                         threshold: float, batch_size: int = 0,
+                         backend: str = "auto",
+                         device="cuda") -> np.ndarray:
+    """Bulk assignment: label every row of a DataSource against the
+    supports in fixed-shape batches of `batch_size` rows (0 = 4096), the
+    tail zero-padded to the same shape and sliced off. The supports go to
+    the device once; peak memory is O(batch x C x A), never O(n)."""
+    bs = int(batch_size) or 4096
+    dev = resolve_device(device)
+    sup_v, sup_w, densities = (torch.as_tensor(x, dtype=torch.float32,
+                                               device=dev)
+                               for x in (sup_v, sup_w, densities))
+    out = np.empty((source.n,), np.int32)
+    for start, block in iter_source_chunks(source, bs):
+        m = block.shape[0]
+        q = block if m == bs else np.concatenate(
+            [block, np.zeros((bs - m, source.dim), np.float32)], axis=0)
+        out[start:start + m] = assign_labels(q, sup_v, sup_w, densities, k,
+                                             threshold, backend,
+                                             device=dev)[:m]
+    return out
+
+
 def _npz_path(path) -> str:
     """np.savez's suffix rule, applied symmetrically on save and load."""
     p = os.fspath(path)
@@ -93,7 +159,8 @@ def _npz_path(path) -> str:
 class Clustering(NamedTuple):
     """Clustering result: labels + per-cluster weighted supports, with the
     same .npz layout as the JAX package's, so a file saved by either loads
-    in the other. `predict` is not ported yet (ROADMAP A9)."""
+    in the other. The supports make it self-contained: `predict` assigns
+    new points without the original dataset."""
     labels: np.ndarray      # (n,) int32, -1 = unclustered / noise
     densities: np.ndarray   # (n_clusters,)
     n_rounds: int
@@ -107,10 +174,34 @@ class Clustering(NamedTuple):
         return int(len(self.densities))
 
     def predict(self, queries, threshold: float = 0.5, batch_size: int = 0,
-                backend: str = "auto") -> np.ndarray:
-        raise NotImplementedError(
-            "Clustering.predict needs the assign kernel, which is not ported "
-            "yet (ROADMAP A9)")
+                backend: str = "auto", device="cuda") -> np.ndarray:
+        """Assign queries to the detected dominant clusters; -1 = none.
+
+        A query joins the cluster of maximal weighted support affinity
+        sum_j w_j exp(-k ||q - v_j||) (paper Eq. 1 against the stored
+        support, O(C x cap) per query whatever n was), if that score is at
+        least `threshold * densities[c]`; far-away noise decays to ~0 and
+        stays unassigned.
+
+        `queries` is an (m, d) array or a DataSource (e.g. a MemmapSource).
+        Arrays go in one call when `batch_size` is 0 or covers them, else
+        in `batch_size`-row batches; a source goes in batches of
+        `batch_size` rows (0 = 4096). Runs on `device` (the card unless
+        the caller asks for the CPU)."""
+        if not is_data_source(queries):
+            q = np.atleast_2d(np.asarray(queries, np.float32))
+            if self.support_v is None or self.n_clusters == 0:
+                return np.full((q.shape[0],), -1, np.int32)
+            if not batch_size or batch_size >= q.shape[0]:
+                return assign_labels(q, self.support_v, self.support_w,
+                                     self.densities, self.k, threshold,
+                                     backend, device=device)
+            queries = InMemorySource(q)
+        if self.support_v is None or self.n_clusters == 0:
+            return np.full((queries.n,), -1, np.int32)
+        return assign_labels_source(queries, self.support_v, self.support_w,
+                                    self.densities, self.k, threshold,
+                                    batch_size, backend, device=device)
 
     def to_dict(self) -> dict:
         out = {

@@ -22,7 +22,8 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.core.affinity import estimate_k
 from repro_torch.core.alid import (ALIDConfig, Clustering, EngineSpec,
-                                   _sample_seeds, alid_from_seed)
+                                   _sample_seeds, alid_from_seed,
+                                   resolve_device)
 from repro_torch.core.source import (DataSource, as_source,
                                      strided_sample_indices)
 from repro_torch.kernels import ops
@@ -36,16 +37,6 @@ _K_SAMPLE = 512
 
 # engines of the JAX package that this port does not have yet
 _NOT_PORTED = {"sharded": "A10", "mesh": "A13", "streamed": "A11"}
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU")
-    return dev
 
 
 def resolve_claims(member_idx: torch.Tensor, member_mask: torch.Tensor,

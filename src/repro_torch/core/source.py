@@ -1,5 +1,6 @@
 """DataSource: the narrow row-access interface `engine.fit` ingests from
-(a numpy copy of the JAX package's `core/source.py`, in-memory source only).
+and `Clustering.predict` labels (a numpy copy of the JAX package's
+`core/source.py`: the in-memory and memmap sources).
 
     n                       number of rows
     dim                     row dimensionality
@@ -52,6 +53,41 @@ class InMemorySource:
 
     def sample(self, idx: np.ndarray) -> np.ndarray:
         return self._pts[np.asarray(idx, np.int64)]
+
+
+class MemmapSource:
+    """An on-disk .npy file read through numpy memmap: only the requested
+    rows are paged in, so host memory stays O(chunk) whatever the file's
+    size. Non-f32 files are converted per request."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        self._mm = np.load(self.path, mmap_mode="r")
+        if self._mm.ndim != 2:
+            raise ValueError("expected a 2-d .npy of shape (n, d), got "
+                             f"{self._mm.shape}")
+
+    @property
+    def n(self) -> int:
+        return self._mm.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self._mm.shape[1]
+
+    def get_chunk(self, start: int, size: int) -> np.ndarray:
+        # a writable copy: torch does not take read-only buffers
+        return np.array(self._mm[start:start + size], np.float32)
+
+    def sample(self, idx: np.ndarray) -> np.ndarray:
+        return np.asarray(self._mm[np.asarray(idx, np.int64)], np.float32)
+
+
+def iter_source_chunks(source: DataSource, chunk_size: int):
+    """Yield (start, block) pairs covering [0, n) in order."""
+    for start in range(0, source.n, chunk_size):
+        yield start, source.get_chunk(start,
+                                      min(chunk_size, source.n - start))
 
 
 def is_data_source(obj) -> bool:

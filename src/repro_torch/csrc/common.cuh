@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace repro_kernels {
@@ -78,6 +79,16 @@ __device__ __forceinline__ float warp_tree32(float acc) {
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
   }
   return acc;
+}
+
+// The argmax order of torch.argmax and jnp.argmax: (score a, index ja)
+// wins over (b, jb) with the larger score, NaN above every number, and on
+// equal scores (or two NaNs) the lower index.
+__device__ __forceinline__ bool beats(float sa, int ja, float sb, int jb) {
+  const bool na = isnan(sa), nb = isnan(sb);
+  if (na != nb) return na;
+  if (!na && sa != sb) return sa > sb;
+  return ja < jb;
 }
 
 // torch.clamp_min(v, 0) / clamp_max(v, c): NaN passes, -0 stays -0

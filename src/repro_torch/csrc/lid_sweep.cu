@@ -42,6 +42,7 @@
 namespace {
 
 using repro_kernels::affinity;
+using repro_kernels::beats;
 using repro_kernels::clamp_max;
 using repro_kernels::clamp_min0;
 using repro_kernels::pinned_dot;
@@ -49,14 +50,6 @@ using repro_kernels::stage_rows;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// a wins over b: larger score, NaN above numbers, equal -> lower slot
-__device__ __forceinline__ bool beats(float sa, int ja, float sb, int jb) {
-  const bool na = isnan(sa), nb = isnan(sb);
-  if (na != nb) return na;
-  if (!na && sa != sb) return sa > sb;
-  return ja < jb;
-}
 
 // pi = sum_j x[j] * ax[j] in the pinned order, by warp 0; every thread
 // gets it through shared memory

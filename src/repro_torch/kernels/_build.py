@@ -47,6 +47,9 @@ SIGNATURES = {
     # support_eps, use_smem, smem_bytes, stream
     "lid_sweep_launch": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I,
                          F, I, F, I, I, P),
+    # q, sup_v, sup_w, dens, valid, scores, labels, bscore,
+    # m, n_clusters, a_cap, d, tq, smem_bytes, k, threshold, stream
+    "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P),
 }
 
 

@@ -1,7 +1,8 @@
-"""The kernel layer of the port: one wrapper per op of the fit's hot path.
+"""The kernel layer of the port: one wrapper per op of the hot paths.
 
 Every hot-path module (`core.affinity`, `core.lid`, `core.roi`, `core.civs`,
-`lsh.pstable`) computes distances, affinities and LSH keys only through
+`lsh.pstable`, and `core.alid.assign_labels` behind predict and serving)
+computes distances, affinities, LSH keys and assignments only through
 these wrappers. Each takes `backend`:
 
   "auto"    the CUDA kernel for tensors on the card, the plain PyTorch
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
+from repro_torch.kernels.assign import assign_cuda
 from repro_torch.kernels.lid_sweep import lid_sweep_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.roi_filter import roi_filter_cuda
@@ -34,6 +36,7 @@ KERNELS = {
     "roi_filter": roi_filter_cuda,
     "affinity_matvec": affinity_matvec_cuda,
     "lid_sweep": lid_sweep_cuda,
+    "assign": assign_cuda,
 }
 
 
@@ -145,3 +148,29 @@ def lsh_hash(x, proj, bias, seg_len: float, *, backend: str = "auto"):
     if mode == "ref":
         return _ref.lsh_hash_ref(x, proj, bias, seg_len)
     return lsh_hash_cuda(x.float(), proj, bias, seg_len)
+
+
+def assign_clusters(q, sup_v, sup_w, dens, k_scale, threshold, valid=None,
+                    *, backend: str = "auto"):
+    """Fused cluster assignment (predict / serving): weighted support
+    affinity scores, argmax over clusters, density-threshold accept.
+
+    q:(m, d), sup_v:(C, A, d), sup_w:(C, A), dens:(C,) -> (labels (m,)
+    int32 with -1 = no cluster, best score (m,) f32). `valid` ((m,) bool or
+    None) is the slot-validity mask of a padded serving batch, applied in
+    the epilogue: invalid rows come out -1 with score 0.0 exactly, and the
+    valid rows are bitwise what the unmasked call gives. With no cluster
+    (C = 0) or no query every label is -1 and nothing launches."""
+    mode = resolve_backend(backend, q)
+    if q.shape[-1] != sup_v.shape[-1]:
+        raise ValueError(f"assign_clusters: queries of dimension "
+                         f"{q.shape[-1]}, supports of {sup_v.shape[-1]}")
+    k = float(torch.tensor(k_scale, dtype=torch.float32))
+    thr = float(torch.tensor(threshold, dtype=torch.float32))
+    m, n_clusters = q.shape[0], sup_w.shape[0]
+    if m == 0 or n_clusters == 0:
+        return (torch.full((m,), -1, dtype=torch.int32, device=q.device),
+                torch.zeros((m,), dtype=torch.float32, device=q.device))
+    if mode == "ref":
+        return _ref.assign_ref(q, sup_v, sup_w, dens, k, thr, valid)
+    return assign_cuda(q, sup_v, sup_w, dens, k, thr, valid)

@@ -6,15 +6,16 @@ op (same formulas, same masking conventions, same `MASK_VALUE` and -inf
 sentinels), with one difference: where the JAX op was vmapped over a batch
 of seeds, these take the batch as a leading tensor dimension.
 
-Every sum that feeds the output of `roi_filter`, `affinity_matvec` or
-`lid_sweep` is taken in a PINNED order, so that a CUDA kernel computing
+Every sum that feeds the output of `roi_filter`, `affinity_matvec`,
+`lid_sweep` or `assign` is taken in a PINNED order, so that a CUDA kernel computing
 the same products in the same order gives the same bits as its plain
 version on the card (an argmax near-tie in LID turns any other rounding
 into other labels):
 
-- `pinned_sum` (d-long sums: |v|^2, dots, pi, the ROI distance): products
-  rounded, then 32 running sums over the chunks of 32 (element t goes to
-  sum t mod 32, chunk after chunk), then a halving tree over the 32;
+- `pinned_sum` (d-long sums: |v|^2, dots, pi, the ROI distance; and the
+  assignment's per-cluster sum over the A supports): products rounded,
+  then 32 running sums over the chunks of 32 (element t goes to sum
+  t mod 32, chunk after chunk), then a halving tree over the 32;
 - `tree_matvec` (the matvec's weighted sum): a halving tree over the
   zero-padded power of two, as the JAX package pins it.
 
@@ -206,6 +207,58 @@ def lid_sweep_ref(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
         it = torch.where(live, it + 1, it)
         cv = torch.where(live, done, cv)
     return x, ax, it, cv
+
+
+def assign_ref(q, sup_v, sup_w, dens, k_scale: float, threshold: float,
+               valid=None):
+    """Fused cluster assignment (`Clustering.predict`, the serving layer):
+    weighted support affinity, argmax over clusters, density threshold.
+
+    q:(m, d), sup_v:(C, A, d), sup_w:(C, A), dens:(C,), valid:(m,) bool or
+    None -> (labels (m,) int32, -1 = no cluster; best score (m,) f32):
+
+        score[i, c] = sum_a w[c, a] exp(-k ||q_i - s_ca||)
+        best[i]     = argmax_c score[i, c]  (first index on ties, NaN wins)
+        label[i]    = best[i] if score[i, best] >= threshold * dens[best]
+                      else -1
+
+    The distance is the clamped expansion of `pairwise_distance_ref`, and
+    the per-cluster sum over a is a segment sum in the `pinned_sum` order
+    (32 running sums over a mod 32, then a halving tree), so the JAX
+    package's (C*A, C) block-diagonal weight matrix is never built. Rows
+    with valid False come out -1 with score 0.0; the others are bitwise
+    the unmasked call's. k and threshold are f32 values as Python floats.
+    The queries go through `pinned_dot` a few rows at a time, so its
+    (rows, C*A, 32) products stay near `_ASSIGN_PAIRS` x 32 floats.
+    """
+    m, d = q.shape
+    n_clusters, a_cap = sup_w.shape
+    s = sup_v.float().reshape(n_clusters * a_cap, d)
+    w = sup_w.float()
+    q32 = q.float()
+    q2 = pinned_sum(q32 * q32)
+    s2 = pinned_sum(s * s)
+    scores = torch.empty((m, n_clusters), dtype=torch.float32,
+                         device=q.device)
+    rows = max(1, _ASSIGN_PAIRS // max(n_clusters * a_cap, 1))
+    for lo in range(0, m, rows):
+        d2 = (q2[lo:lo + rows, None] + s2[None]
+              - 2.0 * pinned_dot(q32[lo:lo + rows], s))
+        aff = torch.exp(-k_scale * torch.sqrt(torch.clamp_min(d2, 0.0)))
+        scores[lo:lo + rows] = pinned_sum(
+            aff.reshape(-1, n_clusters, a_cap) * w)
+    best = torch.argmax(scores, dim=-1)
+    bscore = scores.gather(1, best[:, None])[:, 0]
+    ok = bscore >= threshold * dens.float()[best]
+    labels = torch.where(ok, best, -1).to(torch.int32)
+    if valid is not None:
+        labels = torch.where(valid, labels, -1)
+        bscore = torch.where(valid, bscore, 0.0)
+    return labels, bscore
+
+
+# (query, support) pairs per block of assign_ref's queries
+_ASSIGN_PAIRS = 1 << 21
 
 
 def lsh_hash_ref(x, proj, bias, seg_len: float) -> torch.Tensor:

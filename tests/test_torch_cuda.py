@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. `roi_filter`, `affinity_matvec` and `lid_sweep` sum in the pinned
-order of `repro_torch.kernels.ref` with separate multiplies and adds, so
-their outputs must be bit-equal. `lsh_hash` sums in its own order: its
+card. `roi_filter`, `affinity_matvec`, `lid_sweep` and `assign` sum in the
+pinned order of `repro_torch.kernels.ref` with separate multiplies and
+adds, so their outputs must be bit-equal. `lsh_hash` sums in its own order: its
 keys may differ only where z / seg_len lies within 1e-4 of an integer
 (`kernels.lsh_hash.key_flips`), and on these inputs at most one pair in
 10,000 may. Small shapes with ragged tails; chip_smoke.py checks the main
@@ -116,6 +116,60 @@ def test_lid_sweep_bitwise(dev, cap, d, refresh):
     assert _equal(got, want)
 
 
+def _assign_inputs(dev, m, n_clusters, a_cap, d, seed=0):
+    """Clustered supports and a query mix: rows near the supports, rows
+    between clusters, far noise. k is set from the data's scale so that
+    scores spread and some labels clear the threshold."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32) * 10.0
+    sup_v = centers[:, None] + rng.normal(size=(n_clusters, a_cap, d))
+    sup_w = rng.uniform(0.0, 1.0, (n_clusters, a_cap))
+    sup_w[:, 1::7] = 0.0                               # some zero weights
+    sup_w /= sup_w.sum(1, keepdims=True)
+    pick = rng.integers(0, n_clusters, m)
+    q = centers[pick] + rng.normal(size=(m, d)) * rng.choice(
+        [0.5, 1.0, 3.0], size=(m, 1))
+    q[: m // 8] = rng.uniform(-60, 60, (m // 8, d)) + 300.0
+    k = float(np.float32(1.0 / np.sqrt(2.0 * d)))
+    dens = rng.uniform(0.3, 0.9, n_clusters)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return t(q), t(sup_v), t(sup_w), t(dens), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_clusters,a_cap,d", [
+    (64, 2048, 240, 128),    # one full-width serving batch
+    (77, 37, 240, 128),      # ragged m: a second, partial query tile
+    (5, 9, 240, 256),        # A * d * 4 past 227 KB: supports stream
+    (3, 4, 33, 700),         # d too wide for 64-query tiles: 16-row tiles
+    (1, 1, 4, 6)])
+def test_assign_bitwise(dev, m, n_clusters, a_cap, d):
+    q, sup_v, sup_w, dens, k = _assign_inputs(dev, m, n_clusters, a_cap, d)
+    for thr in (0.5, 0.05):
+        got, want = _both(lambda b: ops.assign_clusters(
+            q, sup_v, sup_w, dens, k, thr, backend=b))
+        assert _equal(got, want)
+        assert bool(torch.isfinite(got[1]).all())
+    assert int((got[0] >= 0).sum()) > 0 or m < 8
+
+
+@pytest.mark.cuda
+def test_assign_masked_batch_bitwise(dev):
+    """A 64-slot batch with 40 real rows and NaN-poisoned pad rows: pads
+    come out -1 and 0.0, real rows bitwise the unpadded call's, and the
+    kernel equals its plain version."""
+    q, sup_v, sup_w, dens, k = _assign_inputs(dev, 64, 300, 240, 128)
+    valid = torch.arange(64, device=dev) < 40
+    dirty = q.clone()
+    dirty[40:] = float("nan")
+    got, want = _both(lambda b: ops.assign_clusters(
+        dirty, sup_v, sup_w, dens, k, 0.1, valid, backend=b))
+    assert _equal(got, want)
+    assert bool((got[0][40:] == -1).all()) and bool((got[1][40:] == 0).all())
+    alone = ops.assign_clusters(q[:40], sup_v, sup_w, dens, k, 0.1)
+    assert _equal((got[0][:40], got[1][:40]), alone)
+
+
 @pytest.mark.cuda
 def test_kernel_counts_and_no_fallback(dev):
     """"auto" on a CUDA tensor launches the kernel (the count moves);
@@ -129,3 +183,10 @@ def test_kernel_counts_and_no_fallback(dev):
                         st.x, K)
     assert ops.launch_counts()["affinity_matvec"] == \
         before["affinity_matvec"] + 1
+    q, sup_v, sup_w, dens, k = _assign_inputs(dev, 8, 3, 16, 12)
+    before = ops.launch_counts()
+    ops.assign_clusters(q, sup_v, sup_w, dens, k, 0.5, backend="ref")
+    assert ops.launch_counts() == before
+    ops.assign_clusters(q, sup_v, sup_w, dens, k, 0.5)
+    ops.assign_clusters(q, sup_v[:0], sup_w[:0], dens[:0], k, 0.5)  # C = 0
+    assert ops.launch_counts()["assign"] == before["assign"] + 1

@@ -113,12 +113,6 @@ def test_npz_saved_by_jax_loads_in_port(tmp_path, fits):
     np.testing.assert_array_equal(back.labels, want.labels)
 
 
-def test_predict_is_not_ported_yet(fits):
-    _, got = fits[False]
-    with pytest.raises(NotImplementedError, match="A9"):
-        got.predict(np.zeros((2, 10), np.float32))
-
-
 @pytest.mark.parametrize("engine,item", [("sharded", "A10"),
                                          ("streamed", "A11"),
                                          ("mesh", "A13")])

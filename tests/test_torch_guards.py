@@ -12,6 +12,8 @@ import torch
 from repro_torch.core import alid as talid
 from repro_torch.core.engine import fit, make_engine
 from repro_torch.kernels import ops
+from repro_torch.launch import run_palid
+from repro_torch.serve import ClusterServer, ClusterService, Tenant
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -44,17 +46,37 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def _tiny_clustering(d=4, cap=3):
+    rng = np.random.default_rng(0)
+    return talid.Clustering(
+        labels=np.zeros(5, np.int32), densities=np.ones(2, np.float32),
+        n_rounds=1, k=0.5, support_idx=np.zeros((2, cap), np.int32),
+        support_w=np.full((2, cap), 1.0 / cap, np.float32),
+        support_v=rng.normal(size=(2, cap, d)).astype(np.float32))
+
+
 def test_entry_points_default_to_the_card():
-    """Without device=, fit and make_engine run on CUDA; where there is no
-    card they raise instead of running on the CPU."""
+    """Without device=, fit, make_engine, predict and the serving layer
+    (Tenant, ClusterService, ClusterServer, run_palid) run on CUDA; where
+    there is no card they raise instead of running on the CPU."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    res = _tiny_clustering()
     if torch.cuda.is_available():
         assert make_engine(talid.EngineSpec()).device.type == "cuda"
+        assert Tenant("t", res).device.type == "cuda"
+        with ClusterServer() as server:
+            assert server.device.type == "cuda"
         return
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_engine(talid.EngineSpec())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        fit(pts, talid.ALIDConfig(max_rounds=1))
+    calls = [lambda: make_engine(talid.EngineSpec()),
+             lambda: fit(pts, talid.ALIDConfig(max_rounds=1)),
+             lambda: res.predict(pts),
+             lambda: Tenant("t", res),
+             lambda: ClusterService(res),
+             lambda: ClusterServer(start=False),
+             lambda: run_palid.main(["--quick"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def _cpu_args():
@@ -77,11 +99,13 @@ def _cpu_args():
             tol=1e-5, backend=b),
         pairwise_distance=lambda b: ops.pairwise_distance(v[0], v[1],
                                                           backend=b),
+        assign=lambda b: ops.assign_clusters(v[0], v, x, torch.ones(2), 0.5,
+                                             0.5, backend=b),
     )
 
 
 @pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
-                                "lid_sweep", "pairwise_distance"])
+                                "lid_sweep", "pairwise_distance", "assign"])
 def test_kernel_backend_on_cpu_raises(op):
     call = _cpu_args()[op]
     before = ops.launch_counts()
