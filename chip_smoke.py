@@ -34,6 +34,19 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    64)` over 1,024 queries, and `run_palid._serve_bench` (ClusterServer +
    open-loop traffic at 2,000 requests/s), whose labels must equal
    per-query assignment and whose `assign` launches must be > 0;
+6. the full-matrix path (estimate_k, affinity_matrix through the affinity
+   kernel, IID / DS peeling, the paper's baselines): (a) the affinity
+   kernel bit-equal to its plain version on rows of the full-width
+   40,000 x 40,000 x 128 block (symmetric bitwise), on LID columns, ragged
+   shapes, NaN rows and a call past 2**31 entries, with its device time,
+   per-call time, plain time, bound and the cuBLAS composition's time;
+   (b) `lid_solve_unfused` (affinity kernel) bit-equal to `lid_solve`
+   (lid_sweep kernel); (c) IID and DS peels at n = 4,000 equal on the
+   kernel's and the plain version's matrices, and one IID solve from CUDA
+   graphs equal to the eager loop, with the time of each; (d) the
+   full-width IID run, `launch/full_matrix.py` at 40,000 x 128, whose
+   `affinity` launches must be > 0; (e) every baseline on the CPU tests'
+   `easy` data, each above its AVG-F floor;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -64,14 +77,18 @@ TIMED_RUNS = 25
 PARITY_N = 20_000
 DEVICE = "cuda:0"
 
-# the JAX package's Pallas kernels the five CUDA kernels replace
+# the JAX package's Pallas kernels the six CUDA kernels replace
 REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:41",
     "roi_filter": "src/repro/kernels/roi_filter.py:46",
     "affinity_matvec": "src/repro/kernels/affinity_matvec.py:50",
     "lid_sweep": "src/repro/kernels/lid_sweep.py:149",
     "assign": "src/repro/kernels/assign.py:52",
+    "affinity": "src/repro/kernels/affinity.py:34",
 }
+# the kernels of the fit (phase 4); serving and the full-matrix path run
+# the others
+FIT_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep")
 # serving: run_palid's defaults, and the bulk predict's rows
 SERVE_RATE = 2000.0
 BULK_ROWS = 4096
@@ -502,10 +519,8 @@ def full_fit(dev, spec, lshp):
     need(res.n_clusters > 0, "the full-width fit found no cluster")
     need(np.isfinite(res.densities).all()
          and res.labels.shape == (n,), "full-width fit output")
-    for name in REPLACES:
-        if name != "assign":
-            need(counts[name] > 0,
-                 f"kernel {name} was never launched by the fit")
+    for name in FIT_KERNELS:
+        need(counts[name] > 0, f"kernel {name} was never launched by the fit")
     return res, counts
 
 
@@ -656,6 +671,257 @@ def check_serving(dev, res, points, mix, sup):
     return counts
 
 
+# -------------------------------------------------------- full matrix ----
+def full_matrix_args() -> list[str]:
+    """launch/full_matrix.py's arguments for the full-matrix configuration:
+    200 blobs of 80 and 24,000 noise points in d = 128 (n = 40,000)."""
+    return [f"--{key.replace('_', '-')}={val}"
+            for key, val in FULL_MATRIX.items()]
+
+
+FULL_MATRIX = dict(n_clusters=200, cluster_size=80, n_noise=24_000, d=128,
+                   seed=0)
+# phase 6c's peels: the same data rule at n = 4,000
+PEEL_DATA = dict(n_clusters=20, cluster_size=80, n_noise=2_400, d=128,
+                 seed=0)
+SLAB = 256        # rows of the full-width block checked against the plain
+BIG = (65_537, 32_800, 16)   # a block of more than 2**31 entries
+
+
+def affinity_library(v, k: float):
+    """The affinity as PyTorch library calls (cuBLAS q c^T, then the norms,
+    clamp, sqrt and exp in place; TF32 off): timed as a yardstick, never
+    called by the port."""
+    q2 = (v * v).sum(-1)
+    g = torch.mm(v, v.T)
+    g.mul_(-2.0).add_(q2[:, None]).add_(q2[None, :]).clamp_min_(0.0)
+    return g.sqrt_().mul_(-k).exp_()
+
+
+def nan_equal(a, b) -> bool:
+    """Bit-equal where both are numbers, NaN at the same places."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def check_affinity(dev, out):
+    """6a: the affinity kernel against its plain version, bitwise."""
+    from repro_torch.core.affinity import estimate_k
+    from repro_torch.data import make_blobs_with_noise
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_cuda, smem_plan
+    spec = make_blobs_with_noise(**FULL_MATRIX)
+    v = torch.as_tensor(spec.points, device=dev)
+    n, d = v.shape
+    k = estimate_k(v)
+    a = affinity_cuda(v, v, k)
+    torch.cuda.synchronize()
+    err = 0.0
+    for lo in (0, n - SLAB):
+        want = ref.affinity_ref(v[lo:lo + SLAB], v, k)
+        err = max(err, float((a[lo:lo + SLAB] - want).abs().max()))
+        need(torch.equal(a[lo:lo + SLAB], want),
+             f"affinity: rows [{lo}, {lo + SLAB}) of the {n} x {n} block "
+             "differ from the plain version")
+    sym = torch.equal(a, a.T)
+    print(f"[affinity] {n}x{n}x{d} k={k:.6g} smem_plan={smem_plan(d)}: rows "
+          f"[0, {SLAB}) and [{n - SLAB}, {n}) bitwise_equal=True, "
+          f"symmetric={sym}")
+    need(sym, "affinity: the full-width block is not bitwise symmetric")
+    cases = []
+    for cap, dd in ((240, 128), (560, 256)):         # a LID column
+        st = live_states(1, cap, dd, dev, seed=cap)
+        cases.append((f"LID column ({cap}, 1, {dd})", st.v_beta[0],
+                      st.v_beta[0, 7:8], k_for(dd)))
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for m_, n_, d_ in ((1, 300, 7), (130, 257, 100)):
+        cases.append((f"ragged ({m_}, {n_}, {d_})",
+                      torch.randn((m_, d_), generator=g).to(dev),
+                      torch.randn((n_, d_), generator=g).to(dev), 0.37))
+    for name, q, c, kk in cases:
+        same = torch.equal(affinity_cuda(q, c, kk), ref.affinity_ref(q, c, kk))
+        print(f"[affinity] {name}: bitwise_equal={same}")
+        need(same, f"affinity: {name} differs from the plain version")
+    q = torch.randn((70, 40), generator=g).to(dev)
+    c = torch.randn((90, 40), generator=g).to(dev)
+    q[3, 7] = float("nan")
+    c[11] = float("nan")
+    got, want = affinity_cuda(q, c, 0.5), ref.affinity_ref(q, c, 0.5)
+    need(nan_equal(got, want) and bool(torch.isnan(got[3]).all()),
+         "affinity: NaN rows come out other than in the plain version")
+    print("[affinity] NaN-poisoned rows: NaN where the plain version puts "
+          "it, other entries bitwise_equal=True")
+    m_, n_, d_ = BIG
+    qb = torch.randn((m_, d_), generator=g).to(dev)
+    cb = torch.randn((n_, d_), generator=g).to(dev)
+    big = affinity_cuda(qb, cb, 0.37)
+    tail = torch.equal(big[-64:], ref.affinity_ref(qb[-64:], cb, 0.37))
+    head = torch.equal(big[:64], ref.affinity_ref(qb[:64], cb, 0.37))
+    print(f"[affinity] {m_}x{n_}x{d_} = {big.numel()} entries (2**31 = "
+          f"{2 ** 31}): last 64 rows bitwise_equal={tail}, first 64 rows "
+          f"bitwise_equal={head}")
+    need(big.numel() > 2 ** 31 and tail and head,
+         "affinity: the block past 2**31 entries differs")
+    del big, qb, cb, a
+    torch.cuda.empty_cache()
+    t = dict(ms=graph_ms(lambda: affinity_cuda(v, v, k), runs=3, replays=3),
+             call_ms=call_ms(lambda: affinity_cuda(v, v, k), runs=5),
+             plain_ms=graph_ms(lambda: ref.affinity_ref(v, v, k), runs=1,
+                               replays=1),
+             plain_in_graph=True)
+    lib_ms = graph_ms(lambda: affinity_library(v, k), runs=3, replays=3)
+    lib = affinity_library(v, k)
+    lib_err = float((lib[:SLAB] - affinity_cuda(v[:SLAB], v, k)).abs().max())
+    del lib
+    torch.cuda.empty_cache()
+    # each input read once and the result written once; the dots, the
+    # norms, and per entry add, double, subtract, scale, sqrt and exp
+    b_ms, b_by = bound(4 * (2 * n * d + n * n),
+                       2 * n * n * d + 4 * n * d + 6 * n * n)
+    out["affinity"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms)
+    print(f"[affinity] {n}x{n}x{d}: {time_line(t)} bound_ms={b_ms:.4f} "
+          f"({b_by}) library_ms={lib_ms:.4f} (cuBLAS q c^T + norms, clamp, "
+          f"sqrt, exp; device time, CUDA graph; a yardstick the port never "
+          f"calls; max_abs_err against the kernel {lib_err:.3e})")
+    return k
+
+
+def check_lid_unfused(dev):
+    """6b: lid_solve_unfused (affinity kernel) == lid_solve (lid_sweep)."""
+    from repro_torch.core.lid import lid_solve, lid_solve_unfused
+    from repro_torch.kernels import ops
+    for bsz, cap, d in ((32, 240, 128), (32, 240, 256), (8, 560, 256)):
+        st = live_states(bsz, cap, d, dev, seed=cap + d)
+        k = k_for(d)
+        ops.reset_launch_counts()
+        fused = lid_solve(st, k, max_iters=200)
+        t0 = time.perf_counter()
+        unfused = lid_solve_unfused(st, k, max_iters=200)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        same = all(torch.equal(getattr(fused, f), getattr(unfused, f))
+                   for f in ("x", "ax", "n_iters", "converged"))
+        print(f"[lid] unfused vs fused B={bsz} cap={cap} d={d}: "
+              f"bitwise_equal={same} iters={int(unfused.n_iters.sum())} "
+              f"(max {int(unfused.n_iters.max())}) unfused_s={dt:.3f} "
+              f"launches lid_sweep={counts['lid_sweep']} "
+              f"affinity={counts['affinity']}")
+        need(int(unfused.n_iters.max()) > 2, "lid: the states did not iterate")
+        need(counts["affinity"] > 0 and counts["lid_sweep"] > 0,
+             "lid: a loop did not go through its kernel")
+        need(same, "lid_solve_unfused differs from lid_solve")
+
+
+def check_peel_parity(dev):
+    """6c: IID and DS peels on the kernel's and the plain version's matrix
+    at n = 4,000."""
+    from repro_torch.core.affinity import affinity_matrix, estimate_k
+    from repro_torch.core.iid import iid_solve, uniform_on
+    from repro_torch.core.peeling import ds_detect, iid_detect
+    from repro_torch.data import make_blobs_with_noise
+    from repro_torch.utils import avg_f1_score
+    spec = make_blobs_with_noise(**PEEL_DATA)
+    v = torch.as_tensor(spec.points, device=dev)
+    k = estimate_k(v)
+    mats = {b: affinity_matrix(v, k, backend=b) for b in ("kernel", "ref")}
+    sym = {b: torch.equal(a, a.T) for b, a in mats.items()}
+    same = torch.equal(mats["kernel"], mats["ref"])
+    print(f"[peel] n={v.shape[0]} d={v.shape[1]} k={k:.6g}: matrices "
+          f"bitwise_equal={same} symmetric={sym}")
+    need(same and all(sym.values()), "peel: the kernel's and the plain "
+         "matrices differ or are not symmetric")
+    # one IID solve from the barycenter, eager and from CUDA graphs
+    x0 = uniform_on(torch.ones(v.shape[0], dtype=torch.bool, device=dev))
+    loops = {}
+    for graphs in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = iid_solve(mats["kernel"], x0, max_iters=3000, graphs=graphs)
+        torch.cuda.synchronize()
+        loops[graphs] = (r, (time.perf_counter() - t0) / int(r.n_iters))
+    eq = all(torch.equal(getattr(loops[False][0], f),
+                         getattr(loops[True][0], f)) for f in r._fields)
+    print(f"[peel] iid_solve {int(r.n_iters)} iterations: "
+          f"{loops[False][1] * 1e6:.1f} us each eager, "
+          f"{loops[True][1] * 1e6:.1f} us from CUDA graphs of 64 (host "
+          f"clock, capture included); bitwise_equal={eq}")
+    need(eq, "iid_solve: the graph replays differ from the eager loop")
+    for name, detect in (("iid", iid_detect), ("ds", ds_detect)):
+        res = {}
+        for b, a in mats.items():
+            t0 = time.perf_counter()
+            res[b] = detect(a)
+            res[b + "_s"] = time.perf_counter() - t0
+        g, w = res["kernel"], res["ref"]
+        eq = (np.array_equal(g.labels, w.labels)
+              and np.array_equal(g.densities, w.densities)
+              and g.n_rounds == w.n_rounds)
+        print(f"[peel] {name}_detect kernel matrix vs plain matrix: "
+              f"equal={eq} rounds={g.n_rounds} clusters={len(g.densities)} "
+              f"AVG-F={avg_f1_score(spec.labels, g.labels):.4f} "
+              f"seconds {res['kernel_s']:.2f} / {res['ref_s']:.2f}")
+        need(eq, f"peel: {name}_detect differs between the matrices")
+
+
+def full_matrix_run(dev):
+    """6d: the full-width IID run from launch counts at 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_matrix
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = full_matrix.main(["--solver", "iid", f"--device={dev}",
+                            *full_matrix_args()])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[full-matrix] n={res['n']} d={res['d']} (not cut): wall="
+          f"{wall:.2f}s affinity_matrix_s={res['matrix_s']:.4f} "
+          f"iid_peel_s={res['peel_s']:.2f} rounds={res['rounds']} "
+          f"clusters={res['clusters']} AVG-F={res['avg_f']:.4f} (reported, "
+          f"not gated) max_memory_allocated={res['peak_bytes']} "
+          f"launches={counts}")
+    peel = res["result"]
+    need(peel.labels.shape == (res["n"],) and res["rounds"] > 0
+         and np.isfinite(peel.densities).all(), "full-matrix output")
+    need(counts["affinity"] > 0, "the full-matrix path never launched "
+         "the affinity kernel")
+    return counts
+
+
+def check_baselines(dev):
+    """6e: every baseline on the card, on tests/test_baselines.py's easy
+    data, above that file's AVG-F floor."""
+    from repro_torch.core import baselines as tb
+    from repro_torch.core.affinity import affinity_matrix, estimate_k
+    from repro_torch.core.peeling import ds_detect, iid_detect
+    from repro_torch.data import make_blobs_with_noise
+    from repro_torch.utils import avg_f1_score
+    spec = make_blobs_with_noise(n_clusters=4, cluster_size=25, n_noise=60,
+                                 d=8, seed=7, overlap_pairs=0)
+    pts = spec.points
+    k = estimate_k(torch.as_tensor(pts, device=dev))
+    a = affinity_matrix(torch.as_tensor(pts, device=dev), k)
+    runs = [("iid_detect", 0.75, lambda: iid_detect(a).labels),
+            ("ds_detect", 0.7, lambda: ds_detect(a).labels),
+            ("sea_detect", 0.4, lambda: tb.sea_detect(pts, k,
+                                                      device=dev).labels),
+            ("affinity_propagation", 0.5,
+             lambda: tb.affinity_propagation(pts, device=dev)[0]),
+            ("kmeans", 0.5, lambda: tb.kmeans(pts, 5, device=dev)[0]),
+            ("spectral_clustering", 0.5,
+             lambda: tb.spectral_clustering(pts, 5, k, device=dev)),
+            ("mean_shift", 0.5,
+             lambda: tb.mean_shift(pts, bandwidth=12.0, device=dev)[0])]
+    for name, floor, run in runs:
+        t0 = time.perf_counter()
+        score = avg_f1_score(spec.labels, run())
+        print(f"[baseline] {name}: AVG-F={score:.4f} (floor {floor}) "
+              f"{time.perf_counter() - t0:.2f}s")
+        need(score > floor, f"{name}: AVG-F {score} <= {floor}")
+
+
 def main() -> int:
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
@@ -687,6 +953,14 @@ def main() -> int:
     sup = check_assign(dev, stats, res, mix)
     counts["assign"] = check_serving(dev, res, spec.points, mix,
                                      sup)["assign"]
+    del res, sup, mix, spec
+    torch.cuda.empty_cache()
+
+    check_affinity(dev, stats)
+    check_lid_unfused(dev)
+    check_peel_parity(dev)
+    counts["affinity"] = full_matrix_run(dev)["affinity"]
+    check_baselines(dev)
 
     table = []
     for name, s in stats.items():
@@ -696,7 +970,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None})
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms")})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.affinity import affinity_column
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import pinned_sum
 
 
 class LIDState(NamedTuple):
@@ -93,6 +95,60 @@ def lid_solve(state: LIDState, k: float, max_iters: int = 200,
             n_steps=n_steps, max_iters=max_iters, tol=tol, p=p,
             refresh_every=refresh_every, support_eps=support_eps,
             backend=backend)
+    return state._replace(x=x, ax=ax, n_iters=it, converged=cv)
+
+
+def lid_solve_unfused(state: LIDState, k: float, max_iters: int = 200,
+                      tol: float = 1e-5, p: float = 2.0,
+                      backend: str = "auto") -> LIDState:
+    """The reference loop: one LID iteration per step, every lane checked
+    on the host after each, the affinity column computed apart by
+    `affinity_column` (the `affinity` kernel on the card). It is the
+    bit-parity oracle of `lid_solve`'s fused sweeps: the same operations in
+    the same order as `kernels.ref.lid_sweep_ref` (pi in the pinned order),
+    so on equal inputs it gives `lid_solve`'s bits whatever its
+    `sweep_steps`. Not called on any hot path.
+
+    A lane whose step finds convergence, or whose guard ~converged &
+    n_iters < max_iters is false, computes no column: its iteration stays
+    O(cap), as the JAX package's `lax.cond` keeps it."""
+    v_beta, idx, mask = state.v_beta, state.beta_idx, state.beta_mask
+    x, ax = state.x.float().clone(), state.ax.float().clone()
+    it = state.n_iters.to(torch.int32).clone()
+    cv = torch.zeros_like(state.converged)
+    lanes = torch.arange(x.shape[0], device=x.device)
+    slot = torch.arange(x.shape[1], device=x.device)
+    while True:
+        live = (~cv) & (it < max_iters)
+        if not bool(live.any()):
+            break
+        pi = pinned_sum(x * ax)
+        r = torch.where(mask, ax - pi[:, None], 0.0)
+        c1 = mask & (r > tol)
+        c2 = mask & (r < -tol) & (x > 0.0)
+        score = torch.where(c1 | c2, r.abs(), float("-inf"))
+        i = torch.argmax(score, dim=-1)
+        done = score[lanes, i] <= tol
+        go = torch.nonzero(live & ~done)[:, 0]
+        if go.numel():
+            g = i[go]
+            ri, xi, axi = r[go, g], x[go, g], ax[go, g]
+            mu = torch.where(ri > 0.0, 1.0,
+                             xi / torch.clamp_max(xi - 1.0, -1e-12))
+            num = mu * ri
+            den = mu * mu * (-2.0 * axi + pi[go])
+            eps = torch.where(den < 0.0, torch.clamp_max(-num / den, 1.0),
+                              1.0)
+            scale = (eps * mu)[:, None]
+            col = affinity_column(v_beta[go], idx[go], v_beta[go, g],
+                                  idx[go, g], k, p, backend)
+            col = torch.where(mask[go], col, 0.0)
+            onehot = (slot[None, :] == g[:, None]).float()
+            xg, axg = x[go], ax[go]
+            x[go] = torch.clamp_min(xg + scale * (onehot - xg), 0.0)
+            ax[go] = axg + scale * (col - axg)
+        it = torch.where(live, it + 1, it)
+        cv = torch.where(live, done, cv)
     return state._replace(x=x, ax=ax, n_iters=it, converged=cv)
 
 

@@ -107,4 +107,127 @@ __device__ __forceinline__ float affinity(float a2, float b2, float dot,
   return expf(__fmul_rn(-k, sqrtf(clamp_min0(d2))));
 }
 
+// The register tile of pinned dots that the assign and affinity kernels
+// share: a block of kTileThreads threads; thread t holds the TQ x kTA dots
+// of query rows t / kSupGroups + kQueryGroups * r (r < TQ) against the rows
+// t % kSupGroups + kSupGroups * c (c < kTA) of a kChunkRows-row chunk, both
+// staged in shared memory as zero-padded rows of stride ld.
+constexpr int kTileThreads = 128;
+constexpr int kTA = 4;                                // chunk rows per thread
+constexpr int kChunkRows = 32;                        // rows of a chunk
+constexpr int kSupGroups = kChunkRows / kTA;          // 8
+constexpr int kQueryGroups = kTileThreads / kSupGroups;  // 16
+
+// leaf J of the halving tree over 32 running sums, in the order in which a
+// streaming evaluation meets them: running sum kLane, and the number of
+// completed left siblings it closes (the trailing one bits of J)
+template <int J>
+struct Leaf {
+  static constexpr int kLane = ((J & 1) << 4) | ((J & 2) << 2) | (J & 4) |
+                               ((J & 8) >> 2) | ((J & 16) >> 4);
+  static constexpr int kMerges =
+      (J & 1) ? ((J & 2) ? ((J & 4) ? ((J & 8) ? ((J & 16) ? 5 : 4) : 3)
+                                    : 2)
+                         : 1)
+              : 0;
+};
+
+// The TQ x kTA dots of one thread, q rows tq + 16 r against support rows
+// ta + 8 t, each in the pinned order: running sum l = q[l] s[l] + q[l+32]
+// s[l+32] + ... (columns past d are zero in shared memory, so their
+// products are +0 as in the zero-padded plain version), folded into the
+// halving tree s[l] + s[l + half] as soon as it is complete.
+template <int TQ, int J>
+struct PinnedDots {
+  static __device__ __forceinline__ void run(
+      const float* qs, const float* ss, int ld, int nch, int tq, int ta,
+      float (&stack)[5][TQ][kTA], float (&dot)[TQ][kTA]) {
+    constexpr int l = Leaf<J>::kLane;
+    float leaf[TQ][kTA];
+    {
+      float qv[TQ], sv[kTA];
+#pragma unroll
+      for (int r = 0; r < TQ; ++r) {
+        qv[r] = qs[(tq + kQueryGroups * r) * ld + l];
+      }
+#pragma unroll
+      for (int t = 0; t < kTA; ++t) sv[t] = ss[(ta + kSupGroups * t) * ld + l];
+#pragma unroll
+      for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+        for (int t = 0; t < kTA; ++t) leaf[r][t] = __fmul_rn(qv[r], sv[t]);
+      }
+    }
+    for (int c = 1; c < nch; ++c) {
+      const int col = (c << 5) + l;
+      float qv[TQ], sv[kTA];
+#pragma unroll
+      for (int r = 0; r < TQ; ++r) {
+        qv[r] = qs[(tq + kQueryGroups * r) * ld + col];
+      }
+#pragma unroll
+      for (int t = 0; t < kTA; ++t) {
+        sv[t] = ss[(ta + kSupGroups * t) * ld + col];
+      }
+#pragma unroll
+      for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+        for (int t = 0; t < kTA; ++t) {
+          leaf[r][t] = __fadd_rn(leaf[r][t], __fmul_rn(qv[r], sv[t]));
+        }
+      }
+    }
+    constexpr int merges = Leaf<J>::kMerges;
+#pragma unroll
+    for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+      for (int t = 0; t < kTA; ++t) {
+        float v = leaf[r][t];
+#pragma unroll
+        for (int lvl = 0; lvl < merges; ++lvl) {
+          v = __fadd_rn(stack[lvl][r][t], v);
+        }
+        if constexpr (merges < 5) {
+          stack[merges][r][t] = v;
+        } else {
+          dot[r][t] = v;
+        }
+      }
+    }
+    PinnedDots<TQ, J + 1>::run(qs, ss, ld, nch, tq, ta, stack, dot);
+  }
+};
+
+template <int TQ>
+struct PinnedDots<TQ, 32> {
+  static __device__ __forceinline__ void run(
+      const float*, const float*, int, int, int, int,
+      float (&)[5][TQ][kTA], float (&)[TQ][kTA]) {}
+};
+
+// |r|^2 of one zero-padded shared row, by a warp, in the pinned order
+__device__ __forceinline__ float warp_row_sq(const float* row, int nch,
+                                             int lane) {
+  float acc = __fmul_rn(row[lane], row[lane]);
+  for (int c = 1; c < nch; ++c) {
+    const float v = row[(c << 5) + lane];
+    acc = __fadd_rn(acc, __fmul_rn(v, v));
+  }
+  return warp_tree32(acc);
+}
+
+// Copy `rows` rows of d floats (row stride d) into n_rows shared rows of
+// stride ld, zero past column d and past the last real row.
+__device__ __forceinline__ void stage(float* dst, int ld, int dp,
+                                      const float* __restrict__ src,
+                                      int rows, int d, int n_rows) {
+  for (int e = threadIdx.x; e < n_rows * dp; e += blockDim.x) {
+    const int r = e / dp;
+    const int col = e - r * dp;
+    dst[r * ld + col] =
+        (r < rows && col < d) ? __ldg(src + static_cast<long>(r) * d + col)
+                              : 0.f;
+  }
+}
+
 }  // namespace repro_kernels

@@ -1,6 +1,12 @@
 """Synthetic data per paper Sec. 5.2 (a numpy copy of the JAX package's
 `data/synthetic.py`): Gaussian blobs, some partially overlapped, with
-random diagonal covariances in [0, 10], plus uniform background noise."""
+random diagonal covariances in [0, 10], plus uniform background noise, in
+the three a* regimes of Table 1:
+
+  regime "omega": a* = omega * n / 20  (clean source: clusters grow with n)
+  regime "eta":   a* = n^eta / 20      (noisy source: sub-linear growth)
+  regime "P":     a* = P / 20          (size-limited clusters, Dunbar bound)
+"""
 
 from __future__ import annotations
 
@@ -47,6 +53,29 @@ def make_blobs_with_noise(
     labels = np.concatenate(labels).astype(np.int32)
     perm = rng.permutation(points.shape[0])
     return SyntheticSpec(points[perm], labels[perm], n_clusters)
+
+
+def make_regime_dataset(
+    n: int,
+    regime: str,
+    d: int = 16,
+    n_clusters: int = 20,
+    omega: float = 1.0,
+    eta: float = 0.9,
+    P: int = 1000,
+    seed: int = 0,
+) -> SyntheticSpec:
+    if regime == "omega":
+        a_star = max(2, int(omega * n / n_clusters))
+    elif regime == "eta":
+        a_star = max(2, int(n**eta / n_clusters))
+    elif regime == "P":
+        a_star = max(2, int(P / n_clusters))
+    else:
+        raise ValueError(f"unknown regime {regime!r}")
+    a_star = min(a_star, n // n_clusters)
+    n_noise = max(0, n - n_clusters * a_star)
+    return make_blobs_with_noise(n_clusters, a_star, n_noise, d=d, seed=seed)
 
 
 def auto_lsh_params(

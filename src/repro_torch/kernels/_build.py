@@ -50,6 +50,8 @@ SIGNATURES = {
     # q, sup_v, sup_w, dens, valid, scores, labels, bscore,
     # m, n_clusters, a_cap, d, tq, smem_bytes, k, threshold, stream
     "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P),
+    # q, c, out, batch, m, n, d, tq, smem_bytes, k, stream
+    "affinity_launch": (P, P, P, I, I, I, I, I, I, F, P),
 }
 
 

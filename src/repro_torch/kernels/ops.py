@@ -1,9 +1,10 @@
 """The kernel layer of the port: one wrapper per op of the hot paths.
 
 Every hot-path module (`core.affinity`, `core.lid`, `core.roi`, `core.civs`,
-`lsh.pstable`, and `core.alid.assign_labels` behind predict and serving)
-computes distances, affinities, LSH keys and assignments only through
-these wrappers. Each takes `backend`:
+`lsh.pstable`, `core.alid.assign_labels` behind predict and serving, and
+the full-matrix baselines through `core.affinity`) computes distances,
+affinities, LSH keys and assignments only through these wrappers. Each
+takes `backend`:
 
   "auto"    the CUDA kernel for tensors on the card, the plain PyTorch
             version (`kernels.ref`) for tensors on the CPU;
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.affinity import affinity_cuda
 from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
 from repro_torch.kernels.assign import assign_cuda
 from repro_torch.kernels.lid_sweep import lid_sweep_cuda
@@ -37,6 +39,7 @@ KERNELS = {
     "affinity_matvec": affinity_matvec_cuda,
     "lid_sweep": lid_sweep_cuda,
     "assign": assign_cuda,
+    "affinity": affinity_cuda,
 }
 
 
@@ -81,6 +84,23 @@ def pairwise_distance(q, c, p: float = 2.0, *, backend: str = "auto"):
     metadata. `backend` is validated for signature uniformity."""
     resolve_backend(backend, q)
     return _ref.pairwise_distance_ref(q, c, p)
+
+
+def affinity(q, c, k_scale: float, p: float = 2.0, *, backend: str = "auto"):
+    """exp(-k ||q_i - c_j||_p) for q:(..., m, d), c:(..., n, d) -> (..., m, n)
+    f32, with no diagonal logic. The kernel takes f32 only: bf16 storage
+    waits for ROADMAP queue item "bf16 storage"."""
+    mode = resolve_backend(backend, q)
+    check_norm(mode, p, "affinity")
+    if mode == "ref":
+        return _ref.affinity_ref(q, c, k_scale, p)
+    if q.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"affinity: the kernel takes float32 only, got "
+                        f"{q.dtype} and {c.dtype} (bf16 storage is ROADMAP "
+                        "queue item 'bf16 storage')")
+    lead = torch.broadcast_shapes(q.shape[:-2], c.shape[:-2])
+    return affinity_cuda(q.expand(*lead, *q.shape[-2:]),
+                         c.expand(*lead, *c.shape[-2:]), k_scale)
 
 
 def affinity_matvec(q, q_idx, c, c_idx, w, k_scale: float, p: float = 2.0,

@@ -7,10 +7,10 @@ sentinels), with one difference: where the JAX op was vmapped over a batch
 of seeds, these take the batch as a leading tensor dimension.
 
 Every sum that feeds the output of `roi_filter`, `affinity_matvec`,
-`lid_sweep` or `assign` is taken in a PINNED order, so that a CUDA kernel computing
-the same products in the same order gives the same bits as its plain
-version on the card (an argmax near-tie in LID turns any other rounding
-into other labels):
+`lid_sweep`, `assign` or `affinity` is taken in a PINNED order, so that a
+CUDA kernel computing the same products in the same order gives the same
+bits as its plain version on the card (an argmax near-tie in LID turns
+any other rounding into other labels):
 
 - `pinned_sum` (d-long sums: |v|^2, dots, pi, the ROI distance; and the
   assignment's per-cluster sum over the A supports): products rounded,
@@ -90,30 +90,51 @@ def pinned_dot(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return _tree32(acc)
 
 
-def pairwise_distance_ref(q: torch.Tensor, c: torch.Tensor,
-                          p: float = 2.0) -> torch.Tensor:
-    """||q_i - c_j||_p in f32: (..., m, d), (..., n, d) -> (..., m, n).
-
-    p=2 uses the expansion |q|^2 + |c|^2 - 2 q c^T, clamped at 0, the form
-    the kernels compute, with every d-sum in the pinned order; other p fall
-    back to broadcast abs-power."""
-    q32 = q.float()
-    c32 = c.float()
+def _distance_rows(q32: torch.Tensor, c32: torch.Tensor, c2, p: float):
+    """The (..., rows, n) distances of one block of query rows."""
     if p == 2.0:
         q2 = pinned_sum(q32 * q32).unsqueeze(-1)
-        c2 = pinned_sum(c32 * c32).unsqueeze(-2)
         d2 = q2 + c2 - 2.0 * pinned_dot(q32, c32)
         return torch.sqrt(torch.clamp_min(d2, 0.0))
     diff = (q32.unsqueeze(-2) - c32.unsqueeze(-3)).abs()
     return diff.pow(p).sum(-1).pow(1.0 / p)
 
 
+def pairwise_distance_ref(q: torch.Tensor, c: torch.Tensor,
+                          p: float = 2.0) -> torch.Tensor:
+    """||q_i - c_j||_p in f32: (..., m, d), (..., n, d) -> (..., m, n).
+
+    p=2 uses the expansion |q|^2 + |c|^2 - 2 q c^T, clamped at 0, the form
+    the kernels compute, with every d-sum in the pinned order; other p fall
+    back to broadcast abs-power. Taken a block of q's rows at a time, so
+    that the per-block products, (..., rows, n, 32) floats for p = 2 and
+    (..., rows, n, d) otherwise, stay near `_DIST_ELEMS` and memory stays
+    O(m n). Every entry is computed on its own, so the blocks change no
+    bit of the result."""
+    q32, c32 = q.float(), c.float()
+    m, n, d = q32.shape[-2], c32.shape[-2], q32.shape[-1]
+    lead = torch.broadcast_shapes(q32.shape[:-2], c32.shape[:-2])
+    out = torch.empty((*lead, m, n), dtype=torch.float32, device=q.device)
+    c2 = pinned_sum(c32 * c32).unsqueeze(-2) if p == 2.0 else None
+    width = _LANES if p == 2.0 else max(d, 1)
+    per_row = max(out[..., :1, :].numel() * width, 1)
+    rows = max(1, _DIST_ELEMS // per_row)
+    for lo in range(0, m, rows):
+        out[..., lo:lo + rows, :] = _distance_rows(
+            q32[..., lo:lo + rows, :], c32, c2, p)
+    return out
+
+
+# floats of one block's products in pairwise_distance_ref (256 MB)
+_DIST_ELEMS = 1 << 26
+
+
 def affinity_ref(q: torch.Tensor, c: torch.Tensor, k_scale: float,
                  p: float = 2.0) -> torch.Tensor:
     """exp(-k * ||q_i - c_j||_p): no diagonal logic. k is the fit's one
-    f32 scale, as a Python float."""
-    dist = pairwise_distance_ref(q, c, p)
-    return torch.exp(-k_scale * dist).to(q.dtype)
+    f32 scale, as a Python float. The exp is taken in place, so the only
+    (m, n) tensor is the result."""
+    return pairwise_distance_ref(q, c, p).mul_(-k_scale).exp_().to(q.dtype)
 
 
 def affinity_matvec_ref(q, q_idx, c, c_idx, w, k_scale,

@@ -56,3 +56,9 @@ def canonical_labels(labels: np.ndarray) -> np.ndarray:
     rank[np.argsort(first, kind="stable")] = np.arange(ids.size)
     out[pos] = rank[np.searchsorted(ids, labels[pos])]
     return out
+
+
+def label_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of points with the same canonical label (1.0 = identical
+    clustering up to relabeling)."""
+    return float(np.mean(canonical_labels(a) == canonical_labels(b)))

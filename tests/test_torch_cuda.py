@@ -1,11 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. `roi_filter`, `affinity_matvec`, `lid_sweep` and `assign` sum in the
-pinned order of `repro_torch.kernels.ref` with separate multiplies and
-adds, so their outputs must be bit-equal. `lsh_hash` sums in its own order: its
-keys may differ only where z / seg_len lies within 1e-4 of an integer
-(`kernels.lsh_hash.key_flips`), and on these inputs at most one pair in
-10,000 may. Small shapes with ragged tails; chip_smoke.py checks the main
-path's shapes.
+card. `roi_filter`, `affinity_matvec`, `lid_sweep`, `assign` and `affinity`
+sum in the pinned order of `repro_torch.kernels.ref` with separate
+multiplies and adds, so their outputs must be bit-equal. `lsh_hash` sums
+in its own order: its keys may differ only where z / seg_len lies within
+1e-4 of an integer (`kernels.lsh_hash.key_flips`), and on these inputs at
+most one pair in 10,000 may. Small shapes with ragged tails;
+chip_smoke.py checks the main path's shapes.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed: `PYTHONPATH=src python -m pytest -q -m cuda
@@ -16,7 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.lid import LIDState, refresh_ax
+from repro_torch.core.affinity import affinity_matrix, estimate_k
+from repro_torch.core.iid import iid_solve, uniform_on
+from repro_torch.core.lid import LIDState, lid_solve, lid_solve_unfused, \
+    refresh_ax
+from repro_torch.core.peeling import ds_detect, iid_detect
+from repro_torch.core.rd import replicator_solve
 from repro_torch.kernels import ops
 from repro_torch.kernels.lsh_hash import key_flips
 
@@ -190,3 +195,125 @@ def test_kernel_counts_and_no_fallback(dev):
     ops.assign_clusters(q, sup_v, sup_w, dens, k, 0.5)
     ops.assign_clusters(q, sup_v[:0], sup_w[:0], dens[:0], k, 0.5)  # C = 0
     assert ops.launch_counts()["assign"] == before["assign"] + 1
+    before = ops.launch_counts()
+    ops.affinity(st.v_beta, st.v_beta, K, backend="ref")
+    assert ops.launch_counts() == before
+    ops.affinity(st.v_beta, st.v_beta, K)
+    ops.affinity(st.v_beta[:, :0], st.v_beta, K)               # m = 0
+    assert ops.launch_counts()["affinity"] == before["affinity"] + 1
+    with pytest.raises(TypeError, match="float32"):
+        ops.affinity(st.v_beta.half(), st.v_beta.half(), K)
+    with pytest.raises(NotImplementedError, match="p=1.0"):
+        ops.affinity(st.v_beta, st.v_beta, K, p=1.0)
+
+
+def _equal_nan(a, b):
+    """Bit-equal where both are numbers, NaN at the same places."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,m,n,d", [
+    ((), 1, 300, 7), ((), 130, 257, 100),     # the JAX test's ragged shapes
+    ((), 64, 2000, 128),                      # full tiles, several panels
+    ((), 240, 1, 128), ((), 560, 1, 256),     # a LID column
+    ((), 5, 33, 700),                         # d too wide: 16-row tiles
+    ((3,), 48, 1, 16)])                       # a batch of columns
+def test_affinity_bitwise(dev, lead, m, n, d):
+    rng = np.random.default_rng(m * n + d)
+    q = torch.tensor(rng.normal(size=(*lead, m, d)).astype(np.float32),
+                     device=dev)
+    c = torch.tensor(rng.normal(size=(*lead, n, d)).astype(np.float32),
+                     device=dev)
+    got, want = _both(lambda b: ops.affinity(q, c, 0.37, backend=b))
+    assert got.shape == (*lead, m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_affinity_nan_rows(dev):
+    """NaN in a row of q or c comes out where the plain version puts it:
+    the clamp at 0 lets NaN through (torch.clamp_min), as fmaxf would not.
+    """
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.normal(size=(70, 40)).astype(np.float32),
+                     device=dev)
+    c = torch.tensor(rng.normal(size=(90, 40)).astype(np.float32),
+                     device=dev)
+    q[3, 7] = float("nan")
+    c[11] = float("nan")
+    got, want = _both(lambda b: ops.affinity(q, c, 0.5, backend=b))
+    assert bool(torch.isnan(got[3]).all()) and bool(
+        torch.isnan(got[:, 11]).all())
+    assert _equal_nan(got, want)
+
+
+@pytest.mark.cuda
+def test_affinity_matrix_symmetric(dev):
+    """affinity_matrix is bitwise symmetric with a zero diagonal, through
+    the kernel and through the plain version, and the two are equal."""
+    rng = np.random.default_rng(6)
+    v = torch.tensor(rng.normal(size=(333, 24)).astype(np.float32) * 3,
+                     device=dev)
+    got, want = _both(lambda b: affinity_matrix(v, 0.2, backend=b))
+    for a in (got, want):
+        assert torch.equal(a, a.T)
+        assert bool((torch.diagonal(a) == 0).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,d", [(48, 16), (240, 128), (560, 256)])
+def test_lid_solve_unfused_equals_fused(dev, cap, d):
+    """lid_solve_unfused (its columns from the affinity kernel) equals
+    lid_solve (the lid_sweep kernel) bit for bit."""
+    st = _states(dev, bsz=4, cap=cap, d=d, n_valid=cap - 3)
+    fused = lid_solve(st, K, max_iters=200)
+    unfused = lid_solve_unfused(st, K, max_iters=200)
+    assert int(unfused.n_iters.max()) > 2
+    for name in ("x", "ax", "n_iters", "converged"):
+        assert torch.equal(getattr(fused, name), getattr(unfused, name)), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detect", [iid_detect, ds_detect])
+def test_peel_kernel_matrix_equals_plain(dev, detect):
+    """A peel on the kernel's matrix equals one on the plain version's."""
+    rng = np.random.default_rng(8)
+    centers = rng.normal(size=(4, 8)) * 20.0
+    pts = np.concatenate([centers[i] + rng.normal(size=(25, 8))
+                          for i in range(4)]
+                         + [rng.uniform(-40, 40, (60, 8))])
+    v = torch.tensor(pts.astype(np.float32), device=dev)
+    k = estimate_k(v)                 # 0.0269: four clusters of density 0.86
+    got, want = _both(lambda b: detect(affinity_matrix(v, k, backend=b)))
+    assert np.array_equal(got.labels, want.labels)
+    assert np.array_equal(got.densities, want.densities)
+    assert got.n_rounds == want.n_rounds and len(got.densities) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve", [iid_solve, replicator_solve],
+                         ids=["iid", "rd"])
+def test_solver_graphs_change_no_bit(dev, solve):
+    """Chunks replayed from a CUDA graph equal the eager loop bitwise, for
+    any chunk size, up to a budget that ends mid-chunk."""
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(3, 6)) * 10.0
+    pts = np.concatenate([c + rng.normal(size=(40, 6)) for c in centers]
+                         + [rng.uniform(-30, 30, (80, 6))])
+    a = affinity_matrix(torch.tensor(pts.astype(np.float32), device=dev),
+                        0.2)
+    act = torch.tensor(rng.random(len(pts)) < 0.8, device=dev)
+    x0 = uniform_on(act)
+    want = solve(a, x0, max_iters=3000, active=act, chunk=1, graphs=False)
+    assert int(want.n_iters) > 10
+    for chunk, budget in ((1, 3000), (16, 3000), (64, 3000), (16, 37)):
+        got = solve(a, x0, max_iters=budget, active=act, chunk=chunk)
+        ref = want if budget == 3000 else solve(
+            a, x0, max_iters=budget, active=act, graphs=False)
+        for name in ("x", "density", "n_iters", "converged"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), \
+                (chunk, budget, name)

@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from repro_torch.core import alid as talid
+from repro_torch.core import baselines
 from repro_torch.core.engine import fit, make_engine
 from repro_torch.kernels import ops
-from repro_torch.launch import run_palid
+from repro_torch.launch import full_matrix, run_palid
 from repro_torch.serve import ClusterServer, ClusterService, Tenant
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,6 +41,13 @@ def _imported_roots(path: Path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+             if "repro_torch" in p.parts}
+    assert {"kernels/affinity.py", "core/iid.py", "core/rd.py",
+            "core/peeling.py", "core/baselines/sea.py",
+            "core/baselines/ap.py", "core/baselines/kmeans.py",
+            "core/baselines/spectral.py", "core/baselines/meanshift.py",
+            "launch/full_matrix.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -56,9 +64,11 @@ def _tiny_clustering(d=4, cap=3):
 
 
 def test_entry_points_default_to_the_card():
-    """Without device=, fit, make_engine, predict and the serving layer
-    (Tenant, ClusterService, ClusterServer, run_palid) run on CUDA; where
-    there is no card they raise instead of running on the CPU."""
+    """Without device=, fit, make_engine, predict, the serving layer
+    (Tenant, ClusterService, ClusterServer, run_palid) and the full-matrix
+    baselines (sea_detect, affinity_propagation, kmeans,
+    spectral_clustering, mean_shift, full_matrix) run on CUDA; where there
+    is no card they raise instead of running on the CPU."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     res = _tiny_clustering()
     if torch.cuda.is_available():
@@ -73,7 +83,13 @@ def test_entry_points_default_to_the_card():
              lambda: Tenant("t", res),
              lambda: ClusterService(res),
              lambda: ClusterServer(start=False),
-             lambda: run_palid.main(["--quick"])]
+             lambda: run_palid.main(["--quick"]),
+             lambda: baselines.sea_detect(pts, 0.5),
+             lambda: baselines.affinity_propagation(pts),
+             lambda: baselines.kmeans(pts, 3),
+             lambda: baselines.spectral_clustering(pts, 3, 0.5),
+             lambda: baselines.mean_shift(pts, 1.0),
+             lambda: full_matrix.main(["--n-clusters", "2"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -101,11 +117,13 @@ def _cpu_args():
                                                           backend=b),
         assign=lambda b: ops.assign_clusters(v[0], v, x, torch.ones(2), 0.5,
                                              0.5, backend=b),
+        affinity=lambda b: ops.affinity(v, v[:, :3], 0.5, backend=b),
     )
 
 
 @pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
-                                "lid_sweep", "pairwise_distance", "assign"])
+                                "lid_sweep", "pairwise_distance", "assign",
+                                "affinity"])
 def test_kernel_backend_on_cpu_raises(op):
     call = _cpu_args()[op]
     before = ops.launch_counts()
@@ -119,7 +137,7 @@ def test_kernel_backend_on_cpu_raises(op):
 
 
 @pytest.mark.parametrize("op", ["roi_filter", "affinity_matvec",
-                                "lid_sweep"])
+                                "lid_sweep", "affinity"])
 def test_kernel_path_refuses_other_norms(op, monkeypatch):
     """The kernels compute p = 2 only. Where an op would take the kernel
     path (forced here on a CPU tensor, as a CUDA tensor would be), p = 1
@@ -139,6 +157,7 @@ def test_kernel_path_refuses_other_norms(op, monkeypatch):
             v, idx, mask, x, x.clone(), torch.zeros(2, dtype=torch.int32),
             torch.zeros(2, dtype=torch.bool), 0.5, n_steps=2, max_iters=4,
             tol=1e-5, p=1.0, backend=b),
+        affinity=lambda b: ops.affinity(v, v, 0.5, p=1.0, backend=b),
     )
     out = calls[op]("ref")
     assert all(torch.isfinite(t.float()).any() for t in
@@ -147,6 +166,18 @@ def test_kernel_path_refuses_other_norms(op, monkeypatch):
     monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
     with pytest.raises(NotImplementedError, match="p=1.0"):
         calls[op]("auto")
+    assert ops.launch_counts() == before
+
+
+def test_affinity_kernel_path_takes_f32_only(monkeypatch):
+    """bf16 storage waits for its ROADMAP item: where ops.affinity would
+    take the kernel path, a bf16 input raises before anything launches."""
+    v = torch.ones((4, 3), dtype=torch.bfloat16)
+    assert ops.affinity(v, v, 0.5).dtype == torch.bfloat16    # plain path
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        ops.affinity(v, v, 0.5)
     assert ops.launch_counts() == before
 
 
