@@ -47,6 +47,28 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    full-width IID run, `launch/full_matrix.py` at 40,000 x 128, whose
    `affinity` launches must be > 0; (e) every baseline on the CPU tests'
    `easy` data, each above its AVG-F floor;
+7. LM serving (h2o-danube-1.8b at full width, bf16, random weights from
+   the port's threefry): (a) the flash_attention kernel against its plain
+   version on numpy-seeded inputs at the serving path's shapes (prefill:
+   4 rows x 32 heads x 5,120 queries over 5,137 cache slots, dh 80,
+   window 4,096, one long row and three left-padded short ones; decode:
+   one query at slot 5,120), in bf16 and f32, `launch.serve`'s own
+   batches at their shapes (prefill and every decode step, q the model's
+   transposed view), then gemma2's dh 128 with softcap 50 (local and
+   full), a chunked mask and ragged shapes, by the rule of
+   `kernels.flash_attention.compare_with_plain` (fully masked rows
+   exactly 0), with the kernel's device and per-call time, the plain
+   version's, the bound, and the time of `scaled_dot_product_attention`
+   with the same mask as a yardstick the port never calls; (b) from
+   launch counts at 0, `launch.serve`'s own request mix on BatchServer,
+   then one batch packing a 5,120-token prompt with three short ones,
+   with tokens/s, prefill seconds, decode ms per step and peak memory,
+   and `flash_attention` launches > 0; (c) for the packed batch and each
+   of the mix's batches, the generated tokens fed back through the model
+   with the kernel and with the plain attention: the kernel's argmax is
+   the served tokens, the logits differ by at most (layers + 1) bf16
+   ulps at their scale, at least 16 steps have a plain top-2 gap over
+   twice the step's largest difference, and on those the argmaxes agree;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -56,7 +78,9 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,15 +93,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # published peaks of one H100 SXM (dense, 700 W): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores, bf16 FLOP/s in them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 25
 # the size of the parity fits (the full-width fit's configuration is
 # repro_torch.launch.full_width)
 PARITY_N = 20_000
 DEVICE = "cuda:0"
 
-# the JAX package's Pallas kernels the six CUDA kernels replace
+# the JAX package's Pallas kernels the seven CUDA kernels replace
 REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:41",
     "roi_filter": "src/repro/kernels/roi_filter.py:46",
@@ -85,6 +111,7 @@ REPLACES = {
     "lid_sweep": "src/repro/kernels/lid_sweep.py:149",
     "assign": "src/repro/kernels/assign.py:52",
     "affinity": "src/repro/kernels/affinity.py:34",
+    "flash_attention": "src/repro/kernels/flash_attention.py:102",
 }
 # the kernels of the fit (phase 4); serving and the full-matrix path run
 # the others
@@ -173,10 +200,11 @@ def time_line(t: dict) -> str:
             f"enqueue, CUDA events) plain_ms={t['plain_ms']:.4f} ({how})")
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     """The least time the card could take (ms) and what sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -922,6 +950,365 @@ def check_baselines(dev):
         need(score > floor, f"{name}: AVG-F {score} <= {floor}")
 
 
+# ---------------------------------------------------------- LM serving ----
+LM_ARCH = "h2o-danube-1.8b"
+LONG_PROMPT = 5120       # a multiple of the plain version's q blocks
+SHORT_PROMPTS = (7, 9, 11)
+MAX_NEW = 16
+MIX_REQUESTS, MIX_SLOTS = 6, 4           # launch.serve's defaults
+# 7c: per batch, the steps whose plain top-2 gap must clear twice the
+# step's kernel-plain difference, so that the argmax comparison is not
+# vacuous
+MIN_CLEAR_STEPS = 16
+
+
+def mix_batches(vocab: int):
+    """launch.serve's requests as BatchServer packs them: per batch, the
+    left-padded tokens (slots, maxp) and the lengths (slots,)."""
+    from repro_torch.launch.serve import mix_prompts
+    from repro_torch.serve.engine import pack_prompts
+    prompts = mix_prompts(vocab, MIX_REQUESTS)
+    return [pack_prompts(prompts[i:i + MIX_SLOTS], MIX_SLOTS)
+            for i in range(0, len(prompts), MIX_SLOTS)]
+
+
+def flash_shapes():
+    """7a's cases: (name, B, H, Hkv, Sq, Sk, dh, q_offsets, kv_start, mask
+    keywords, dtype, q as the model's transposed view). The first two are
+    the packed batch's (prefill, then a decode step at slot 5,120); the
+    mix cases are launch.serve's batches at their own shapes, with the
+    model's keywords: prefill and every decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import _attn_kwargs
+    sk = LONG_PROMPT + MAX_NEW + 1
+    ks = [0] + [LONG_PROMPT - n for n in SHORT_PROMPTS]
+    local = dict(window=4096)
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        out += [(f"prefill {tag}", 4, 32, 8, LONG_PROMPT, sk, 80, [0], ks,
+                 local, dt, False),
+                (f"decode {tag}", 4, 32, 8, 1, sk, 80, [LONG_PROMPT], ks,
+                 local, dt, False)]
+    cfg = get_arch(LM_ARCH).CONFIG
+    kw = _attn_kwargs(cfg, cfg.pattern[0])
+    for i, (toks, lens) in enumerate(mix_batches(cfg.vocab)):
+        maxp = toks.shape[1]
+        mk = (maxp - lens).tolist()
+        shape = (MIX_SLOTS, cfg.n_heads, cfg.n_kv_heads)
+        out += [(f"mix batch {i} prefill", *shape, maxp, maxp + MAX_NEW + 1,
+                 cfg.head_dim, [0], mk, kw, cfg.dtype, True),
+                (f"mix batch {i} decode", *shape, 1, maxp + MAX_NEW + 1,
+                 cfg.head_dim, list(range(maxp, maxp + MAX_NEW - 1)), mk, kw,
+                 cfg.dtype, True)]
+    gemma_ks = [0, 1500]
+    out += [("gemma2 local dh128 softcap", 2, 32, 16, 2048, 2065, 128, [0],
+             gemma_ks, dict(window=1024, softcap=50.0), torch.bfloat16,
+             False),
+            ("gemma2 full dh128 softcap", 2, 32, 16, 2048, 2065, 128, [0],
+             gemma_ks, dict(softcap=50.0), torch.bfloat16, False),
+            ("chunked", 2, 8, 2, 2048, 2065, 128, [0], [0, 300],
+             dict(chunk=512), torch.bfloat16, False),
+            ("ragged", 3, 12, 4, 777, 1301, 80, [524], [0, 40, 1000],
+             dict(window=300), torch.float32, False)]
+    return out
+
+
+def flash_inputs(dev, b, h, hkv, sq, sk, dh, dtype, seed, q_view=False):
+    """q, k, v; with `q_view` q is the (B, S, H, dh) projection's transposed
+    view, as the model passes it."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dtype)
+    q = t((b, sq, h, dh)).transpose(1, 2) if q_view else t((b, h, sq, dh))
+    return q, t((b, hkv, sk, dh)), t((b, hkv, sk, dh))
+
+
+def sdpa(q, k, v, mask):
+    """torch's fused attention with the same boolean mask: a yardstick the
+    port never calls."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None], enable_gqa=True)
+
+
+def check_flash_attention(dev, out):
+    """7a: the attention kernel against its plain version, by the stated
+    rule, at the serving path's shapes and the other masks."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import compare_with_plain, \
+        flash_attention_cuda, smem_plan
+    timed = {}
+    for seed, (name, b, h, hkv, sq, sk, dh, offs, ks, kw, dt, q_view) in \
+            enumerate(flash_shapes()):
+        q, k, v = flash_inputs(dev, b, h, hkv, sq, sk, dh, dt, seed, q_view)
+        kv_start = torch.tensor(ks, dtype=torch.int32, device=dev)
+        mask_kw = {x: kw[x] for x in ("causal", "window", "chunk")
+                   if kw.get(x) is not None}
+        bad = masked_nonzero = compared = 0
+        err = 0.0
+        for off in offs:
+            got = flash_attention_cuda(q, k, v, off, kv_start=kv_start, **kw)
+            want = ref.attention_ref(q, k, v, q_offset=off,
+                                     kv_start=kv_start, **kw)
+            torch.cuda.synchronize()
+            mask = ref.attention_mask(sq, sk, off, kv_start, device=dev,
+                                      **mask_kw)
+            rows = mask.any(-1)
+            res = compare_with_plain(got, want, rows)
+            bad += res["bad"]
+            masked_nonzero += res["masked_nonzero"]
+            compared += int(rows.sum())
+            err = max(err, res["max_abs_err"])
+        at = (f"q_offset={offs[0]}" if len(offs) == 1 else
+              f"q_offset {offs[0]}..{offs[-1]} ({len(offs)} steps)")
+        print(f"[flash] {name}: B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
+              f"dh={dh} {at} kv_start={ks} {kw}{' q a view' * q_view} "
+              f"plan={smem_plan(dh, h // hkv, sq)[:3]}: compared rows "
+              f"{compared} of {b * sq * len(offs)}, outside the rule {bad}, "
+              f"max_abs_err={err:.3e}, nonzero on rows attending nothing "
+              f"{masked_nonzero}")
+        need(bad == 0, f"flash_attention {name}: {bad} entries differ from "
+             "the plain version beyond the rule")
+        need(masked_nonzero == 0, f"flash_attention {name}: rows that "
+             "attend nothing are not 0")
+        if name in ("prefill bf16", "decode bf16"):
+            off = offs[0]
+
+            def kernel():
+                return flash_attention_cuda(q, k, v, off, kv_start=kv_start,
+                                            **kw)
+
+            def plain():
+                return ref.attention_ref(q, k, v, q_offset=off,
+                                         kv_start=kv_start, **kw)
+            lib = sdpa(q, k, v, mask)
+            lib_err = compare_with_plain(lib.float(), want.float(), rows)
+            # each attended (q, k) pair: 2 dh for the logit, 2 dh for p v;
+            # q read and out written once, and of k and v each slot that
+            # some query of its row attends, once for each kv head
+            pairs = int(mask.sum()) * h
+            slots = int(mask.any(1).sum())
+            es = q.element_size()
+            b_ms, b_by = bound(es * (2 * b * h * sq * dh
+                                     + 2 * hkv * slots * dh),
+                               4 * dh * pairs, BF16_FLOP_PER_S)
+            runs = 5 if sq > 1 else TIMED_RUNS
+            t = dict(ms=graph_ms(kernel, runs=runs), call_ms=call_ms(kernel),
+                     plain_ms=graph_ms(plain, runs=1 if sq > 1 else runs,
+                                       replays=3),
+                     plain_in_graph=True,
+                     library_ms=graph_ms(lambda: sdpa(q, k, v, mask),
+                                         runs=runs),
+                     max_abs_err=err, bound_ms=b_ms,
+                     bound_by=b_by, pairs=pairs)
+            timed[name.split()[0]] = t
+            print(f"[flash] {name}: {time_line(t)} bound_ms={b_ms:.4f} "
+                  f"({b_by}; {pairs} attended pairs x 4 dh operations at "
+                  f"the bf16 tensor-core peak, or q and out once and the "
+                  f"{slots} (row, slot)s some query attends of k and v "
+                  f"once per kv head) library_ms={t['library_ms']:.4f} "
+                  f"(scaled_dot_product_attention, same mask, enable_gqa; "
+                  f"device time, CUDA graph; a yardstick the port never "
+                  f"calls; its max_abs_err on attended rows "
+                  f"{lib_err['max_abs_err']:.3e})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    out["flash_attention"] = dict(timed["prefill"], decode={
+        key: timed["decode"][key] for key in
+        ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+         "max_abs_err")})
+
+
+def packed_batch(vocab: int, seed: int = 14):
+    """7b's batch: one 5,120-token prompt and three short ones."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=n).astype(np.int32)
+            for n in (LONG_PROMPT, *SHORT_PROMPTS)]
+
+
+def serve_lm(dev):
+    """7b: danube at full width on BatchServer, from launch counts at 0:
+    launch.serve's own mix, then the packed long batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer as lm_m
+    from repro_torch.random import PRNGKey
+    from repro_torch.serve import BatchServer, ServeConfig
+    cfg = get_arch(LM_ARCH).CONFIG
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm_m.init_params(PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    w_bytes = lm_m.param_bytes(params)
+    print(f"[lm] {cfg.name} CONFIG: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}, {cfg.dtype}; {cfg.param_count()} parameters, "
+          f"{w_bytes} bytes; init_params on the card "
+          f"{time.perf_counter() - t0:.2f}s")
+    n_norm = (2 * cfg.n_layers + 1) * cfg.d_model       # the f32 norm scales
+    need(w_bytes == 2 * (cfg.param_count() - n_norm) + 4 * n_norm,
+         "the weights are not the configuration's parameters in bf16")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mix = serve_cli.run(params, cfg, requests=MIX_REQUESTS, max_new=MAX_NEW,
+                        slots=MIX_SLOTS, device=dev)
+    need(mix["tokens"] == MIX_REQUESTS * MAX_NEW and all(
+        r.shape == (MAX_NEW,) and ((r >= 0) & (r < cfg.vocab)).all()
+        for r in mix["results"].values()), "launch.serve mix output")
+    print(f"[lm] launch.serve mix: {MIX_REQUESTS} requests, {mix['tokens']} "
+          f"tokens, {mix['tokens'] / mix['seconds']:.1f} tok/s (host clock, "
+          f"kernel build excluded); batches {mix['batch_stats']}")
+    prompts = packed_batch(cfg.vocab)
+    srv = BatchServer(params, cfg, batch_slots=4,
+                      scfg=ServeConfig(max_new_tokens=MAX_NEW), device=dev)
+    ids = [srv.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = srv.batch_stats[0]
+    gen = np.stack([res[i] for i in ids])
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = (4 * (LONG_PROMPT + MAX_NEW + 1) * cfg.n_layers * 2
+                   * cfg.n_kv_heads * cfg.head_dim * 2)
+    print(f"[lm] packed batch (prompts {[len(p) for p in prompts]}, "
+          f"{MAX_NEW} new tokens each, greedy): wall {wall:.3f}s, "
+          f"{gen.size / wall:.1f} tok/s, prefill {st['prefill_s']:.4f}s, "
+          f"decode {st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms/step "
+          f"over {st['decode_steps']} steps (host clock, each ending in a "
+          f"synchronise); max_memory_allocated={peak} (weights {w_bytes}, "
+          f"cache {cache_bytes}; prefill computes the last position's "
+          f"logits only); launches={counts}")
+    need(gen.shape == (4, MAX_NEW) and ((gen >= 0) & (gen < cfg.vocab)).all(),
+         "packed batch output")
+    need(counts["flash_attention"] > 0, "LM serving never launched the "
+         "flash_attention kernel")
+    mix_served = [mix["results"][i] for i in mix["ids"]]
+    return cfg, params, prompts, gen, mix_served, counts
+
+
+def teacher_forced(dev, cfg, params, name, toks, lens, gen, profiled=False):
+    """7c for one batch: the generated tokens `gen` (B, MAX_NEW) fed back
+    through the model after the left-padded prompts `toks` (B, P), with
+    the kernel and with the plain attention; the logits of every step
+    compared."""
+    from repro_torch.models import transformer as lm_m
+    from torch.profiler import ProfilerActivity, profile
+    b, p = toks.shape
+    toks = torch.as_tensor(toks, device=dev).long()
+    pad = torch.as_tensor(p - lens, dtype=torch.int32, device=dev)
+    g = torch.as_tensor(gen, device=dev).long()
+    logits = {}
+    for backend in ("kernel", "ref"):
+        t0 = time.perf_counter()
+        cache = lm_m.init_cache(cfg, b, p + MAX_NEW + 1, device=dev)
+        step, cache = lm_m.prefill_with_cache(params, cfg, cache, toks, pad,
+                                              backend=backend)
+        steps = [step]
+        torch.cuda.synchronize()
+        # the kernel's decode steps run under the profiler (device activity
+        # only): the device's busy time against the window's wall time
+        with profile(activities=[ProfilerActivity.CUDA],
+                     record_shapes=False) if profiled and \
+                backend == "kernel" else contextlib.nullcontext() as prof:
+            t1 = time.perf_counter()
+            for t in range(MAX_NEW - 1):
+                step, cache = lm_m.decode_step(params, cfg, cache,
+                                               g[:, t:t + 1], p + t, pad,
+                                               backend=backend)
+                steps.append(step)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t1
+        logits[backend] = torch.stack(steps, dim=1)       # (B, MAX_NEW, V)
+        torch.cuda.synchronize()
+        print(f"[lm] teacher-forced {name} {backend}: "
+              f"{time.perf_counter() - t0:.2f}s")
+        if prof is not None:
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e6
+            attn = sum(e.self_device_time_total for e in kernels
+                       if "flash_kernel" in e.key) / 1e6
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            print(f"[lm] decode window, {MAX_NEW - 1} steps through the "
+                  f"kernel (profiled, device activity only): wall "
+                  f"{window:.4f}s, device busy {busy:.4f}s, idle_share="
+                  f"{1 - busy / window:.4f}, flash_attention {attn:.4f}s "
+                  f"({attn / busy:.3f} of busy); top kernels: "
+                  + "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms "
+                              f"x{e.count} {e.key[:60]}" for e in top[:5]))
+        del cache
+        torch.cuda.empty_cache()
+    kern, plain = logits["kernel"], logits["ref"]
+    need(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
+         f"teacher-forced {name}: logits are not finite")
+    # the serve loop's tokens come back from the kernel's teacher-forced
+    # pass: the loop fed each step what it sampled
+    same_tokens = torch.equal(kern.argmax(-1).cpu(), g.cpu())
+    delta = (kern - plain).abs()
+    diff = float(delta.max())
+    # the stated limit: attention outputs one bf16 ulp apart, carried
+    # through every layer, each adding at most one ulp at the logits'
+    # scale, plus the logits' own rounding to bf16
+    top_ulp = 2.0 ** (math.floor(math.log2(float(plain.abs().max()))) - 7)
+    limit = (cfg.n_layers + 1) * top_ulp
+    top2 = plain.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    # a step's argmax cannot flip where its plain top-2 gap exceeds twice
+    # that step's largest difference, so agreement there follows from the
+    # difference; the count of such steps says the differences are small
+    # beside the model's own gaps, step by step
+    step_diff = delta.amax(-1)
+    clear = gap > 2 * step_diff
+    agree = kern.argmax(-1) == plain.argmax(-1)
+    print(f"[lm] teacher-forced {name} logits ({b} rows x {MAX_NEW} steps x "
+          f"{cfg.vocab}): the serve loop's tokens reproduced {same_tokens}; "
+          f"max |kernel - plain| {diff:.4e} = {diff / top_ulp:g} bf16 ulps "
+          f"at the logits' scale (limit {limit:.4e}: {cfg.n_layers} layers "
+          f"+ 1 x "
+          f"{top_ulp:.4e}, the ulp at the largest |logit| "
+          f"{float(plain.abs().max()):.3f}); argmax equal on "
+          f"{int(agree.sum())} of {agree.numel()} steps, on "
+          f"{int((agree & clear).sum())} of {int(clear.sum())} whose plain "
+          f"top-2 gap exceeds twice the step's largest difference (at "
+          f"least {MIN_CLEAR_STEPS} required; {int((gap > 2 * diff).sum())}"
+          f" exceed twice the batch's, {2 * diff:.4e})")
+    need(same_tokens, f"teacher-forced {name}: the kernel's argmax is not "
+         "the served tokens")
+    need(diff <= limit, f"teacher-forced {name}: kernel and plain logits "
+         f"differ by {diff} > {limit}")
+    need(int(clear.sum()) >= MIN_CLEAR_STEPS, f"teacher-forced {name}: only "
+         f"{int(clear.sum())} steps have a clear top-2 gap")
+    need(bool(agree[clear].all()), f"teacher-forced {name}: kernel and "
+         "plain argmax differ where the plain top-2 gap exceeds twice the "
+         "step's largest difference")
+    return diff
+
+
+def teacher_force_all(dev, cfg, params, prompts, gen, mix_served):
+    """7c: the packed batch (its decode window profiled), then each of
+    launch.serve's batches. A mix batch's empty slots are not returned by
+    the server, so the batch is generated again through the kernel, whose
+    real rows must equal what the server returned."""
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve.engine import pack_prompts
+    toks, lens = pack_prompts(prompts, len(prompts))
+    teacher_forced(dev, cfg, params, "packed batch", toks, lens, gen,
+                   profiled=True)
+    for i, (toks, lens) in enumerate(mix_batches(cfg.vocab)):
+        full = generate(params, cfg, toks, ServeConfig(max_new_tokens=MAX_NEW),
+                        prompt_lens=lens, device=dev).cpu().numpy()
+        served = np.stack(mix_served[i * MIX_SLOTS:(i + 1) * MIX_SLOTS])
+        need(np.array_equal(full[:len(served)], served), f"mix batch {i}: "
+             "generate again differs from what the server returned")
+        teacher_forced(dev, cfg, params, f"mix batch {i}", toks, lens, full)
+
+
 def main() -> int:
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
@@ -930,6 +1317,8 @@ def main() -> int:
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 and round once, as XLA's dot does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     smi = nvidia_smi()
@@ -961,6 +1350,12 @@ def main() -> int:
     check_peel_parity(dev)
     counts["affinity"] = full_matrix_run(dev)["affinity"]
     check_baselines(dev)
+    torch.cuda.empty_cache()
+
+    check_flash_attention(dev, stats)
+    cfg, params, prompts, gen, mix_served, lm_counts = serve_lm(dev)
+    counts["flash_attention"] = lm_counts["flash_attention"]
+    teacher_force_all(dev, cfg, params, prompts, gen, mix_served)
 
     table = []
     for name, s in stats.items():
@@ -970,7 +1365,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s.get("library_ms")})
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
+            **({"decode": s["decode"]} if "decode" in s else {})})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

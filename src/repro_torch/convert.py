@@ -1,10 +1,11 @@
 """Carry state from the JAX package to the port.
 
 ALID has no weights; its state is the LSH tables, the LID states and the
-fitted `Clustering`. Each function here takes the JAX package's objects as
-numpy arrays (`np.asarray` of its jax arrays, or its `to_dict()`) and
-returns the port's counterpart, so that tests can hand both packages the
-same tables and states.
+fitted `Clustering`; the LMs of the model zoo have their parameter trees.
+Each function here takes the JAX package's objects as numpy arrays
+(`np.asarray` of its jax arrays, or its `to_dict()`) and returns the
+port's counterpart, so that tests can hand both packages the same tables,
+states and weights.
 """
 
 from __future__ import annotations
@@ -53,3 +54,18 @@ def lid_state_from_numpy(beta_idx, beta_mask, v_beta, x, ax, n_iters,
 def clustering_from_dict(d: dict) -> Clustering:
     """The JAX package's `Clustering.to_dict()` -> the port's Clustering."""
     return Clustering.from_dict({k: np.asarray(v) for k, v in d.items()})
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
+    `jax.tree.map(np.asarray, params)`) -> the port's, the same keys and
+    shapes. bf16 leaves arrive as `ml_dtypes.bfloat16` arrays; they are
+    recognised by their dtype's name and their bits reinterpreted as
+    torch.bfloat16, so this module needs no `ml_dtypes`."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)

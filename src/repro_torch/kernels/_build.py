@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (all return the int cudaError_t)
 SIGNATURES = {
@@ -52,6 +53,11 @@ SIGNATURES = {
     "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P),
     # q, c, out, batch, m, n, d, tq, smem_bytes, k, stream
     "affinity_launch": (P, P, P, I, I, I, I, I, I, F, P),
+    # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q strides (b, h,
+    # s), q_offset, causal, window, chunk, softcap, scale, is_bf16, hb,
+    # ppt, bc, smem_bytes, stream
+    "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, I,
+                               I, I, I, F, F, I, I, I, I, I, P),
 }
 
 

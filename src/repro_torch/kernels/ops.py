@@ -1,10 +1,11 @@
 """The kernel layer of the port: one wrapper per op of the hot paths.
 
 Every hot-path module (`core.affinity`, `core.lid`, `core.roi`, `core.civs`,
-`lsh.pstable`, `core.alid.assign_labels` behind predict and serving, and
-the full-matrix baselines through `core.affinity`) computes distances,
-affinities, LSH keys and assignments only through these wrappers. Each
-takes `backend`:
+`lsh.pstable`, `core.alid.assign_labels` behind predict and serving, the
+full-matrix baselines through `core.affinity`, and the LMs' attention in
+`models.transformer`) computes distances, affinities, LSH keys,
+assignments and attention only through these wrappers. Each takes
+`backend`:
 
   "auto"    the CUDA kernel for tensors on the card, the plain PyTorch
             version (`kernels.ref`) for tensors on the CPU;
@@ -27,6 +28,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.affinity import affinity_cuda
 from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
 from repro_torch.kernels.assign import assign_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lid_sweep import lid_sweep_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.roi_filter import roi_filter_cuda
@@ -40,6 +42,7 @@ KERNELS = {
     "lid_sweep": lid_sweep_cuda,
     "assign": assign_cuda,
     "affinity": affinity_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -194,3 +197,28 @@ def assign_clusters(q, sup_v, sup_w, dens, k_scale, threshold, valid=None,
     if mode == "ref":
         return _ref.assign_ref(q, sup_v, sup_w, dens, k, thr, valid)
     return assign_cuda(q, sup_v, sup_w, dens, k, thr, valid)
+
+
+def flash_attention(q, k, v, q_offset: int = 0, *, causal: bool = True,
+                    window=None, chunk=None, softcap=None, scale=None,
+                    flat_gqa: bool = True, kv_start=None,
+                    backend: str = "auto"):
+    """Attention of q (B, H, Sq, dh) over k, v (B, Hkv, Sk, dh) -> (B, H,
+    Sq, dh) in q's dtype; f32 softmax and sums. `kv_start` ((B,) int32 or
+    None) is the left-padded serving-batch contract: kv slots < kv_start[b]
+    are pad, never attended, and the causal / window / chunk masks run in
+    logical positions (slot - kv_start), so packed prompts match their solo
+    runs. A query row that attends no key comes out 0 from the kernel and
+    as the uniform average of V from the plain version, as in the JAX
+    package; such rows are the pad slots of a packed batch, which no real
+    row reads. `flat_gqa` only chooses the plain version's einsum form in
+    the JAX package; both compute the same products."""
+    mode = resolve_backend(backend, q)
+    if mode == "ref":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  chunk=chunk, softcap=softcap,
+                                  q_offset=int(q_offset), scale=scale,
+                                  flat_gqa=flat_gqa, kv_start=kv_start)
+    return flash_attention_cuda(q, k, v, int(q_offset), causal=causal,
+                                window=window, chunk=chunk, softcap=softcap,
+                                scale=scale, kv_start=kv_start)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the fit's kernels: the oracles every CUDA
-kernel is checked against, and what `ops` runs for a tensor on the CPU.
+"""Plain PyTorch versions of the kernels: the oracles every CUDA kernel is
+checked against, and what `ops` runs for a tensor on the CPU.
 
 Each function mirrors its twin in the JAX package's `kernels/ref.py` op for
 op (same formulas, same masking conventions, same `MASK_VALUE` and -inf
@@ -23,7 +23,9 @@ Multiplies and adds stay separate operations (no fused multiply-add), in
 both the plain versions and those kernels. The `lsh_hash` kernel sums in
 its own order: its keys are integers, which differ only where a
 projection lies within rounding of a bucket edge
-(`kernels/lsh_hash.py` `key_flips`).
+(`kernels/lsh_hash.py` `key_flips`). `attention_ref` pins no order either:
+the attention kernel's online softmax rounds otherwise than one softmax
+over the whole row, and the two are held to a stated tolerance.
 """
 
 from __future__ import annotations
@@ -338,3 +340,88 @@ def to_uint32(a: torch.Tensor) -> torch.Tensor:
     """int32 key bits -> int64 holding the uint32 value (sorts in uint32
     order)."""
     return a.to(torch.int64) & 0xFFFFFFFF
+
+
+# ------------------------------------------------------- flash attention --
+def _pad_mask(q_offset: int, kv_start: torch.Tensor, sq: int, sk: int):
+    """Positions of a LEFT-padded serving batch: kv_start (B,) is the number
+    of pad slots at the front of each row's kv timeline. Returns (qpos,
+    kpos, mask) in LOGICAL positions (slot - kv_start), (B, Sq, 1) and
+    (B, 1, Sk), with the pad kv slots masked out: window and chunk masks
+    are not shift-invariant, so they must see logical positions for a
+    packed short prompt to match its solo run."""
+    dev = kv_start.device
+    start = kv_start.to(torch.int64)[:, None, None]
+    qpos = (q_offset + torch.arange(sq, device=dev))[None, :, None] - start
+    kpos = torch.arange(sk, device=dev)[None, None, :] - start
+    return qpos, kpos, kpos >= 0
+
+
+def attention_mask(sq: int, sk: int, q_offset: int = 0, kv_start=None, *,
+                   causal: bool = True, window=None, chunk=None,
+                   device="cpu") -> torch.Tensor:
+    """The attended (query, key) pairs: (Sq, Sk) bool, or (B, Sq, Sk) with
+    `kv_start`. Chunk indices are floor divisions, as `//` is in JAX."""
+    if kv_start is None:
+        qpos = (q_offset + torch.arange(sq, device=device))[:, None]
+        kpos = torch.arange(sk, device=device)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    else:
+        qpos, kpos, mask = _pad_mask(q_offset, kv_start, sq, sk)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    if chunk is not None:
+        mask = mask & ((kpos // chunk) == (qpos // chunk))
+    return mask
+
+
+def _attention_block(q, k, v, *, causal, window, chunk, softcap, q_offset,
+                     scale, kv_start):
+    """One dense block: q (B, H, Sq, dh) against the whole kv, with kv kept
+    at Hkv heads (q head h reads kv head h // rep)."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qr = q.reshape(b, hkv, rep * sq, dh).float()
+    logits = torch.matmul(qr, k.float().transpose(-1, -2)) * scale
+    logits = logits.view(b, hkv, rep, sq, sk)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(sq, sk, q_offset, kv_start, causal=causal,
+                          window=window, chunk=chunk, device=q.device)
+    mask = mask[None, None, None] if kv_start is None else mask[:, None, None]
+    logits.masked_fill_(~mask, MASK_VALUE)
+    probs = torch.softmax(logits, dim=-1).view(b, hkv, rep * sq, sk)
+    del logits
+    out = torch.matmul(probs, v.float())
+    return out.view(b, h, sq, dh).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None, chunk=None,
+                  softcap=None, q_offset: int = 0, scale=None,
+                  block_q: int = 1024, flat_gqa: bool = True, kv_start=None):
+    """Attention of q (B, H, Sq, dh) over k, v (B, Hkv, Sk, dh), in f32,
+    the result in q's dtype: logits * scale (dh**-0.5 by default), softcap
+    before the mask, causal / window / chunk masks in logical positions
+    with `kv_start` ((B,) int or None: row i's kv slots [0, kv_start[i])
+    are pad, never attended), masked logits MASK_VALUE, one softmax over
+    the row. A row with no attended key therefore comes out as the uniform
+    average of V, as in the JAX package's `attention_ref` (its Pallas
+    kernel writes 0 there).
+
+    Long sequences are scanned in q blocks of `block_q` where Sq is a
+    multiple of it, as the JAX function does, so live logits are
+    (B, H, block_q, Sk). `flat_gqa` is accepted for the JAX signature: its
+    two branches (kv repeated to H heads, or q grouped by kv head) compute
+    the same products, and this function always groups."""
+    b, h, sq, dh = q.shape
+    scale = (dh ** -0.5) if scale is None else scale
+    kw = dict(causal=causal, window=window, chunk=chunk, softcap=softcap,
+              scale=scale, kv_start=kv_start)
+    if sq <= block_q or sq % block_q != 0:
+        return _attention_block(q, k, v, q_offset=q_offset, **kw)
+    return torch.cat([
+        _attention_block(q[:, :, i:i + block_q], k, v, q_offset=q_offset + i,
+                         **kw) for i in range(0, sq, block_q)], dim=2)

@@ -3,9 +3,12 @@
 The JAX package draws every random number of a fit from threefry2x32 in
 partitionable mode (the jax 0.9 default): the LSH projections and biases
 (`lsh.pstable.make_projections`), the round keys of the fit driver and the
-Gumbel top-k seeding (`core.alid._sample_seeds`). Labels can only match the
-reference if the port draws the same numbers, so this module ports that
-generator instead of using `torch.Generator`.
+Gumbel top-k seeding (`core.alid._sample_seeds`); the language models draw
+their weights (`models.transformer.init_params`, per layer group through
+`fold_in`) and `serve.engine.generate` its samples (`categorical`) from it
+too. Labels and weights can only match the reference if the port draws the
+same numbers, so this module ports that generator instead of using
+`torch.Generator`.
 
 A key is an int64 tensor of shape (2,) holding two uint32 words. Torch has
 no uint32 shift on the CPU, so all 32-bit words live in int64 tensors whose
@@ -78,6 +81,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in`: the cipher of `key` applied to the counter
+    (0, data mod 2**32), as `jax._src.prng.threefry_fold_in` computes it."""
+    k1, k2 = _words(key)
+    x0 = torch.zeros(1, dtype=torch.int64)
+    x1 = torch.tensor([int(data) & _M32], dtype=torch.int64)
+    b1, b2 = threefry2x32(k1, k2, x0, x1)
+    return torch.cat([b1, b2])
+
+
 def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), jax's
     `_threefry_random_bits_partitionable` with bit_width=32."""
@@ -141,3 +154,11 @@ def gumbel(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     tiny = float(np.finfo(np.float32).tiny)
     u = uniform(key, shape, tiny, 1.0, device)
     return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """`jax.random.categorical` with replacement: the argmax of the logits
+    plus Gumbel noise of their shape, first index on ties (int64)."""
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits.float(), dim=axis)

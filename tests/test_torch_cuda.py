@@ -23,6 +23,8 @@ from repro_torch.core.lid import LIDState, lid_solve, lid_solve_unfused, \
 from repro_torch.core.peeling import ds_detect, iid_detect
 from repro_torch.core.rd import replicator_solve
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.flash_attention import compare_with_plain
 from repro_torch.kernels.lsh_hash import key_flips
 
 K = 0.45
@@ -317,3 +319,119 @@ def test_solver_graphs_change_no_bit(dev, solve):
         for name in ("x", "density", "n_iters", "converged"):
             assert torch.equal(getattr(got, name), getattr(ref, name)), \
                 (chunk, budget, name)
+
+
+# ------------------------------------------------------- flash attention ----
+# the CPU suite's shapes (tests/test_torch_attention.py): the JAX tests'
+# eight cases, its kv_start cases, and the ported models' widths
+FLASH_CASES = [
+    dict(b=1, h=4, hkv=4, sq=128, sk=128, dh=32),
+    dict(b=2, h=4, hkv=2, sq=64, sk=64, dh=16),
+    dict(b=1, h=8, hkv=1, sq=100, sk=100, dh=32),
+    dict(b=1, h=2, hkv=2, sq=1, sk=256, dh=64, q_offset=255),
+    dict(b=1, h=4, hkv=2, sq=128, sk=128, dh=32, window=32),
+    dict(b=1, h=4, hkv=2, sq=128, sk=128, dh=32, chunk=64),
+    dict(b=1, h=4, hkv=2, sq=128, sk=128, dh=32, softcap=20.0),
+    dict(b=1, h=4, hkv=4, sq=96, sk=192, dh=32, q_offset=96),
+    dict(b=3, h=2, hkv=2, sq=64, sk=64, dh=16, pads=True),
+    dict(b=3, h=4, hkv=2, sq=64, sk=64, dh=16, window=16, pads=True),
+    dict(b=2, h=2, hkv=2, sq=64, sk=64, dh=16, chunk=32, pads=True),
+    dict(b=2, h=2, hkv=1, sq=1, sk=128, dh=16, q_offset=127, pads=True),
+    dict(b=3, h=8, hkv=2, sq=33, sk=40, dh=80, window=16, q_offset=7,
+         pads=True),
+    dict(b=3, h=8, hkv=8, sq=21, sk=21, dh=4, causal=False),
+    dict(b=2, h=4, hkv=2, sq=17, sk=50, dh=128, softcap=50.0, q_offset=33,
+         pads=True),
+    dict(b=2, h=64, hkv=1, sq=5, sk=300, dh=256, window=40, q_offset=290,
+         pads=True),                          # rep 64, the widest head
+    dict(b=2, h=6, hkv=2, sq=70, sk=90, dh=80, chunk=16, q_offset=20,
+         pads=True),                          # rep 3: tiles of 63 rows
+]
+
+
+def _flash_inputs(dev, cfg, dtype, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, h, hkv, sq, sk, dh = (cfg["b"], cfg["h"], cfg["hkv"], cfg["sq"],
+                             cfg["sk"], cfg["dh"])
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
+               for shape in ((b, h, sq, dh), (b, hkv, sk, dh),
+                             (b, hkv, sk, dh)))
+    kv_start = None
+    if cfg.get("pads"):
+        kv_start = torch.randint(0, sk // 2, (b,), generator=g,
+                                 dtype=torch.int32).to(dev)
+    kw = dict(causal=cfg.get("causal", True), window=cfg.get("window"),
+              chunk=cfg.get("chunk"), softcap=cfg.get("softcap"))
+    return q, k, v, cfg.get("q_offset", 0), kv_start, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", FLASH_CASES)
+def test_flash_attention_matches_plain(dev, cfg, dtype):
+    """The kernel against the plain version by the stated rule
+    (`compare_with_plain`): rows that attend a key within tolerance, rows
+    that attend none exactly 0."""
+    q, k, v, off, ks, kw = _flash_inputs(dev, cfg, dtype)
+    got, want = _both(lambda b: ops.flash_attention(q, k, v, off,
+                                                    kv_start=ks, backend=b,
+                                                    **kw))
+    assert got.dtype == dtype and got.shape == q.shape
+    att = kref.attention_mask(q.shape[2], k.shape[2], off, ks, device=dev,
+                              causal=kw["causal"], window=kw["window"],
+                              chunk=kw["chunk"]).any(-1)
+    att = att.expand(q.shape[0], -1)          # (B, Sq): rows attending a key
+    res = compare_with_plain(got, want, att)
+    assert res["bad"] == 0 and res["masked_nonzero"] == 0, res
+
+
+@pytest.mark.cuda
+def test_flash_attention_views_counts_and_limits(dev):
+    """q as a transposed view (the model's layout) gives the contiguous
+    result bit for bit; "auto" launches (the count moves), "ref" does not;
+    dh > 256 and mixed dtypes raise."""
+    cfg = FLASH_CASES[12]
+    q, k, v, off, ks, kw = _flash_inputs(dev, cfg, torch.bfloat16)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)   # strided view
+    assert not qt.is_contiguous()
+    before = ops.launch_counts()
+    ops.flash_attention(q, k, v, off, kv_start=ks, backend="ref", **kw)
+    assert ops.launch_counts() == before
+    a = ops.flash_attention(q, k, v, off, kv_start=ks, **kw)
+    b = ops.flash_attention(qt, k, v, off, kv_start=ks, **kw)
+    assert torch.equal(a, b)
+    assert ops.launch_counts()["flash_attention"] == \
+        before["flash_attention"] + 2
+    big = torch.zeros((1, 2, 3, 264), device=dev)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        ops.flash_attention(big, big, big)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(q, k.float(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma2-27b"])
+def test_lm_generate_kernel_equals_plain(dev, arch):
+    """A packed batch of the smoke configs served on the card through the
+    kernel and through the plain version: the same greedy tokens (f32
+    logits of the two agree to ~1e-6; the smoke models' top-2 gaps are
+    wider)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.random import PRNGKey
+    from repro_torch.serve import BatchServer, ServeConfig
+    cfg = get_arch(arch).SMOKE_CONFIG
+    params = init_params(PRNGKey(0), cfg, device=dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in (3, 12, 7)]
+    out = {}
+    for backend in ("kernel", "ref"):
+        srv = BatchServer(params, cfg, batch_slots=4, device=dev,
+                          backend=backend,
+                          scfg=ServeConfig(max_new_tokens=10))
+        for p in prompts:
+            srv.submit(p)
+        out[backend] = srv.serve()
+    for rid in out["ref"]:
+        assert np.array_equal(out["kernel"][rid], out["ref"][rid])

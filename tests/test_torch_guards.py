@@ -13,11 +13,16 @@ from repro_torch.core import alid as talid
 from repro_torch.core import baselines
 from repro_torch.core.engine import fit, make_engine
 from repro_torch.kernels import ops
+from repro_torch.configs import get_arch
 from repro_torch.launch import full_matrix, run_palid
-from repro_torch.serve import ClusterServer, ClusterService, Tenant
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models.transformer import init_cache, init_params
+from repro_torch.random import PRNGKey
+from repro_torch.serve import BatchServer, ClusterServer, ClusterService, \
+    Tenant, generate
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -47,7 +52,11 @@ def test_port_never_imports_jax_or_the_jax_package():
             "core/peeling.py", "core/baselines/sea.py",
             "core/baselines/ap.py", "core/baselines/kmeans.py",
             "core/baselines/spectral.py", "core/baselines/meanshift.py",
-            "launch/full_matrix.py"} <= names
+            "launch/full_matrix.py", "kernels/flash_attention.py",
+            "models/layers.py", "models/transformer.py",
+            "configs/registry.py", "configs/h2o_danube_1_8b.py",
+            "configs/deepseek_7b.py", "configs/gemma2_27b.py",
+            "serve/engine.py", "launch/serve.py", "convert.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -65,17 +74,25 @@ def _tiny_clustering(d=4, cap=3):
 
 def test_entry_points_default_to_the_card():
     """Without device=, fit, make_engine, predict, the serving layer
-    (Tenant, ClusterService, ClusterServer, run_palid) and the full-matrix
+    (Tenant, ClusterService, ClusterServer, run_palid), the full-matrix
     baselines (sea_detect, affinity_propagation, kmeans,
-    spectral_clustering, mean_shift, full_matrix) run on CUDA; where there
-    is no card they raise instead of running on the CPU."""
+    spectral_clustering, mean_shift, full_matrix) and LM serving
+    (init_params, init_cache, generate, BatchServer, launch.serve) run on
+    CUDA; where there is no card they raise instead of running on the
+    CPU."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     res = _tiny_clustering()
+    lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
+    lm_params = init_params(PRNGKey(0), lm, device="cpu")
     if torch.cuda.is_available():
         assert make_engine(talid.EngineSpec()).device.type == "cuda"
         assert Tenant("t", res).device.type == "cuda"
         with ClusterServer() as server:
             assert server.device.type == "cuda"
+        assert init_params(PRNGKey(0), lm)["embed"].device.type == "cuda"
+        assert BatchServer(lm_params, lm).device.type == "cuda"
+        with pytest.raises(ValueError, match="params lie on cpu"):
+            generate(lm_params, lm, np.zeros((1, 3), np.int32))
         return
     calls = [lambda: make_engine(talid.EngineSpec()),
              lambda: fit(pts, talid.ALIDConfig(max_rounds=1)),
@@ -89,7 +106,12 @@ def test_entry_points_default_to_the_card():
              lambda: baselines.kmeans(pts, 3),
              lambda: baselines.spectral_clustering(pts, 3, 0.5),
              lambda: baselines.mean_shift(pts, 1.0),
-             lambda: full_matrix.main(["--n-clusters", "2"])]
+             lambda: full_matrix.main(["--n-clusters", "2"]),
+             lambda: init_params(PRNGKey(0), lm),
+             lambda: init_cache(lm, 1, 4),
+             lambda: generate(lm_params, lm, np.zeros((1, 3), np.int32)),
+             lambda: BatchServer(lm_params, lm),
+             lambda: lm_serve.main([])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -118,12 +140,14 @@ def _cpu_args():
         assign=lambda b: ops.assign_clusters(v[0], v, x, torch.ones(2), 0.5,
                                              0.5, backend=b),
         affinity=lambda b: ops.affinity(v, v[:, :3], 0.5, backend=b),
+        flash_attention=lambda b: ops.flash_attention(
+            v[:, None], v[:, None], v[:, None], 0, window=3, backend=b),
     )
 
 
 @pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
                                 "lid_sweep", "pairwise_distance", "assign",
-                                "affinity"])
+                                "affinity", "flash_attention"])
 def test_kernel_backend_on_cpu_raises(op):
     call = _cpu_args()[op]
     before = ops.launch_counts()

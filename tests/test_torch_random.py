@@ -89,3 +89,35 @@ def test_gumbel_within_ulps_and_same_top_k():
     tv, ti = torch.sort(torch.tensor(logw) + torch.tensor(tg),
                         descending=True, stable=True)
     np.testing.assert_array_equal(ti[:64].numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5])
+def test_fold_in_exact(seed):
+    """fold_in is the cipher on the counter (0, data): keys equal, for the
+    layer-group indices init_params folds in and for 32-bit extremes."""
+    jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    for data in (0, 1, 2, 23, 45, 2 ** 31, 2 ** 32 - 1):
+        np.testing.assert_array_equal(
+            trandom.fold_in(tk, data).numpy(),
+            np.asarray(jax.random.fold_in(jk, data), np.int64))
+    # split then fold, as init_params does per pattern position
+    js = jax.random.split(jk, 4)[2]
+    ts = trandom.split(tk, 4)[2]
+    np.testing.assert_array_equal(trandom.fold_in(ts, 3).numpy(),
+                                  np.asarray(jax.random.fold_in(js, 3),
+                                             np.int64))
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.3])
+def test_categorical_equal_draws(temperature):
+    """categorical = argmax(logits + Gumbel noise): the noise is within
+    ulps of jax's, so on logits without near-ties the draws are equal."""
+    rng = np.random.default_rng(2)
+    logits = (rng.normal(size=(64, 512)) * 3).astype(np.float32)
+    for s in range(4):
+        jk, tk = jax.random.PRNGKey(s), trandom.PRNGKey(s)
+        want = np.asarray(jax.random.categorical(
+            jk, jnp.asarray(logits) / temperature, axis=-1))
+        got = trandom.categorical(tk, torch.tensor(logits) / temperature,
+                                  axis=-1).numpy()
+        np.testing.assert_array_equal(got, want)
