@@ -69,6 +69,26 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    the served tokens, the logits differ by at most (layers + 1) bf16
    ulps at their scale, at least 16 steps have a plain top-2 gap over
    twice the step's largest difference, and on those the argmaxes agree;
+8. BST serving and the segment sums: (a) the embedding_bag kernel
+   bit-equal to its plain version (f32 and bf16) at BST's three bag
+   shapes as the model builds them from `bst_batch` ids (serve_p99 1,024
+   bags, serve_bulk 524,288, retrieval_cand 2,000,000 of one user), plus
+   interspersed pads, empty bags and mean mode; the segment_matmul kernel
+   bit-equal to its plain version at ogb_products' shape (61,859,328 x
+   100 messages into 2,449,029 nodes, skewed in-degrees, the registry's
+   188 trailing pad edges; leading pads; unvisited row blocks exactly 0;
+   f32 and bf16), through `ops.segment_matmul` from launch counts at 0;
+   each timed beside F.embedding_bag / index_add_ as yardsticks the port
+   never calls; (b) the flash_attention kernel at BST's shape (B = 512,
+   262,144 and 1,000,000; H = Hkv = 8, Sq = Sk = 21, dh = 4, f32, not
+   causal) against its plain version on slabs of rows, past grid.z's
+   65,535; (c) BST's CONFIG at full width (random weights from the port's
+   threefry, 574 MB), from launch counts at 0: make_bst_serve_step at 512
+   and 262,144 rows and make_bst_retrieval_step at 1,000,000 candidates,
+   with step seconds, peak memory and one profiled step each (the
+   device's idle share, time by kernel), embedding_bag and
+   flash_attention launches > 0, and each batch's logits within 1e-4 +
+   1e-4 |ref| of backend="ref";
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -103,7 +123,7 @@ TIMED_RUNS = 25
 PARITY_N = 20_000
 DEVICE = "cuda:0"
 
-# the JAX package's Pallas kernels the seven CUDA kernels replace
+# the JAX package's Pallas kernels the nine CUDA kernels replace
 REPLACES = {
     "lsh_hash": "src/repro/kernels/lsh_hash.py:41",
     "roi_filter": "src/repro/kernels/roi_filter.py:46",
@@ -112,6 +132,8 @@ REPLACES = {
     "assign": "src/repro/kernels/assign.py:52",
     "affinity": "src/repro/kernels/affinity.py:34",
     "flash_attention": "src/repro/kernels/flash_attention.py:102",
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:56",
+    "segment_matmul": "src/repro/kernels/segment_matmul.py:72",
 }
 # the kernels of the fit (phase 4); serving and the full-matrix path run
 # the others
@@ -1309,6 +1331,419 @@ def teacher_force_all(dev, cfg, params, prompts, gen, mix_served):
         teacher_forced(dev, cfg, params, f"mix batch {i}", toks, lens, full)
 
 
+# ------------------------------------------------------------ BST, GNN ----
+BST_SHAPES = (("serve_p99", 512), ("serve_bulk", 262_144),
+              ("retrieval_cand", 1_000_000))
+# ogb_products (the JAX registry's GNN_SHAPES): N nodes, E edges padded to
+# a multiple of 512 with -1 edges, d_feat-wide messages (a first SAGE
+# layer's aggregation)
+OGB_NODES, OGB_EDGES, OGB_DIM = 2_449_029, 61_859_140, 100
+OGB_PADDED = OGB_EDGES + (-OGB_EDGES) % 512
+# 8c: |kernel - plain| <= LOGIT_ATOL + LOGIT_RTOL |plain| for every logit
+LOGIT_ATOL, LOGIT_RTOL = 1e-4, 1e-4
+REF_CHUNK = 262_144      # candidates a plain retrieval pass scores
+
+
+def bag_args(dev, batch: int, step: int, retrieval: bool = False):
+    """embedding_bag's arguments as the model builds them from a bst_batch
+    drawn on the card: its multi-hot ids (retrieval: one user's, tiled
+    over the candidates, so every bag is the same user's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.models import bst as bst_m
+    cfg = get_arch("bst").CONFIG
+    ids = bst_batch(step, batch=1 if retrieval else batch,
+                    seq_len=cfg.seq_len, item_vocab=cfg.item_vocab,
+                    cat_vocab=cfg.cat_vocab, device=dev)["multi_ids"]
+    if retrieval:
+        ids = ids.expand(batch, *ids.shape[1:])
+    return bst_m.bag_inputs(cfg, ids)
+
+
+def bag_bound(table, idx, n_bags):
+    """ms, what bounds it: the ids and bag ids read once, each distinct
+    table row named once, the bags written once; one add per element."""
+    valid = idx[(idx >= 0) & (idx < table.shape[0])]
+    rows = int(torch.unique(valid).numel())
+    es, dim = table.element_size(), table.shape[1]
+    return bound(8 * idx.numel() + es * dim * (rows + n_bags),
+                 dim * valid.numel()) + (rows,)
+
+
+def check_embedding_bag(dev, out):
+    """8a, EmbeddingBag: the kernel bit-equal to its plain version at BST's
+    three shapes (f32 and bf16), with pads and empty bags, and mean; each
+    shape timed with F.embedding_bag as the yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    g = torch.Generator(device=dev).manual_seed(15)
+    table32 = torch.randn((131_072, 32), generator=g, device=dev) * 0.02
+    tables = {"f32": table32, "bf16": table32.to(torch.bfloat16)}
+    timed = {}
+    err = 0.0
+    for step, (shape, batch) in enumerate(BST_SHAPES):
+        idx, bags, n_bags = bag_args(dev, batch, step,
+                                     shape == "retrieval_cand")
+        cases = [(tag, t, idx, bags, "sum") for tag, t in tables.items()]
+        if shape == "serve_bulk":   # short fields: pads anywhere, empty bags
+            pidx = idx.clone()
+            pidx[torch.rand(idx.shape, generator=g, device=dev) < 0.3] = -1
+            pidx.view(-1, 8)[::13] = -1
+            pbags = torch.where(pidx >= 0, bags, -1)
+            cases += [("f32 pads", table32, pidx, pbags, "sum"),
+                      ("bf16 pads", tables["bf16"], pidx, pbags, "mean"),
+                      ("f32 pads", table32, pidx, pbags, "mean")]
+        for tag, t, i, b, mode in cases:
+            got = embedding_bag_cuda(t, i, b, n_bags, mode)
+            want = ref.embedding_bag_ref(t, i, b, n_bags, mode)
+            same = torch.equal(got, want)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            empty = int((b.view(-1, 8) < 0).all(1).sum())
+            print(f"[bag] {shape} {tag} {mode}: {n_bags} bags of {i.numel()} "
+                  f"ids ({int((b < 0).sum())} pads, {empty} empty bags) "
+                  f"table {tuple(t.shape)}: bitwise_equal={same}")
+            need(same, f"embedding_bag {shape} {tag} {mode}: kernel differs "
+                 "from its plain version")
+            need(bool((got[b.view(n_bags, 8).lt(0).all(1)] == 0).all()),
+                 f"embedding_bag {shape}: empty bags are not 0")
+        counts = torch.full((idx.numel() // 8,), 8, device=dev)
+        offsets = torch.cumsum(counts, 0) - counts
+        lib_idx = idx.long()
+
+        def kernel():
+            return embedding_bag_cuda(table32, idx, bags, n_bags)
+
+        def plain():
+            return ref.embedding_bag_ref(table32, idx, bags, n_bags)
+
+        def library():
+            return torch.nn.functional.embedding_bag(lib_idx, table32,
+                                                     offsets, mode="sum")
+        lib_same = bool(torch.allclose(library(), kernel(), rtol=1e-6,
+                                       atol=1e-7))
+        b_ms, b_by, rows = bag_bound(table32, idx, n_bags)
+        t = dict(ms=graph_ms(kernel), call_ms=call_ms(kernel),
+                 plain_ms=call_ms(plain, runs=5), plain_in_graph=False,
+                 library_ms=graph_ms(library), max_abs_err=err,
+                 bound_ms=b_ms, bound_by=b_by)
+        timed[shape] = t
+        print(f"[bag] {shape} f32: {time_line(t)} bound_ms={b_ms:.5f} "
+              f"({b_by}; {rows} distinct rows) library_ms="
+              f"{t['library_ms']:.4f} (F.embedding_bag with offsets, sum; "
+              f"device time, CUDA graph; a yardstick the port never calls; "
+              f"within 1e-6 of the kernel: {lib_same})")
+        del idx, bags, cases
+        torch.cuda.empty_cache()
+    out["embedding_bag"] = dict(timed["serve_bulk"], shapes={
+        k: {key: v[key] for key in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+        for k, v in timed.items()})
+
+
+def ogb_segments(dev, leading: bool = False):
+    """ogb_products' destination ids: N nodes with Pareto(2) in-degrees
+    (a heavy tail; capped at 20,000) summing to E, every 1,000th block of
+    128 nodes with no edge, ascending (edges sorted by destination), and
+    the registry's 188 pad edges (-1) after them, or before them with
+    `leading`."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    u = torch.rand(OGB_NODES, generator=g, device=dev, dtype=torch.float64)
+    w = (1.0 - u) ** -0.5
+    w[(torch.arange(OGB_NODES, device=dev) // 128) % 1000 == 7] = 0.0
+    deg = (w / w.sum() * OGB_EDGES).floor().clamp(max=20_000).long()
+    short = OGB_EDGES - int(deg.sum())
+    live = torch.nonzero(w > 0).flatten()
+    deg[live] += short // live.numel()
+    extra = live[torch.randperm(live.numel(), generator=g,
+                                device=dev)[:short % live.numel()]]
+    deg[extra] += 1
+    seg = torch.repeat_interleave(
+        torch.arange(OGB_NODES, dtype=torch.int32, device=dev), deg)
+    pads = torch.full((OGB_PADDED - OGB_EDGES,), -1, dtype=torch.int32,
+                      device=dev)
+    return torch.cat([pads, seg] if leading else [seg, pads]), deg
+
+
+def check_segment_matmul(dev, out):
+    """8a, segment sums: the kernel bit-equal to its plain version at
+    ogb_products' shape (f32 and bf16, trailing pads as the registry pads;
+    leading pads; unvisited row blocks exactly 0), timed with index_add_
+    as the yardstick."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_matmul import segment_matmul_cuda
+    seg, deg = ogb_segments(dev)
+    err = 0.0
+    print(f"[segment] ogb_products: N={OGB_NODES} E={OGB_EDGES} padded to "
+          f"{OGB_PADDED} ({OGB_PADDED - OGB_EDGES} pad edges), d={OGB_DIM}; "
+          f"in-degree max {int(deg.max())}, mean {OGB_EDGES / OGB_NODES:.2f}, "
+          f"{int((deg == 0).sum())} nodes with none")
+    g = torch.Generator(device=dev).manual_seed(9)
+    msg = torch.randn((OGB_PADDED, OGB_DIM), generator=g, device=dev)
+    empty = deg == 0
+    for tag, s in (("trailing pads", seg), ("leading pads",
+                                            ogb_segments(dev, True)[0])):
+        got = segment_matmul_cuda(msg, s, OGB_NODES)
+        want = ref.segment_matmul_ref(msg, s, OGB_NODES)
+        same = torch.equal(got, want)
+        err = max(err, float((got - want).abs().max()))
+        print(f"[segment] f32 {tag}: bitwise_equal={same}, unvisited rows "
+              f"exactly 0: {bool((got[empty] == 0).all())}")
+        need(same, f"segment_matmul f32 {tag}: kernel differs from its "
+             "plain version")
+        need(bool((got[empty] == 0).all()), "segment_matmul: unvisited rows "
+             "are not 0")
+        del got, want
+    n_valid = OGB_EDGES
+
+    def kernel():
+        return segment_matmul_cuda(msg, seg, OGB_NODES)
+
+    def plain():
+        return ref.segment_matmul_ref(msg, seg, OGB_NODES)
+
+    def library():
+        return torch.zeros((OGB_NODES, OGB_DIM), device=dev).index_add_(
+            0, seg[:n_valid], msg[:n_valid])
+    lib_err = float((library() - kernel()).abs().max())
+    b_ms, b_by = bound(4 * OGB_PADDED * (OGB_DIM + 1)
+                       + 4 * OGB_NODES * OGB_DIM, OGB_EDGES * OGB_DIM)
+    t = dict(ms=graph_ms(kernel, runs=5), call_ms=call_ms(kernel, runs=5),
+             plain_ms=call_ms(plain, runs=1), plain_in_graph=False,
+             library_ms=graph_ms(library, runs=5), max_abs_err=err,
+             bound_ms=b_ms, bound_by=b_by)
+    print(f"[segment] f32: {time_line(t)} bound_ms={b_ms:.4f} ({b_by}: "
+          f"messages and ids read once, rows written once) library_ms="
+          f"{t['library_ms']:.4f} (index_add_, atomics; device time, CUDA "
+          f"graph; a yardstick the port never calls; max |library - "
+          f"kernel| {lib_err:.3e})")
+    ops.reset_launch_counts()          # the op's own path, "auto"
+    main = ops.segment_matmul(msg, seg, OGB_NODES)
+    t["launches"] = ops.launch_counts()["segment_matmul"]
+    need(torch.equal(main, kernel()) and t["launches"] > 0,
+         "ops.segment_matmul did not go through its kernel")
+    del main
+    msg16 = msg.to(torch.bfloat16)
+    del msg
+    torch.cuda.empty_cache()
+    got = segment_matmul_cuda(msg16, seg, OGB_NODES)
+    want = ref.segment_matmul_ref(msg16, seg, OGB_NODES)
+    same = torch.equal(got, want)
+    t["max_abs_err"] = max(err, float((got.float() - want.float()).abs()
+                                      .max()))
+    t["bf16_ms"] = graph_ms(lambda: segment_matmul_cuda(msg16, seg,
+                                                        OGB_NODES), runs=5)
+    print(f"[segment] bf16 trailing pads: bitwise_equal={same}; kernel_ms="
+          f"{t['bf16_ms']:.4f} (device time, CUDA graph)")
+    need(same, "segment_matmul bf16: kernel differs from its plain version")
+    out["segment_matmul"] = t
+    del msg16, got, want, seg
+    torch.cuda.empty_cache()
+
+
+def check_bst_attention(dev, out):
+    """8b: the attention kernel at BST's shape (H = Hkv = 8, Sq = Sk = 21,
+    dh = 4, f32, not causal) for B = 512, 262,144 and 1,000,000 against
+    its plain version on slabs of rows (the op is independent across the
+    batch): the first and last 65,536 rows, past grid.z's 65,535."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import compare_with_plain, \
+        flash_attention_cuda
+    timed = {}
+    for seed, (shape, b) in enumerate(BST_SHAPES):
+        q, k, v = flash_inputs(dev, b, 8, 8, 21, 21, 4, torch.float32,
+                               100 + seed, q_view=True)
+        got = flash_attention_cuda(q, k, v, 0, causal=False)
+        slabs = [(0, min(b, 65_536))] + ([(b - 65_536, b)] if b > 65_536
+                                         else [])
+        bad, err = 0, 0.0
+        for lo, hi in slabs:
+            want = ref.attention_ref(q[lo:hi], k[lo:hi], v[lo:hi],
+                                     causal=False)
+            res = compare_with_plain(got[lo:hi], want, torch.ones(
+                (hi - lo, 21), dtype=torch.bool, device=dev))
+            bad += res["bad"]
+            err = max(err, res["max_abs_err"])
+        print(f"[flash] BST {shape}: B={b} H=Hkv=8 Sq=Sk=21 dh=4 f32 not "
+              f"causal, q the model's view: rows {slabs} compared, outside "
+              f"the rule {bad}, max_abs_err={err:.3e}")
+        need(bad == 0, f"flash_attention BST {shape}: outside the rule")
+        pairs = b * 8 * 21 * 21
+        b_ms, b_by = bound(4 * 4 * b * 8 * 21 * 4, 4 * 4 * pairs)
+        if shape == "serve_bulk":
+            def kernel():
+                return flash_attention_cuda(q, k, v, 0, causal=False)
+
+            def plain():
+                return ref.attention_ref(q, k, v, causal=False)
+            t = dict(ms=graph_ms(kernel, runs=5), call_ms=call_ms(kernel),
+                     plain_ms=graph_ms(plain, runs=3, replays=3),
+                     plain_in_graph=True, library_ms=graph_ms(
+                         lambda: torch.nn.functional.
+                         scaled_dot_product_attention(q, k, v), runs=5),
+                     max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+            timed = t
+            print(f"[flash] BST {shape}: {time_line(t)} bound_ms={b_ms:.4f} "
+                  f"({b_by}; {pairs} pairs x 4 dh f32 operations at 67 "
+                  f"TFLOP/s, or q, k, v, out once) library_ms="
+                  f"{t['library_ms']:.4f} (scaled_dot_product_attention; "
+                  "device time, CUDA graph; a yardstick the port never "
+                  "calls)")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    out["flash_attention"]["bst"] = {
+        key: timed[key] for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")}
+
+
+def bst_batches(dev):
+    """8c's batches, drawn on the card: serve_p99 and serve_bulk as
+    bst_batch gives them, and retrieval_cand as one user's context (row 0
+    of a 1,000,000-row batch) against that batch's targets."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import bst_batch
+    cfg = get_arch("bst").CONFIG
+    out = []
+    for step, (shape, b) in enumerate(BST_SHAPES):
+        batch = bst_batch(step, batch=b, seq_len=cfg.seq_len,
+                          item_vocab=cfg.item_vocab, cat_vocab=cfg.cat_vocab,
+                          device=dev)
+        if shape == "retrieval_cand":
+            user = ("seq_items", "seq_cats", "dense_feats", "multi_ids")
+            batch = dict({k: batch[k][:1] for k in user},
+                         cand_items=batch["target_item"],
+                         cand_cats=batch["target_cat"])
+        else:
+            batch.pop("labels")
+        out.append((shape, b, batch))
+    return out
+
+
+def plain_logits(step, params, shape, batch):
+    """The same batch through backend="ref"; retrieval in chunks of
+    candidates (one user's context each time)."""
+    if shape != "retrieval_cand":
+        return step(params, batch)
+    parts = []
+    for lo in range(0, batch["cand_items"].shape[0], REF_CHUNK):
+        part = dict(batch, cand_items=batch["cand_items"][lo:lo + REF_CHUNK],
+                    cand_cats=batch["cand_cats"][lo:lo + REF_CHUNK])
+        parts.append(step(params, part))
+    return torch.cat(parts)
+
+
+def profile_bst_step(step, params, batch, shape):
+    """One more step under torch.profiler (device activity only): the
+    device's busy time against the step's wall time, and where it goes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+
+    def share(*names):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(n in e.key for n in names)) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    print(f"[bst] {shape} step profiled (device activity only): wall "
+          f"{wall:.4f}s, device busy {busy:.4f}s, idle_share="
+          f"{1 - busy / wall:.4f}; flash_attention {share('flash_kernel'):.4f}s"
+          f", embedding_bag {share('embedding_bag_kernel'):.4f}s, sorts "
+          f"{share('Sort', 'sort'):.4f}s; top: " + "; ".join(
+              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+              f"{e.key[:50]}" for e in top[:6]))
+
+
+def serve_bst(dev):
+    """8c: BST's CONFIG at full width on the card, from launch counts at 0:
+    make_bst_serve_step at 512 and 262,144, make_bst_retrieval_step at
+    1,000,000 candidates; then each batch's logits through backend="ref"
+    against the kernel path's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import bst as bst_m
+    from repro_torch.random import PRNGKey
+    from repro_torch.train.steps import make_bst_retrieval_step, \
+        make_bst_serve_step
+    cfg = get_arch("bst").CONFIG
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bst_m.init_params(PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[bst] {cfg.name} CONFIG: embed_dim {cfg.embed_dim}, seq_len "
+          f"{cfg.seq_len}, {cfg.n_blocks} block x {cfg.n_heads} heads, MLP "
+          f"{cfg.mlp}, tables {cfg.item_vocab} / {cfg.cat_vocab} / "
+          f"{cfg.multi_vocab}; {n_par} parameters, {w_bytes} bytes; "
+          f"init_params on the card {time.perf_counter() - t0:.2f}s")
+    need(n_par == cfg.param_count() and w_bytes == 4 * n_par,
+         "the weights are not the configuration's parameters in f32")
+    batches = bst_batches(dev)
+    steps = {"kernel": (make_bst_serve_step(cfg),
+                        make_bst_retrieval_step(cfg)),
+             "ref": (make_bst_serve_step(cfg, backend="ref"),
+                     make_bst_retrieval_step(cfg, backend="ref"))}
+    ops.reset_launch_counts()
+    logits = {}
+    for shape, b, batch in batches:
+        step = steps["kernel"][shape == "retrieval_cand"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            y = step(params, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        logits[shape] = y
+        unit = "candidates" if shape == "retrieval_cand" else "rows"
+        print(f"[bst] {shape}: {b} {unit}, "
+              f"step seconds {', '.join(f'{s:.4f}' for s in secs)} (host "
+              f"clock, each ending in a synchronise; the first includes "
+              f"warm-up), {b / statistics.median(secs):.0f} scored/s; "
+              f"max_memory_allocated={peak}")
+        need(y.shape == (b,) and bool(torch.isfinite(y).all()),
+             f"BST {shape}: logits not finite or of the wrong shape")
+        profile_bst_step(step, params, batch, shape)
+    counts = ops.launch_counts()
+    print(f"[bst] launches of the BST serving path: {counts}")
+    need(counts["embedding_bag"] > 0 and counts["flash_attention"] > 0,
+         "BST serving never launched embedding_bag or flash_attention")
+    for shape, b, batch in batches:
+        step = steps["ref"][shape == "retrieval_cand"]
+        want = plain_logits(step, params, shape, batch)
+        got = logits.pop(shape)
+        diff = (got - want).abs()
+        worst = float((diff - LOGIT_RTOL * want.abs()).max())
+        print(f"[bst] {shape} logits, kernel path vs backend='ref': max "
+              f"|diff| {float(diff.max()):.3e} on logits up to "
+              f"{float(want.abs().max()):.3f}; rule |diff| <= {LOGIT_ATOL} "
+              f"+ {LOGIT_RTOL} |ref| holds: {worst <= LOGIT_ATOL}")
+        need(worst <= LOGIT_ATOL, f"BST {shape}: kernel-path logits differ "
+             "from backend='ref' beyond the rule")
+        del got, want
+    del params, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     from repro_torch.kernels import _build
     if not torch.cuda.is_available():
@@ -1356,6 +1791,17 @@ def main() -> int:
     cfg, params, prompts, gen, mix_served, lm_counts = serve_lm(dev)
     counts["flash_attention"] = lm_counts["flash_attention"]
     teacher_force_all(dev, cfg, params, prompts, gen, mix_served)
+    del params, gen, mix_served
+    torch.cuda.empty_cache()
+
+    check_embedding_bag(dev, stats)
+    check_segment_matmul(dev, stats)
+    check_bst_attention(dev, stats)
+    bst_counts = serve_bst(dev)
+    counts["embedding_bag"] = bst_counts["embedding_bag"]
+    counts["segment_matmul"] = stats["segment_matmul"].pop("launches")
+    stats["flash_attention"]["bst"]["launches"] = \
+        bst_counts["flash_attention"]
 
     table = []
     for name, s in stats.items():
@@ -1366,7 +1812,8 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
-            **({"decode": s["decode"]} if "decode" in s else {})})
+            **{key: s[key] for key in ("decode", "bst", "shapes", "bf16_ms")
+               if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

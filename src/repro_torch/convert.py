@@ -1,11 +1,12 @@
 """Carry state from the JAX package to the port.
 
 ALID has no weights; its state is the LSH tables, the LID states and the
-fitted `Clustering`; the LMs of the model zoo have their parameter trees.
-Each function here takes the JAX package's objects as numpy arrays
-(`np.asarray` of its jax arrays, or its `to_dict()`) and returns the
-port's counterpart, so that tests can hand both packages the same tables,
-states and weights.
+fitted `Clustering`; the LMs and BST of the model zoo have their
+parameter trees. Each function here takes the JAX package's objects as
+numpy arrays (`np.asarray` of its jax arrays, or its `to_dict()`) and
+returns the port's counterpart, so that tests can hand both packages the
+same tables, states and weights. Like every entry point of the port, each
+puts its tensors on the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -13,15 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.alid import Clustering
+from repro_torch.core.alid import Clustering, resolve_device
 from repro_torch.core.lid import LIDState
 from repro_torch.lsh.pstable import LSHTables
 
 
 def lsh_tables_from_numpy(proj, bias, sorted_keys, perm,
-                          device="cpu") -> LSHTables:
+                          device="cuda") -> LSHTables:
     """proj (L, m, d) f32, bias (L, m) f32, sorted_keys (L, n) uint32,
     perm (L, n) int32 -> LSHTables (keys held as int64 uint32 values)."""
+    device = resolve_device(device)
     return LSHTables(
         proj=torch.as_tensor(np.asarray(proj, np.float32), device=device),
         bias=torch.as_tensor(np.asarray(bias, np.float32), device=device),
@@ -33,9 +35,10 @@ def lsh_tables_from_numpy(proj, bias, sorted_keys, perm,
 
 
 def lid_state_from_numpy(beta_idx, beta_mask, v_beta, x, ax, n_iters,
-                         converged, device="cpu") -> LIDState:
+                         converged, device="cuda") -> LIDState:
     """The fields of one LIDState (unbatched, as one seed of the JAX
     package) or of a vmapped batch of them -> a batched LIDState."""
+    device = resolve_device(device)
     beta_idx = np.asarray(beta_idx, np.int32)
     batched = beta_idx.ndim == 2
 
@@ -56,16 +59,25 @@ def clustering_from_dict(d: dict) -> Clustering:
     return Clustering.from_dict({k: np.asarray(v) for k, v in d.items()})
 
 
-def lm_params_from_numpy(tree, device="cpu"):
-    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
-    `jax.tree.map(np.asarray, params)`) -> the port's, the same keys and
-    shapes. bf16 leaves arrive as `ml_dtypes.bfloat16` arrays; they are
-    recognised by their dtype's name and their bits reinterpreted as
-    torch.bfloat16, so this module needs no `ml_dtypes`."""
+def lm_params_from_numpy(tree, device="cuda"):
+    """The JAX package's LM parameter tree (nested dicts and lists of numpy
+    arrays, `jax.tree.map(np.asarray, params)`) -> the port's, the same
+    keys and shapes. bf16 leaves arrive as `ml_dtypes.bfloat16` arrays;
+    they are recognised by their dtype's name and their bits reinterpreted
+    as torch.bfloat16, so this module needs no `ml_dtypes`."""
+    resolve_device(device)
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(v, device) for v in tree]
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.array(a).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return torch.tensor(a, device=device)
+
+
+def bst_params_from_numpy(tree, device="cuda"):
+    """The JAX package's BST parameter tree (tables, `blocks` as a list of
+    dicts, the MLP) -> the port's (`models.bst.init_params`'s layout)."""
+    return lm_params_from_numpy(tree, device)

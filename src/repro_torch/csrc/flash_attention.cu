@@ -58,6 +58,8 @@ struct Params {
   int q_offset, causal, window, chunk;  // window, chunk: 0 = none
   float softcap, scale;                 // softcap: 0 = none
   int hb, ppt, n_hc, bc, rp, dh4;       // tile plan, see smem_plan
+  int blocks_per_row;                   // query tiles x head chunks
+  int b0;                               // the launch's first batch row
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -95,8 +97,12 @@ __global__ void __launch_bounds__(kThreads)
   float* al = ls + rp;                           // [rp] this tile's rescale
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z, g = blockIdx.y;
-  const int qtile = blockIdx.x / p.n_hc, hc = blockIdx.x - qtile * p.n_hc;
+  // blockIdx.x runs over (batch row, query tile, head chunk), so the
+  // batch may exceed grid.z's 65,535
+  const int bl = blockIdx.x / p.blocks_per_row;
+  const int b = p.b0 + bl, g = blockIdx.y;
+  const int tile = blockIdx.x - bl * p.blocks_per_row;
+  const int qtile = tile / p.n_hc, hc = tile - qtile * p.n_hc;
   const int rep = p.h / p.hkv;
   const int s0 = qtile * p.ppt;                 // first query position
   const int h0 = g * rep + hc * p.hb;           // first q head
@@ -311,14 +317,23 @@ cudaError_t launch(const Params& p, int batch, int smem_bytes,
     if (err != cudaSuccess) return err;
     smem_limit = smem_bytes;
   }
-  const long n_tiles = (p.sq + p.ppt - 1) / p.ppt;
-  const long blocks = n_tiles * p.n_hc;
-  if (blocks > 0x7fffffffL || p.hkv > 65535 || batch > 65535) {
-    return cudaErrorInvalidValue;
+  const long long per_row =
+      static_cast<long long>((p.sq + p.ppt - 1) / p.ppt) * p.n_hc;
+  if (per_row > 0x7fffffffLL || p.hkv > 65535) return cudaErrorInvalidValue;
+  // batch rows a launch: as many as grid.x holds (one launch unless the
+  // grid would pass 2**31 - 1 blocks)
+  const long long rows = 0x7fffffffLL / per_row;
+  Params lp = p;
+  lp.blocks_per_row = static_cast<int>(per_row);
+  for (long long b0 = 0; b0 < batch; b0 += rows) {
+    const long long n = batch - b0 < rows ? batch - b0 : rows;
+    lp.b0 = static_cast<int>(b0);
+    const dim3 grid(static_cast<unsigned>(n * per_row), p.hkv, 1);
+    flash_kernel<T><<<grid, kThreads, smem_bytes, stream>>>(lp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  const dim3 grid(static_cast<unsigned>(blocks), p.hkv, batch);
-  flash_kernel<T><<<grid, kThreads, smem_bytes, stream>>>(p);
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // namespace

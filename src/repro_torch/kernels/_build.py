@@ -58,6 +58,11 @@ SIGNATURES = {
     # ppt, bc, smem_bytes, stream
     "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, I,
                                I, I, I, F, F, I, I, I, I, I, P),
+    # msg, perm, bounds, out, n_seg, d, is_bf16, vec, group, stream
+    "segment_matmul_launch": (P, P, P, P, L, I, I, I, I, P),
+    # table, idx, perm, bounds, out, n_bags, dim, is_bf16, vec, group,
+    # mean, stream
+    "embedding_bag_launch": (P, P, P, P, P, L, I, I, I, I, I, P),
 }
 
 

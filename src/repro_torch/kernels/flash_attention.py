@@ -12,7 +12,7 @@ from repro_torch.kernels._common import i32, require_cuda
 # margin for the kernel's static shared variables
 SMEM_MAX = 232448 - 256
 MAX_HEAD_DIM = 256
-_MAX_GRID_YZ = 65535
+_MAX_GRID_Y = 65535
 
 
 def _smem_bytes(dh: int, rp: int, bc: int) -> int:
@@ -53,7 +53,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     all bf16, H a multiple of Hkv, dh <= 256 -> (B, H, Sq, dh) in q's
     dtype. q may be any view whose last dim is contiguous (the model
     passes a transposed one); k and v are made contiguous. kv_start: (B,)
-    int32 pad slots per row, or None for none. One launch."""
+    int32 pad slots per row, or None for none. One launch (the batch
+    is split only past 2**31 - 1 blocks)."""
     dev = require_cuda("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -73,9 +74,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if val is not None and not val > 0:
             raise ValueError(f"flash_attention: {name} must be > 0, got "
                              f"{val}")
-    if b > _MAX_GRID_YZ or hkv > _MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: B={b}, Hkv={hkv} exceed "
-                         f"{_MAX_GRID_YZ}")
+    if hkv > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: Hkv={hkv} exceeds {_MAX_GRID_Y}")
     out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or sk == 0:
         return out.zero_()

@@ -2,9 +2,10 @@
 
 Every hot-path module (`core.affinity`, `core.lid`, `core.roi`, `core.civs`,
 `lsh.pstable`, `core.alid.assign_labels` behind predict and serving, the
-full-matrix baselines through `core.affinity`, and the LMs' attention in
-`models.transformer`) computes distances, affinities, LSH keys,
-assignments and attention only through these wrappers. Each takes
+full-matrix baselines through `core.affinity`, the LMs' and BST's
+attention in `models.transformer` and `models.bst`, and BST's multi-hot
+lookups) computes distances, affinities, LSH keys, assignments,
+attention, bag sums and segment sums only through these wrappers. Each takes
 `backend`:
 
   "auto"    the CUDA kernel for tensors on the card, the plain PyTorch
@@ -28,10 +29,12 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.affinity import affinity_cuda
 from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
 from repro_torch.kernels.assign import assign_cuda
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lid_sweep import lid_sweep_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.roi_filter import roi_filter_cuda
+from repro_torch.kernels.segment_matmul import segment_matmul_cuda
 
 BACKENDS = ("auto", "ref", "kernel")
 
@@ -43,6 +46,8 @@ KERNELS = {
     "assign": assign_cuda,
     "affinity": affinity_cuda,
     "flash_attention": flash_attention_cuda,
+    "embedding_bag": embedding_bag_cuda,
+    "segment_matmul": segment_matmul_cuda,
 }
 
 
@@ -222,3 +227,28 @@ def flash_attention(q, k, v, q_offset: int = 0, *, causal: bool = True,
     return flash_attention_cuda(q, k, v, int(q_offset), causal=causal,
                                 window=window, chunk=chunk, softcap=softcap,
                                 scale=scale, kv_start=kv_start)
+
+
+def embedding_bag(table, idx, bag_ids, n_bags: int, mode: str = "sum", *,
+                  backend: str = "auto"):
+    """Rows of table (V, dim) gathered by idx (N,) and summed, or averaged
+    with `mode="mean"`, into bag bag_ids[e]: (n_bags, dim) in the table's
+    dtype, f32 sums. Ids outside [0, V) (the -1 pads, anywhere) and bags
+    outside [0, n_bags) are skipped; empty bags are 0. The kernel computes
+    both modes (the JAX package sends "mean" to its plain version); the
+    TPU layout knobs `be` and `bw` have no counterpart."""
+    kmode = resolve_backend(backend, table)
+    if kmode == "ref":
+        return _ref.embedding_bag_ref(table, idx, bag_ids, n_bags, mode)
+    return embedding_bag_cuda(table, idx, bag_ids, n_bags, mode)
+
+
+def segment_matmul(msg, seg_ids, n_segments: int, *, backend: str = "auto"):
+    """sum_e msg[e] into row seg_ids[e]: (n_segments, d) in msg's dtype,
+    f32 sums. Ids outside [0, n_segments) (the -1 pads, anywhere) are
+    skipped, and rows never visited are 0, as the JAX wrapper's rule
+    has it. The ids need not be sorted."""
+    mode = resolve_backend(backend, msg)
+    if mode == "ref":
+        return _ref.segment_matmul_ref(msg, seg_ids, n_segments)
+    return segment_matmul_cuda(msg, seg_ids, n_segments)

@@ -17,7 +17,9 @@ any other rounding into other labels):
   then 32 running sums over the chunks of 32 (element t goes to sum
   t mod 32, chunk after chunk), then a halving tree over the 32;
 - `tree_matvec` (the matvec's weighted sum): a halving tree over the
-  zero-padded power of two, as the JAX package pins it.
+  zero-padded power of two, as the JAX package pins it;
+- `segment_sum_ref` (`embedding_bag` and `segment_matmul`): each segment's
+  rows added one after another in their input order, from +0, in f32.
 
 Multiplies and adds stay separate operations (no fused multiply-add), in
 both the plain versions and those kernels. The `lsh_hash` kernel sums in
@@ -425,3 +427,72 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None, chunk=None,
     return torch.cat([
         _attention_block(q[:, :, i:i + block_q], k, v, q_offset=q_offset + i,
                          **kw) for i in range(0, sq, block_q)], dim=2)
+
+
+# ------------------------------------------- segment sums: bags, messages --
+def segment_sum_ref(rows, seg: torch.Tensor, valid: torch.Tensor, n: int,
+                    d: int, mean: bool = False) -> torch.Tensor:
+    """(n, d) f32 sums of rows into segments, in the pinned order that the
+    `embedding_bag` and `segment_matmul` kernels share: segment s starts
+    at +0 and adds, one after another, the rows e with valid[e] and
+    seg[e] == s, in the order of e. `rows(e)` gives those rows ((k,) int64
+    -> (k, d)), read only where valid. Empty segments are 0; `mean`
+    divides each sum by max(count, 1).
+
+    Step r adds the r-th row of every segment that has more than r rows,
+    so each step writes each segment at most once (an exact elementwise
+    add) and there are as many steps as the largest segment has rows."""
+    pos = torch.nonzero(valid).flatten()                 # rows in input order
+    keys = seg[pos].to(torch.int64)
+    order = torch.argsort(keys, stable=True)
+    keys, pos = keys[order], pos[order]                  # by segment, stable
+    counts = torch.bincount(keys, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(keys.numel(), device=keys.device) - starts[keys]
+    by_rank = torch.argsort(rank, stable=True)
+    per_rank = torch.bincount(rank).tolist()
+    out = torch.zeros((n, d), dtype=torch.float32, device=seg.device)
+    lo = 0
+    for k in per_rank:
+        sel = by_rank[lo:lo + k]
+        lo += k
+        s = keys[sel]
+        out[s] = out[s] + rows(pos[sel]).float()
+    if mean:
+        out = out / counts.clamp(min=1).float()[:, None]
+    return out
+
+
+def segment_matmul_ref(msg: torch.Tensor, seg_ids: torch.Tensor,
+                       n_segments: int) -> torch.Tensor:
+    """sum_e msg[e] into row seg_ids[e] of an (n_segments, d) result in
+    msg's dtype, accumulated in f32. Ids outside [0, n_segments) (the -1
+    pads, wherever they sit) are dropped; their rows are never read. As
+    the JAX package's `segment_matmul_ref`, in the order of
+    `segment_sum_ref`."""
+    seg = seg_ids.to(torch.int64)
+    valid = (seg >= 0) & (seg < n_segments)
+    out = segment_sum_ref(lambda e: msg[e], seg, valid, n_segments,
+                          msg.shape[1])
+    return out.to(msg.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
+                      bag_ids: torch.Tensor, n_bags: int,
+                      mode: str = "sum") -> torch.Tensor:
+    """Rows table[idx[e]] summed (or averaged, `mode="mean"`) into bag
+    bag_ids[e]: (n_bags, dim) in the table's dtype, accumulated in f32. An
+    entry is skipped where idx is outside [0, V) (the -1 pads, wherever
+    they sit) or its bag is outside [0, n_bags); empty bags are 0, and the
+    mean divides by the number of entries not skipped. As the JAX
+    package's `embedding_bag_ref`, in the order of `segment_sum_ref`."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got "
+                         f"{mode!r}")
+    idx = idx.to(torch.int64)
+    bags = bag_ids.to(torch.int64)
+    valid = (idx >= 0) & (idx < table.shape[0]) & (bags >= 0) & \
+        (bags < n_bags)
+    out = segment_sum_ref(lambda e: table[idx[e]], bags, valid, n_bags,
+                          table.shape[1], mean=mode == "mean")
+    return out.to(table.dtype)

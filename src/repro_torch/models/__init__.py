@@ -1,3 +1,3 @@
 """Models of the JAX package's zoo ported so far: the dense decoder-only
-LMs (`transformer`) and their building blocks (`layers`). The MoE, GNN and
-BST models wait for ROADMAP A16."""
+LMs (`transformer`), BST (`bst`, serving) and their building blocks
+(`layers`). The MoE and GNN models wait for ROADMAP A16."""

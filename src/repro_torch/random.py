@@ -6,9 +6,10 @@ partitionable mode (the jax 0.9 default): the LSH projections and biases
 Gumbel top-k seeding (`core.alid._sample_seeds`); the language models draw
 their weights (`models.transformer.init_params`, per layer group through
 `fold_in`) and `serve.engine.generate` its samples (`categorical`) from it
-too. Labels and weights can only match the reference if the port draws the
-same numbers, so this module ports that generator instead of using
-`torch.Generator`.
+too, and BST's synthetic batches (`data.recsys.bst_batch`) their ids,
+clicks and dense features (`randint`, `bernoulli`, `normal`). Labels and
+weights can only match the reference if the port draws the same numbers,
+so this module ports that generator instead of using `torch.Generator`.
 
 A key is an int64 tensor of shape (2,) holding two uint32 words. Torch has
 no uint32 shift on the CPU, so all 32-bit words live in int64 tensors whose
@@ -146,6 +147,35 @@ def normal(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     u = uniform(key, shape, lo, 1.0, device)
     return torch.tensor(np.sqrt(2), dtype=torch.float32,
                         device=device) * erf_inv(u)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """`jax.random.randint` with jax's default int32: two 32-bit draws per
+    value (from the two halves of `split(key)`), each reduced modulo the
+    span = maxval - minval and combined as ((hi mod span) * mult + lo mod
+    span) mod span, every step in uint32 arithmetic (here int64 masked to
+    32 bits), plus minval. mult is jax's ((2**16 mod span)**2 mod 2**32)
+    mod span: the square wraps to 0 for spans above 2**16, which then
+    draw from the low word alone. A span <= 0 gives minval. int32 values
+    in int64."""
+    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
+    minval = min(max(int(minval), lo32), hi32)
+    maxval = min(max(int(maxval), lo32), hi32)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
+    return minval + offset % span
+
+
+def bernoulli(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p)` in its default "low" mode: uniform
+    draws of p's shape, compared in f32: uniform < p (bool)."""
+    p = p.float()
+    return uniform(key, tuple(p.shape), device=p.device) < p
 
 
 def gumbel(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:

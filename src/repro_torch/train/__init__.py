@@ -1,0 +1,3 @@
+"""The step functions of the JAX package's `train/steps.py` that the port
+runs: BST's serving and retrieval steps. Training (losses, optimizers,
+the train steps) waits for backward kernels (ROADMAP A16)."""

@@ -159,7 +159,7 @@ def _port_state(seeds=(0, 1, 2)):
     sts = [_live_state(s) for s in seeds]
     fields = [np.stack([np.asarray(getattr(s, f)) for s in sts])
               for f in jlid.LIDState._fields]
-    return sts, lid_state_from_numpy(*fields)
+    return sts, lid_state_from_numpy(*fields, device="cpu")
 
 
 @pytest.mark.parametrize("sweep_steps", [1, 3, 8, 200])

@@ -74,7 +74,8 @@ def world(blobs, cfg):
     pts = jnp.asarray(blobs.points)
     k = jestimate_k(pts, backend="ref")
     tables = jp.build_lsh(pts, cfg.lsh, jax.random.PRNGKey(1), backend="ref")
-    ttables = lsh_tables_from_numpy(*(np.asarray(a) for a in tables))
+    ttables = lsh_tables_from_numpy(*(np.asarray(a) for a in tables),
+                                    device="cpu")
     return dict(pts=pts, k=k, tables=tables, tpts=torch.tensor(blobs.points),
                 ttables=ttables, tk=float(k))
 
@@ -83,7 +84,7 @@ def _tstate(states):
     """JAX LIDStates (one per seed) -> one batched port LIDState."""
     fields = [np.stack([np.asarray(getattr(s, f)) for s in states])
               for f in jlid.LIDState._fields]
-    return lid_state_from_numpy(*fields)
+    return lid_state_from_numpy(*fields, device="cpu")
 
 
 def _solve(st, k, cfg):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. `roi_filter`, `affinity_matvec`, `lid_sweep`, `assign` and `affinity`
-sum in the pinned order of `repro_torch.kernels.ref` with separate
-multiplies and adds, so their outputs must be bit-equal. `lsh_hash` sums
+card. `roi_filter`, `affinity_matvec`, `lid_sweep`, `assign`, `affinity`,
+`embedding_bag` and `segment_matmul` sum in the pinned orders of
+`repro_torch.kernels.ref` with separate multiplies and adds, so their
+outputs must be bit-equal. `lsh_hash` sums
 in its own order: its keys may differ only where z / seg_len lies within
 1e-4 of an integer (`kernels.lsh_hash.key_flips`), and on these inputs at
 most one pair in 10,000 may. Small shapes with ragged tails;
@@ -435,3 +436,148 @@ def test_lm_generate_kernel_equals_plain(dev, arch):
         out[backend] = srv.serve()
     for rid in out["ref"]:
         assert np.array_equal(out["kernel"][rid], out["ref"][rid])
+
+
+def _segment_ids(rng, e, n, placement):
+    seg = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    k = e // 5
+    if placement == "leading":
+        seg[:k] = -1
+    elif placement == "trailing":
+        seg[e - k:] = -1
+    elif placement == "interspersed":
+        seg[rng.choice(e, k, replace=False)] = -1
+    elif placement == "unsorted":
+        seg = rng.permutation(seg)
+        seg[rng.choice(e, k, replace=False)] = -1
+    return seg
+
+
+SEGMENT_PLACEMENTS = ["leading", "trailing", "interspersed", "unsorted"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("placement", SEGMENT_PLACEMENTS)
+@pytest.mark.parametrize("e,n,d", [(5000, 1300, 100), (3000, 4000, 32),
+                                   (777, 50, 7), (2000, 300, 300)])
+def test_segment_matmul_bitwise(dev, e, n, d, placement, dtype):
+    """Every pad placement; unvisited rows (most of (3000, 4000)) exactly
+    0; widths of one pass (32, 100), scalar loads (7) and several passes
+    (300). NaN in the pads' rows, which are never read."""
+    rng = np.random.default_rng(e + n + d)
+    seg = torch.tensor(_segment_ids(rng, e, n, placement), device=dev)
+    msg = torch.tensor(rng.standard_normal((e, d)).astype(np.float32),
+                       device=dev).to(dtype)
+    msg[seg < 0] = float("nan")
+    got, want = _both(lambda b: ops.segment_matmul(msg, seg, n, backend=b))
+    assert got.dtype == dtype and got.shape == (n, d)
+    assert torch.equal(got, want)
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit[seg[seg >= 0].long()] = True
+    assert bool((got[~hit] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("placement", SEGMENT_PLACEMENTS)
+def test_embedding_bag_bitwise(dev, placement, dtype, mode):
+    """BST-like bags of 8 ids over a 131,072 x 32 table, pads at
+    `placement` (their bags -1, as models/bst.py builds them), every 17th
+    bag empty, ids past the table skipped."""
+    rng = np.random.default_rng(7)
+    n_bags, v = 4000, 131_072
+    idx = rng.integers(0, v, n_bags * 8).astype(np.int32)
+    idx[_segment_ids(rng, idx.size, 2, placement) < 0] = -1
+    idx.reshape(n_bags, 8)[::17] = -1
+    idx[::101] = v + 5
+    bags = np.repeat(np.arange(n_bags, dtype=np.int32), 8)
+    if placement == "unsorted":
+        order = rng.permutation(idx.size)
+        idx, bags = idx[order], bags[order]
+    bags = np.where(idx >= 0, bags, -1)
+    table = torch.tensor(rng.standard_normal((v, 32)).astype(np.float32),
+                         device=dev).to(dtype)
+    idx_t = torch.tensor(idx, device=dev)
+    bags_t = torch.tensor(bags, device=dev)
+    got, want = _both(lambda b: ops.embedding_bag(table, idx_t, bags_t,
+                                                  n_bags, mode, backend=b))
+    assert got.dtype == dtype and got.shape == (n_bags, 32)
+    assert torch.equal(got, want)
+    assert bool((got[::17] == 0).all())
+
+
+@pytest.mark.cuda
+def test_segment_kernels_count_and_refuse(dev):
+    """"auto" launches (the counts move), "ref" does not; other dtypes and
+    modes raise."""
+    table = torch.randn(50, 16, device=dev)
+    idx = torch.arange(40, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()
+    ops.embedding_bag(table, idx, idx // 4, 10, backend="ref")
+    ops.segment_matmul(table, idx[:50] % 7, 7, backend="ref")
+    assert ops.launch_counts() == before
+    ops.embedding_bag(table, idx, idx // 4, 10)
+    ops.segment_matmul(table[:40], idx % 7, 7)
+    after = ops.launch_counts()
+    assert after["embedding_bag"] == before["embedding_bag"] + 1
+    assert after["segment_matmul"] == before["segment_matmul"] + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.segment_matmul(table.half(), idx % 7, 7)
+    with pytest.raises(ValueError, match="mode"):
+        ops.embedding_bag(table, idx, idx // 4, 10, "max")
+
+
+@pytest.mark.cuda
+def test_flash_attention_past_65535_rows(dev):
+    """BST's attention (H = Hkv = 8, Sq = Sk = 21, dh = 4, not causal) at
+    B = 70,000, past the 65,535 rows that grid.z holds: within the rule,
+    and each row equal to the same rows run as a batch of their own."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v = (torch.randn((70_000, 8, 21, 4), generator=g).to(dev)
+               for _ in range(3))
+    got, want = _both(lambda b: ops.flash_attention(q, k, v, 0, causal=False,
+                                                    backend=b))
+    rows = torch.ones((70_000, 21), dtype=torch.bool, device=dev)
+    res = compare_with_plain(got, want, rows)
+    assert res["bad"] == 0, res
+    tail = ops.flash_attention(q[65_530:], k[65_530:], v[65_530:], 0,
+                               causal=False)
+    assert torch.equal(got[65_530:], tail)
+
+
+@pytest.mark.cuda
+def test_bst_serve_kernel_matches_plain(dev):
+    """SMOKE_CONFIG served on the card through the kernels and through the
+    plain versions (a padded multi-hot field included): logits within
+    1e-5 (the attention kernel's f32 rule carried through the block and
+    the MLP), and both kernels launched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.models import bst as bst_m
+    from repro_torch.random import PRNGKey
+    from repro_torch.train.steps import make_bst_retrieval_step, \
+        make_bst_serve_step
+    cfg = get_arch("bst").SMOKE_CONFIG
+    params = bst_m.init_params(PRNGKey(0), cfg, device=dev)
+    batch = bst_batch(2, batch=300, seq_len=cfg.seq_len,
+                      item_vocab=cfg.item_vocab, cat_vocab=cfg.cat_vocab,
+                      multi_vocab=cfg.multi_vocab, device=dev)
+    batch["multi_ids"][::3, 1, 2:] = -1
+    before = ops.launch_counts()
+    got = make_bst_serve_step(cfg)(params, batch)
+    after = ops.launch_counts()
+    assert after["embedding_bag"] > before["embedding_bag"]
+    assert after["flash_attention"] > before["flash_attention"]
+    want = make_bst_serve_step(cfg, backend="ref")(params, batch)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    user = {k: batch[k][:1] for k in ("seq_items", "seq_cats",
+                                      "dense_feats", "multi_ids")}
+    user.update(cand_items=batch["target_item"],
+                cand_cats=batch["target_cat"])
+    got, want = (make_bst_retrieval_step(cfg, backend=b)(params, user)
+                 for b in ("kernel", "ref"))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -14,7 +14,11 @@ from repro_torch.core import baselines
 from repro_torch.core.engine import fit, make_engine
 from repro_torch.kernels import ops
 from repro_torch.configs import get_arch
+from repro_torch.convert import bst_params_from_numpy, \
+    lid_state_from_numpy, lm_params_from_numpy, lsh_tables_from_numpy
+from repro_torch.data.recsys import bst_batch
 from repro_torch.launch import full_matrix, run_palid
+from repro_torch.models import bst as bst_m
 from repro_torch.launch import serve as lm_serve
 from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.random import PRNGKey
@@ -56,7 +60,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             "models/layers.py", "models/transformer.py",
             "configs/registry.py", "configs/h2o_danube_1_8b.py",
             "configs/deepseek_7b.py", "configs/gemma2_27b.py",
-            "serve/engine.py", "launch/serve.py", "convert.py"} <= names
+            "serve/engine.py", "launch/serve.py", "convert.py",
+            "kernels/embedding_bag.py", "kernels/segment_matmul.py",
+            "models/bst.py", "configs/bst.py", "data/recsys.py",
+            "train/steps.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -76,15 +83,24 @@ def test_entry_points_default_to_the_card():
     """Without device=, fit, make_engine, predict, the serving layer
     (Tenant, ClusterService, ClusterServer, run_palid), the full-matrix
     baselines (sea_detect, affinity_propagation, kmeans,
-    spectral_clustering, mean_shift, full_matrix) and LM serving
-    (init_params, init_cache, generate, BatchServer, launch.serve) run on
-    CUDA; where there is no card they raise instead of running on the
-    CPU."""
+    spectral_clustering, mean_shift, full_matrix), LM serving
+    (init_params, init_cache, generate, BatchServer, launch.serve), BST
+    (init_params, bst_batch) and the converters of JAX state
+    (lm_params_from_numpy, bst_params_from_numpy, lsh_tables_from_numpy,
+    lid_state_from_numpy) run on CUDA; where there is no card they raise
+    instead of running on the CPU."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     res = _tiny_clustering()
     lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
     lm_params = init_params(PRNGKey(0), lm, device="cpu")
+    bst = get_arch("bst").SMOKE_CONFIG
+    tree = {"w": np.ones((2, 3), np.float32), "blocks": [{"b": np.zeros(2)}]}
     if torch.cuda.is_available():
+        assert bst_m.init_params(PRNGKey(0), bst)["mlp"]["w0"].is_cuda
+        assert bst_batch(0, batch=2, seq_len=3, item_vocab=9,
+                         cat_vocab=4)["seq_items"].is_cuda
+        assert lm_params_from_numpy(tree)["w"].is_cuda
+        assert bst_params_from_numpy(tree)["blocks"][0]["b"].is_cuda
         assert make_engine(talid.EngineSpec()).device.type == "cuda"
         assert Tenant("t", res).device.type == "cuda"
         with ClusterServer() as server:
@@ -111,7 +127,15 @@ def test_entry_points_default_to_the_card():
              lambda: init_cache(lm, 1, 4),
              lambda: generate(lm_params, lm, np.zeros((1, 3), np.int32)),
              lambda: BatchServer(lm_params, lm),
-             lambda: lm_serve.main([])]
+             lambda: lm_serve.main([]),
+             lambda: bst_m.init_params(PRNGKey(0), bst),
+             lambda: bst_batch(0, batch=2, seq_len=3, item_vocab=9,
+                               cat_vocab=4),
+             lambda: lm_params_from_numpy(tree),
+             lambda: bst_params_from_numpy(tree),
+             lambda: lsh_tables_from_numpy(np.ones((1, 1, 2)), np.ones((1, 1)),
+                                           np.ones((1, 3)), np.ones((1, 3))),
+             lambda: lid_state_from_numpy(*[np.ones(3)] * 7)]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -142,12 +166,17 @@ def _cpu_args():
         affinity=lambda b: ops.affinity(v, v[:, :3], 0.5, backend=b),
         flash_attention=lambda b: ops.flash_attention(
             v[:, None], v[:, None], v[:, None], 0, window=3, backend=b),
+        embedding_bag=lambda b: ops.embedding_bag(
+            v[0], idx[0], idx[1] // 3, 3, backend=b),
+        segment_matmul=lambda b: ops.segment_matmul(v[0], idx[0] - 1, 5,
+                                                    backend=b),
     )
 
 
 @pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
                                 "lid_sweep", "pairwise_distance", "assign",
-                                "affinity", "flash_attention"])
+                                "affinity", "flash_attention",
+                                "embedding_bag", "segment_matmul"])
 def test_kernel_backend_on_cpu_raises(op):
     call = _cpu_args()[op]
     before = ops.launch_counts()

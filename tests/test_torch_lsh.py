@@ -120,7 +120,8 @@ def test_probe_candidates_equal(blobs, jax_tables, probe):
     lshp = _params(blobs.points, probe)
     jt = jax_tables
     tt = lsh_tables_from_numpy(np.asarray(jt.proj), np.asarray(jt.bias),
-                               np.asarray(jt.sorted_keys), np.asarray(jt.perm))
+                               np.asarray(jt.sorted_keys), np.asarray(jt.perm),
+                               device="cpu")
     sizes = np.asarray(jp.bucket_sizes(jt))
     if probe < 128:
         assert sizes.max() > probe, "no bucket exceeds probe: vacuous"

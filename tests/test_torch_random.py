@@ -121,3 +121,31 @@ def test_categorical_equal_draws(temperature):
         got = trandom.categorical(tk, torch.tensor(logits) / temperature,
                                   axis=-1).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 4_194_304), (0, 131_072), (3, 17),
+                                   (-5, 100), (0, 65_536), (0, 70_000),
+                                   (0, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1),
+                                   (10, 3)])
+def test_randint_exact(lo, hi):
+    """Integers, so equal: two draws per value combined modulo the span in
+    uint32 arithmetic, including jax's multiplier that wraps to 0 for
+    spans past 2**16, and minval for an empty span."""
+    for seed in (0, 5):
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed),
+                                             (7, 33), lo, hi))
+        got = trandom.randint(trandom.PRNGKey(seed), (7, 33), lo, hi)
+        assert want.dtype == np.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(500,), (4, 40)])
+def test_bernoulli_exact(shape):
+    """uniform < p: equal draws for arrays of p (bst_batch's click
+    probabilities are (B,))."""
+    p = np.asarray(jax.random.uniform(jax.random.PRNGKey(9), shape))
+    for seed in (0, 3):
+        want = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(seed), p))
+        got = trandom.bernoulli(trandom.PRNGKey(seed), torch.tensor(p))
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
