@@ -46,7 +46,8 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    graphs equal to the eager loop, with the time of each; (d) the
    full-width IID run, `launch/full_matrix.py` at 40,000 x 128, whose
    `affinity` launches must be > 0; (e) every baseline on the CPU tests'
-   `easy` data, each above its AVG-F floor;
+   `easy` data, each above its AVG-F floor, and SEA run twice with the
+   same bits;
 7. LM serving (h2o-danube-1.8b at full width, bf16, random weights from
    the port's threefry): (a) the flash_attention kernel against its plain
    version on numpy-seeded inputs at the serving path's shapes (prefill:
@@ -57,9 +58,12 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    transposed view), then gemma2's dh 128 with softcap 50 (local and
    full), a chunked mask and ragged shapes, by the rule of
    `kernels.flash_attention.compare_with_plain` (fully masked rows
-   exactly 0), with the kernel's device and per-call time, the plain
-   version's, the bound, and the time of `scaled_dot_product_attention`
-   with the same mask as a yardstick the port never calls; (b) from
+   exactly 0), two calls bitwise equal, each case's `kernel_plan` (the
+   decode's split count) printed, with the kernel's device and per-call
+   time, the plain version's, the bound, and the time of
+   `scaled_dot_product_attention` with the same mask as a yardstick the
+   port never calls, and the prefill's tile kernel with the batch on
+   grid.z against it folded into grid.x, timed in turns; (b) from
    launch counts at 0, `launch.serve`'s own request mix on BatchServer,
    then one batch packing a 5,120-token prompt with three short ones,
    with tokens/s, prefill seconds, decode ms per step and peak memory,
@@ -73,7 +77,9 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    bit-equal to its plain version (f32 and bf16) at BST's three bag
    shapes as the model builds them from `bst_batch` ids (serve_p99 1,024
    bags, serve_bulk 524,288, retrieval_cand 2,000,000 of one user), plus
-   interspersed pads, empty bags and mean mode; the segment_matmul kernel
+   interspersed pads, empty bags, mean mode, the serve_bulk entries in a
+   random order (the unsorted placement, timed too) and ids at and past
+   the table's end (read as its last row); the segment_matmul kernel
    bit-equal to its plain version at ogb_products' shape (61,859,328 x
    100 messages into 2,449,029 nodes, skewed in-degrees, the registry's
    188 trailing pad edges; leading pads; unvisited row blocks exactly 0;
@@ -81,10 +87,11 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    each timed beside F.embedding_bag / index_add_ as yardsticks the port
    never calls; (b) the flash_attention kernel at BST's shape (B = 512,
    262,144 and 1,000,000; H = Hkv = 8, Sq = Sk = 21, dh = 4, f32, not
-   causal) against its plain version on slabs of rows, past grid.z's
-   65,535; (c) BST's CONFIG at full width (random weights from the port's
-   threefry, 574 MB), from launch counts at 0: make_bst_serve_step at 512
-   and 262,144 rows and make_bst_retrieval_step at 1,000,000 candidates,
+   causal, q, k and v the model's views; the small kernel) against its
+   plain version on slabs of rows; (c) BST's CONFIG at full width
+   (random weights from the port's threefry, 574 MB), from launch counts
+   at 0: make_bst_serve_step at 512 and 262,144 rows and
+   make_bst_retrieval_step at 1,000,000 candidates,
    with step seconds, peak memory and one profiled step each (the
    device's idle share, time by kernel), embedding_bag and
    flash_attention launches > 0, and each batch's logits within 1e-4 +
@@ -138,6 +145,11 @@ REPLACES = {
 # the kernels of the fit (phase 4); serving and the full-matrix path run
 # the others
 FIT_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep")
+# the CUDA kernels behind flash_attention and embedding_bag, by name in a
+# profile
+FLASH_KERNELS = ("flash_kernel", "flash_split_kernel", "flash_combine_kernel",
+                 "flash_small_kernel")
+BAG_KERNELS = ("bag_pass_kernel", "bag_sum_kernel")
 # serving: run_palid's defaults, and the bulk predict's rows
 SERVE_RATE = 2000.0
 BULK_ROWS = 4096
@@ -970,6 +982,14 @@ def check_baselines(dev):
         print(f"[baseline] {name}: AVG-F={score:.4f} (floor {floor}) "
               f"{time.perf_counter() - t0:.2f}s")
         need(score > floor, f"{name}: AVG-F {score} <= {floor}")
+    # SEA's transpose product adds in input order (ops.segment_matmul):
+    # two runs give the same bits
+    a, b = (tb.sea_detect(pts, k, device=dev) for _ in range(2))
+    same = np.array_equal(a.labels, b.labels) and \
+        np.array_equal(a.densities, b.densities)
+    print(f"[baseline] sea_detect twice: labels and densities bitwise "
+          f"equal {same} (densities {a.densities.tolist()})")
+    need(same, "sea_detect: two runs on the card differ")
 
 
 # ---------------------------------------------------------- LM serving ----
@@ -1060,14 +1080,21 @@ def check_flash_attention(dev, out):
     rule, at the serving path's shapes and the other masks."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import compare_with_plain, \
-        flash_attention_cuda, smem_plan
+        flash_attention_cuda, kernel_plan, smem_plan
     timed = {}
     for seed, (name, b, h, hkv, sq, sk, dh, offs, ks, kw, dt, q_view) in \
             enumerate(flash_shapes()):
-        q, k, v = flash_inputs(dev, b, h, hkv, sq, sk, dh, dt, seed, q_view)
-        kv_start = torch.tensor(ks, dtype=torch.int32, device=dev)
         mask_kw = {x: kw[x] for x in ("causal", "window", "chunk")
                    if kw.get(x) is not None}
+        plans = sorted({kernel_plan(b, h, hkv, sq, sk, dh, off, **mask_kw)
+                        for off in offs}, key=str)
+        plan = "; ".join(
+            (f"{p.kernel} {smem_plan(dh, h // hkv, sq)[:3]}"
+             if p.kernel == "tiles" else f"{p.kernel} n_split={p.n_split} "
+             f"from slot {p.split_lo}, {p.split_len} slots a chunk"
+             if p.kernel == "split" else p.kernel) for p in plans)
+        q, k, v = flash_inputs(dev, b, h, hkv, sq, sk, dh, dt, seed, q_view)
+        kv_start = torch.tensor(ks, dtype=torch.int32, device=dev)
         bad = masked_nonzero = compared = 0
         err = 0.0
         for off in offs:
@@ -1083,11 +1110,15 @@ def check_flash_attention(dev, out):
             masked_nonzero += res["masked_nonzero"]
             compared += int(rows.sum())
             err = max(err, res["max_abs_err"])
+            again = flash_attention_cuda(q, k, v, off, kv_start=kv_start,
+                                         **kw)
+            need(torch.equal(got, again), f"flash_attention {name}: two "
+                 "calls differ")
         at = (f"q_offset={offs[0]}" if len(offs) == 1 else
               f"q_offset {offs[0]}..{offs[-1]} ({len(offs)} steps)")
         print(f"[flash] {name}: B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
               f"dh={dh} {at} kv_start={ks} {kw}{' q a view' * q_view} "
-              f"plan={smem_plan(dh, h // hkv, sq)[:3]}: compared rows "
+              f"plan: {plan}; two calls bitwise equal; compared rows "
               f"{compared} of {b * sq * len(offs)}, outside the rule {bad}, "
               f"max_abs_err={err:.3e}, nonzero on rows attending nothing "
               f"{masked_nonzero}")
@@ -1117,6 +1148,8 @@ def check_flash_attention(dev, out):
                                      + 2 * hkv * slots * dh),
                                4 * dh * pairs, BF16_FLOP_PER_S)
             runs = 5 if sq > 1 else TIMED_RUNS
+            if sq > 1:
+                grid_cmp = prefill_grids(q, k, v, off, kv_start, kw)
             t = dict(ms=graph_ms(kernel, runs=runs), call_ms=call_ms(kernel),
                      plain_ms=graph_ms(plain, runs=1 if sq > 1 else runs,
                                        replays=3),
@@ -1124,7 +1157,7 @@ def check_flash_attention(dev, out):
                      library_ms=graph_ms(lambda: sdpa(q, k, v, mask),
                                          runs=runs),
                      max_abs_err=err, bound_ms=b_ms,
-                     bound_by=b_by, pairs=pairs)
+                     bound_by=b_by, pairs=pairs, plan=plan)
             timed[name.split()[0]] = t
             print(f"[flash] {name}: {time_line(t)} bound_ms={b_ms:.4f} "
                   f"({b_by}; {pairs} attended pairs x 4 dh operations at "
@@ -1140,7 +1173,33 @@ def check_flash_attention(dev, out):
     out["flash_attention"] = dict(timed["prefill"], decode={
         key: timed["decode"][key] for key in
         ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-         "max_abs_err")})
+         "max_abs_err", "plan")}, prefill_grid=grid_cmp)
+    print(f"[flash] decode bf16: kernel {timed['decode']['ms']:.4f} ms vs "
+          f"SDPA {timed['decode']['library_ms']:.4f} ms (device time, same "
+          f"run): no slower than SDPA "
+          f"{timed['decode']['ms'] <= timed['decode']['library_ms']}")
+
+
+def prefill_grids(q, k, v, off, kv_start, kw):
+    """The tile kernel at the prefill shape with the batch on grid.z and
+    folded into grid.x, timed in turns (z, x, x, z; device time, CUDA
+    graphs); both give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    def run(on_z):
+        return flash_attention_cuda(q, k, v, off, kv_start=kv_start,
+                                    batch_on_z=on_z, **kw)
+    need(torch.equal(run(True), run(False)), "flash_attention prefill: the "
+         "grid.z and grid.x launches differ")
+    ms = {True: [], False: []}
+    for on_z in (True, False, False, True):
+        ms[on_z].append(graph_ms(lambda: run(on_z), runs=5, replays=3))
+    res = dict(z_ms=min(ms[True]), x_ms=min(ms[False]), z_runs=ms[True],
+               x_runs=ms[False])
+    print(f"[flash] prefill bf16 grids (device time, CUDA graph, in turns "
+          f"z, x, x, z): batch on grid.z {ms[True]} ms, folded into grid.x "
+          f"{ms[False]} ms; bitwise equal")
+    return res
 
 
 def packed_batch(vocab: int, seed: int = 14):
@@ -1255,7 +1314,7 @@ def teacher_forced(dev, cfg, params, name, toks, lens, gen, profiled=False):
                        if e.device_type.name == "CUDA"]
             busy = sum(e.self_device_time_total for e in kernels) / 1e6
             attn = sum(e.self_device_time_total for e in kernels
-                       if "flash_kernel" in e.key) / 1e6
+                       if any(n in e.key for n in FLASH_KERNELS)) / 1e6
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)
             print(f"[lm] decode window, {MAX_NEW - 1} steps through the "
                   f"kernel (profiled, device activity only): wall "
@@ -1390,21 +1449,37 @@ def check_embedding_bag(dev, out):
             pidx[torch.rand(idx.shape, generator=g, device=dev) < 0.3] = -1
             pidx.view(-1, 8)[::13] = -1
             pbags = torch.where(pidx >= 0, bags, -1)
+            # the same entries in a random order: the unsorted placement
+            order = torch.randperm(idx.numel(), generator=g, device=dev)
+            uidx, ubags = pidx[order], pbags[order]
+            # ids at and past the table's end read its last row (C3)
+            vidx = pidx.clone()
+            vidx[::37] = table32.shape[0] + torch.arange(
+                vidx[::37].numel(), device=dev, dtype=vidx.dtype) % 3
+            vbags = torch.where(vidx >= 0, bags, -1)
             cases += [("f32 pads", table32, pidx, pbags, "sum"),
                       ("bf16 pads", tables["bf16"], pidx, pbags, "mean"),
-                      ("f32 pads", table32, pidx, pbags, "mean")]
+                      ("f32 pads", table32, pidx, pbags, "mean"),
+                      ("f32 unsorted", table32, uidx, ubags, "sum"),
+                      ("bf16 unsorted", tables["bf16"], uidx, ubags, "mean"),
+                      ("f32 ids >= V", table32, vidx, vbags, "sum"),
+                      ("bf16 ids >= V", tables["bf16"], vidx, vbags,
+                       "mean")]
         for tag, t, i, b, mode in cases:
             got = embedding_bag_cuda(t, i, b, n_bags, mode)
             want = ref.embedding_bag_ref(t, i, b, n_bags, mode)
             same = torch.equal(got, want)
             err = max(err, float((got.float() - want.float()).abs().max()))
-            empty = int((b.view(-1, 8) < 0).all(1).sum())
+            hit = torch.zeros(n_bags, dtype=torch.bool, device=dev)
+            hit[b[(b >= 0) & (i >= 0)].long()] = True
             print(f"[bag] {shape} {tag} {mode}: {n_bags} bags of {i.numel()} "
-                  f"ids ({int((b < 0).sum())} pads, {empty} empty bags) "
-                  f"table {tuple(t.shape)}: bitwise_equal={same}")
+                  f"ids ({int((b < 0).sum())} pads, "
+                  f"{int((i >= t.shape[0]).sum())} ids >= V, "
+                  f"{int((~hit).sum())} empty bags) table {tuple(t.shape)}: "
+                  f"bitwise_equal={same}")
             need(same, f"embedding_bag {shape} {tag} {mode}: kernel differs "
                  "from its plain version")
-            need(bool((got[b.view(n_bags, 8).lt(0).all(1)] == 0).all()),
+            need(bool((got[~hit] == 0).all()),
                  f"embedding_bag {shape}: empty bags are not 0")
         counts = torch.full((idx.numel() // 8,), 8, device=dev)
         offsets = torch.cumsum(counts, 0) - counts
@@ -1431,12 +1506,21 @@ def check_embedding_bag(dev, out):
               f"({b_by}; {rows} distinct rows) library_ms="
               f"{t['library_ms']:.4f} (F.embedding_bag with offsets, sum; "
               f"device time, CUDA graph; a yardstick the port never calls; "
-              f"within 1e-6 of the kernel: {lib_same})")
+              f"within 1e-6 of the kernel: {lib_same}); the op is a memset "
+              f"and 2 kernels; no slower than the library "
+              f"{t['ms'] <= t['library_ms']}")
+        if shape == "serve_bulk":
+            t["unsorted_ms"] = graph_ms(lambda: embedding_bag_cuda(
+                table32, uidx, ubags, n_bags), runs=3, replays=3)
+            print(f"[bag] {shape} f32 unsorted (the same entries in a "
+                  f"random order, one-block placement): kernel_ms="
+                  f"{t['unsorted_ms']:.4f} (device time, CUDA graph)")
+            del uidx, ubags, pidx, pbags, vidx, vbags
         del idx, bags, cases
         torch.cuda.empty_cache()
     out["embedding_bag"] = dict(timed["serve_bulk"], shapes={
-        k: {key: v[key] for key in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")}
+        k: {key: v[key] for key in ("ms", "call_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")}
         for k, v in timed.items()})
 
 
@@ -1542,16 +1626,17 @@ def check_segment_matmul(dev, out):
 
 def check_bst_attention(dev, out):
     """8b: the attention kernel at BST's shape (H = Hkv = 8, Sq = Sk = 21,
-    dh = 4, f32, not causal) for B = 512, 262,144 and 1,000,000 against
+    dh = 4, f32, not causal; kernel_plan's "small" kernel, q, k and v the
+    model's transposed views) for B = 512, 262,144 and 1,000,000 against
     its plain version on slabs of rows (the op is independent across the
-    batch): the first and last 65,536 rows, past grid.z's 65,535."""
+    batch): the first and last 65,536 rows."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import compare_with_plain, \
-        flash_attention_cuda
+        flash_attention_cuda, kernel_plan
     timed = {}
     for seed, (shape, b) in enumerate(BST_SHAPES):
-        q, k, v = flash_inputs(dev, b, 8, 8, 21, 21, 4, torch.float32,
-                               100 + seed, q_view=True)
+        q, k, v = bst_qkv(dev, b, 100 + seed)
+        plan = kernel_plan(b, 8, 8, 21, 21, 4, causal=False).kernel
         got = flash_attention_cuda(q, k, v, 0, causal=False)
         slabs = [(0, min(b, 65_536))] + ([(b - 65_536, b)] if b > 65_536
                                          else [])
@@ -1564,8 +1649,9 @@ def check_bst_attention(dev, out):
             bad += res["bad"]
             err = max(err, res["max_abs_err"])
         print(f"[flash] BST {shape}: B={b} H=Hkv=8 Sq=Sk=21 dh=4 f32 not "
-              f"causal, q the model's view: rows {slabs} compared, outside "
-              f"the rule {bad}, max_abs_err={err:.3e}")
+              f"causal, q, k, v the model's views, plan {plan}: rows "
+              f"{slabs} compared, outside the rule {bad}, max_abs_err="
+              f"{err:.3e}")
         need(bad == 0, f"flash_attention BST {shape}: outside the rule")
         pairs = b * 8 * 21 * 21
         b_ms, b_by = bound(4 * 4 * b * 8 * 21 * 4, 4 * 4 * pairs)
@@ -1580,19 +1666,31 @@ def check_bst_attention(dev, out):
                      plain_in_graph=True, library_ms=graph_ms(
                          lambda: torch.nn.functional.
                          scaled_dot_product_attention(q, k, v), runs=5),
-                     max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+                     max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                     plan=plan)
             timed = t
             print(f"[flash] BST {shape}: {time_line(t)} bound_ms={b_ms:.4f} "
                   f"({b_by}; {pairs} pairs x 4 dh f32 operations at 67 "
                   f"TFLOP/s, or q, k, v, out once) library_ms="
                   f"{t['library_ms']:.4f} (scaled_dot_product_attention; "
                   "device time, CUDA graph; a yardstick the port never "
-                  "calls)")
+                  f"calls); no slower than the plain version "
+                  f"{t['ms'] <= t['plain_ms']}")
         del q, k, v, got
         torch.cuda.empty_cache()
     out["flash_attention"]["bst"] = {
         key: timed[key] for key in ("ms", "call_ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err")}
+                                    "bound_ms", "bound_by", "max_abs_err",
+                                    "plan")}
+
+
+def bst_qkv(dev, b: int, seed: int):
+    """q, k and v of BST's attention as the model makes them: (B, 8, 21,
+    4) views of three (B, 21, 32) projections (numpy-seeded, f32)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (b, 21, 32), dtype=np.float32)).to(dev).view(b, 21, 8, 4)
+        .transpose(1, 2) for _ in range(3))
 
 
 def bst_batches(dev):
@@ -1651,8 +1749,9 @@ def profile_bst_step(step, params, batch, shape):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     print(f"[bst] {shape} step profiled (device activity only): wall "
           f"{wall:.4f}s, device busy {busy:.4f}s, idle_share="
-          f"{1 - busy / wall:.4f}; flash_attention {share('flash_kernel'):.4f}s"
-          f", embedding_bag {share('embedding_bag_kernel'):.4f}s, sorts "
+          f"{1 - busy / wall:.4f}; flash_attention "
+          f"{share(*FLASH_KERNELS):.4f}s, embedding_bag "
+          f"{share(*BAG_KERNELS):.4f}s, sorts "
           f"{share('Sort', 'sort'):.4f}s; top: " + "; ".join(
               f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
               f"{e.key[:50]}" for e in top[:6]))
@@ -1812,7 +1911,8 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
-            **{key: s[key] for key in ("decode", "bst", "shapes", "bf16_ms")
+            **{key: s[key] for key in ("decode", "bst", "prefill_grid",
+                                       "shapes", "unsorted_ms", "bf16_ms")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -8,8 +8,10 @@ depends on the enforced sparsity, exactly the trade-off the paper studies in
 Fig. 6.
 
 The sparse graph is a kNN graph (fixed degree). The transpose half of the
-sparse product is a scatter-add, which CUDA runs with atomics in no fixed
-order: on the card SEA's sums may differ from run to run in the last bits.
+sparse product is a scatter-add; it goes through `ops.segment_matmul`,
+which adds each target's terms in input order (on the card too, where an
+`index_add_` would add them with atomics in no fixed order), so SEA gives
+the same bits from run to run.
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ def _spmv(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """(A x)_i = sum_j aff_ij x_j over the kNN edges, symmetrized by max
     with the transpose part (x_i aff_ij scattered into j)."""
     contrib = (g.nbr_aff * x[g.nbr_idx]).sum(1)
-    back = torch.zeros_like(x).index_add_(
-        0, g.nbr_idx.reshape(-1), (g.nbr_aff * x[:, None]).reshape(-1))
+    back = ops.segment_matmul((g.nbr_aff * x[:, None]).reshape(-1, 1),
+                              g.nbr_idx.reshape(-1), x.shape[0])[:, 0]
     return torch.maximum(contrib, back)
 
 
@@ -75,7 +77,9 @@ def _sea_from_seed(g: SparseGraph, seed: int, active: torch.Tensor,
     n = g.nbr_idx.shape[0]
     x = torch.zeros((n,), dtype=torch.float32, device=active.device)
     x[seed] = 1.0
-    # initial support = seed + its neighbours
+    # initial support = seed + its neighbours; the kNN ids of one row are
+    # distinct (one sort of the row), so no two terms meet in one entry
+    # and the sum has no order to fix
     x = x.index_add(0, g.nbr_idx[seed], (g.nbr_aff[seed] > 0).float())
     x = torch.where(active, x, 0.0)
     x = x / torch.clamp_min(x.sum(), 1e-12)

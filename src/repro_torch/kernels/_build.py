@@ -53,16 +53,18 @@ SIGNATURES = {
     "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P),
     # q, c, out, batch, m, n, d, tq, smem_bytes, k, stream
     "affinity_launch": (P, P, P, I, I, I, I, I, I, F, P),
-    # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q strides (b, h,
-    # s), q_offset, causal, window, chunk, softcap, scale, is_bf16, hb,
-    # ppt, bc, smem_bytes, stream
-    "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, I,
-                               I, I, I, F, F, I, I, I, I, I, P),
+    # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q, k and v
+    # strides (b, h, s), q_offset, causal, window, chunk, softcap, scale,
+    # is_bf16, path, hb, ppt, bc, smem_bytes, batch_on_z, n_split,
+    # split_lo, split_len, vec, scratch, stream
+    "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, L,
+                               L, L, L, L, L, I, I, I, I, F, F, I, I, I, I,
+                               I, I, I, I, I, I, I, P, P),
     # msg, perm, bounds, out, n_seg, d, is_bf16, vec, group, stream
     "segment_matmul_launch": (P, P, P, P, L, I, I, I, I, P),
-    # table, idx, perm, bounds, out, n_bags, dim, is_bf16, vec, group,
-    # mean, stream
-    "embedding_bag_launch": (P, P, P, P, P, L, I, I, I, I, I, P),
+    # table, v_rows, idx, bag_ids, idx64, scratch, out, n, n_bags, dim,
+    # is_bf16, vec, group, mean, stream
+    "embedding_bag_launch": (P, L, P, P, I, P, P, L, I, I, I, I, I, I, P),
 }
 
 

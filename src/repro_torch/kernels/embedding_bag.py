@@ -1,8 +1,10 @@
-"""CUDA wrapper of the EmbeddingBag kernel (`csrc/embedding_bag.cu`), which
-replaces the TPU kernel `embedding_bag_pallas` of the JAX package. Its
-layout is segment_matmul's (`kernels.segment_matmul.segment_layout`), as
-the Pallas kernel's is: a stable sort of the bag ids with every skipped
-entry in an overflow bin, so pads may sit anywhere."""
+"""CUDA wrapper of the EmbeddingBag kernels (`csrc/embedding_bag.cu`), which
+replace the TPU kernel `embedding_bag_pallas` of the JAX package. The
+layout is made on the card: where the valid bag ids come in order (BST's
+bags, the Pallas kernel's contract) each bag is the range between its first
+and last entry, with no sort; in any other order a one-block placement
+lists each bag's entries in input order. Nothing is read back to the host,
+so the op can be captured in a CUDA graph."""
 
 from __future__ import annotations
 
@@ -10,8 +12,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import require_cuda
-from repro_torch.kernels.segment_matmul import _check_rows, lane_plan, \
-    segment_keys, segment_layout
+from repro_torch.kernels.segment_matmul import _check_rows, lane_plan
+
+# entries a block of the layout's pass takes (csrc/embedding_bag.cu kTile)
+PASS_TILE = 4096
+_INT32_MAX = 2 ** 31 - 1
+
+
+def embedding_bag_scratch(n: int, n_bags: int) -> int:
+    """int32s of the layout's scratch for n entries and n_bags bags: each
+    bag's first and one-past-last entry, the pass blocks' done counter,
+    the order flag, three per pass block, then the unsorted placement's
+    cursor, bounds and permutation."""
+    return 2 * n_bags + 2 + 3 * -(-n // PASS_TILE) + n_bags + n_bags + 1 + n
 
 
 def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
@@ -20,8 +33,10 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
     """table (V, dim) f32 or bf16, idx and bag_ids (N,) int on the card ->
     (n_bags, dim) in the table's dtype: each bag's rows summed in f32 in
     their input order (`mode="mean"`: divided by their count), empty bags
-    0; an entry is skipped where idx is outside [0, V) or its bag outside
-    [0, n_bags). The layout is a sort on the card; then one launch."""
+    0. An entry is skipped where idx is negative or its bag is outside
+    [0, n_bags); an id at or past V reads row V - 1, as the JAX
+    reference's gather does. One call of the library: a memset and two
+    kernels."""
     dev = require_cuda("embedding_bag", table, idx, bag_ids)
     _check_rows("embedding_bag table", table)
     if mode not in ("sum", "mean"):
@@ -31,19 +46,28 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"embedding_bag: idx{tuple(idx.shape)} and "
                          f"bag_ids{tuple(bag_ids.shape)} must be one (N,)")
     v, dim = table.shape
-    n = int(n_bags)
+    n, e = int(n_bags), idx.numel()
+    if n > _INT32_MAX or e > _INT32_MAX:
+        raise ValueError(f"embedding_bag: {e} ids into {n} bags exceed "
+                         f"{_INT32_MAX}")
     out = torch.empty((n, dim), dtype=table.dtype, device=dev)
     if n == 0 or dim == 0:
         return out
-    table = table.contiguous()
-    idx = idx.clamp(-1, v).to(torch.int32).contiguous()
-    keys = torch.where((idx >= 0) & (idx < v), segment_keys(bag_ids, n), n)
-    perm, bounds = segment_layout(keys, n)
+    if v == 0:                      # every id clamps to -1, a pad
+        return out.zero_()
+    if idx.dtype != bag_ids.dtype or idx.dtype not in (torch.int32,
+                                                       torch.int64):
+        idx, bag_ids = idx.long(), bag_ids.long()
+    table, idx, bag_ids = table.contiguous(), idx.contiguous(), \
+        bag_ids.contiguous()
+    scratch = torch.empty(embedding_bag_scratch(e, n), dtype=torch.int32,
+                          device=dev)
     vec, group = lane_plan(dim, table.element_size(), table.data_ptr())
     err = _build.library().embedding_bag_launch(
-        table.data_ptr(), idx.data_ptr(), perm.data_ptr(), bounds.data_ptr(),
-        out.data_ptr(), n, dim, int(table.dtype == torch.bfloat16), vec,
-        group, int(mode == "mean"), _build.stream_ptr(dev))
+        table.data_ptr(), v, idx.data_ptr(), bag_ids.data_ptr(),
+        int(idx.dtype == torch.int64), scratch.data_ptr(), out.data_ptr(), e,
+        n, dim, int(table.dtype == torch.bfloat16), vec, group,
+        int(mode == "mean"), _build.stream_ptr(dev))
     _build.check("embedding_bag", err)
     embedding_bag_cuda.launches += 1
     return out

@@ -1,7 +1,10 @@
-"""CUDA wrapper of the attention kernel (`csrc/flash_attention.cu`), which
-replaces the TPU kernel `flash_attention_pallas` of the JAX package."""
+"""CUDA wrapper of the attention kernels (`csrc/flash_attention.cu`), which
+replace the TPU kernel `flash_attention_pallas` of the JAX package, and
+the plan that picks one of them by shape (`kernel_plan`)."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -12,7 +15,32 @@ from repro_torch.kernels._common import i32, require_cuda
 # margin for the kernel's static shared variables
 SMEM_MAX = 232448 - 256
 MAX_HEAD_DIM = 256
-_MAX_GRID_Y = 65535
+_MAX_GRID_YZ = 65535
+# the card's streaming multiprocessors (H100 SXM)
+N_SM = 132
+# split kernel: query rows (rep x Sq) a block holds, keys it scores at a
+# time, the shortest attended range it takes, kv chunks a (row, kv head)
+# may take, and the blocks a split grid aims at (four a SM)
+SPLIT_ROWS = 8
+SPLIT_TILE = 128
+SPLIT_MIN = 512
+MAX_SPLIT = 256
+SPLIT_BLOCKS = 4 * N_SM
+# small kernel: Sq, Sk and dh it takes, at most; warps a block
+SMALL_S = 32
+SMALL_DH = 16
+_WARPS = 8
+_PATHS = ("tiles", "split", "small")
+
+
+class Plan(NamedTuple):
+    """Which kernel computes a call, and for "split" how the host's bound
+    [split_lo, split_lo + n_split * split_len) of the attended kv slots is
+    cut into n_split chunks of split_len slots, one block each."""
+    kernel: str            # "tiles", "split" or "small"
+    n_split: int = 1
+    split_lo: int = 0
+    split_len: int = 0
 
 
 def _smem_bytes(dh: int, rp: int, bc: int) -> int:
@@ -45,16 +73,93 @@ def smem_plan(dh: int, rep: int, sq: int) -> tuple[int, int, int, int]:
                      f"{SMEM_MAX} bytes of shared memory")
 
 
+def attended_range(sq: int, sk: int, q_offset: int, causal: bool,
+                   window, chunk) -> tuple[int, int]:
+    """The host's bound [lo, hi] of the kv slots that some query at slots
+    q_offset .. q_offset + sq - 1 can attend, whatever kv_start (a device
+    tensor the host never reads) is: kv_start only masks slots below it,
+    and a chunk holds no slot further than chunk - 1 from a query."""
+    first, last = q_offset, q_offset + sq - 1
+    lo, hi = 0, sk - 1
+    if causal:
+        hi = min(hi, last)
+    if window:
+        lo = max(lo, first - window + 1)
+    if chunk:
+        lo = max(lo, first - chunk + 1)
+        hi = min(hi, last + chunk - 1)
+    return lo, hi
+
+
+def kernel_plan(b: int, h: int, hkv: int, sq: int, sk: int, dh: int,
+                q_offset: int = 0, *, causal: bool = True, window=None,
+                chunk=None) -> Plan:
+    """The kernel for a call of these shapes.
+
+    "small" where Sq and Sk are at most 32 and dh at most 16 (BST's 21 x
+    21 x 4): a warp per (row, head). "split" where the rep x Sq query rows
+    of a kv head fit one split block (at most 8), the tile kernel's grid
+    would not fill the 132 SMs once, and the attended range is long (at
+    least 512 slots): the range is cut into as many chunks as bring the
+    grid (a block per chunk, kv head and batch row) to about four blocks
+    a SM, no more than one a 128 keys. "tiles" otherwise (prefill)."""
+    if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH and \
+            b * h < 2 ** 31 - 2 ** 20:
+        return Plan("small")
+    rep = h // hkv
+    lo, hi = attended_range(sq, sk, q_offset, causal, window, chunk)
+    n = hi - lo + 1
+    hb, ppt, _, _ = smem_plan(dh, rep, sq)
+    tiles_blocks = b * hkv * -(-sq // ppt) * -(-rep // hb)
+    if rep * sq <= SPLIT_ROWS and b <= _MAX_GRID_YZ and \
+            tiles_blocks < N_SM and n >= SPLIT_MIN:
+        n_split = min(-(-n // SPLIT_TILE), -(-SPLIT_BLOCKS // (b * hkv)),
+                      MAX_SPLIT)
+        return Plan("split", n_split, lo, -(-n // n_split))
+    return Plan("tiles")
+
+
+def split_smem_bytes(dh: int, rows: int, vec: int) -> int:
+    """Bytes of the layout carved at the top of `flash_split_kernel`:
+    queries, scores (a tile of 128 a row), the value parts of the key
+    subsets (256 threads over dh / vec vectors), the accumulators and
+    three floats a row."""
+    ks = 256 // (dh // vec)
+    return 4 * (rows * dh + rows * SPLIT_TILE + ks * rows * dh + rows * dh
+                + 3 * rows)
+
+
+def small_smem_bytes(dh: int) -> int:
+    """K and V of up to 32 keys for each of a block's 8 warps, as f32,
+    with dh rounded up to 4, 8 or 16."""
+    return 4 * _WARPS * 2 * SMALL_S * next(w for w in (4, 8, 16) if dh <= w)
+
+
+def split_vec(dh: int, tensors) -> int:
+    """Elements of one K / V load in the split kernel: the widest of at
+    most 16 bytes that divides dh, every stride and each base address."""
+    es = tensors[0].element_size()
+    vec = 16 // es
+    while vec > 1 and (dh % vec or any(
+            t.data_ptr() % (vec * es) or
+            any(st % vec for st in t.stride()[:3]) for t in tensors)):
+        vec //= 2
+    return vec
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0, *, causal: bool = True,
                          window=None, chunk=None, softcap=None, scale=None,
-                         kv_start=None) -> torch.Tensor:
+                         kv_start=None, batch_on_z=None) -> torch.Tensor:
     """q (B, H, Sq, dh), k and v (B, Hkv, Sk, dh) on the card, all f32 or
     all bf16, H a multiple of Hkv, dh <= 256 -> (B, H, Sq, dh) in q's
-    dtype. q may be any view whose last dim is contiguous (the model
-    passes a transposed one); k and v are made contiguous. kv_start: (B,)
-    int32 pad slots per row, or None for none. One launch (the batch
-    is split only past 2**31 - 1 blocks)."""
+    dtype. q, k and v may be any views whose last dim is contiguous (the
+    models pass transposed ones): they are read through their strides.
+    kv_start: (B,) int32 pad slots per row, or None for none. The kernel
+    is `kernel_plan`'s; the tile kernel puts the batch on grid.z where
+    B <= 65,535 and folds it into grid.x past that (`batch_on_z` forces
+    one or the other, for timing the two). One launch, two for "split"
+    (its partials, then their combine)."""
     dev = require_cuda("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -66,7 +171,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             hkv == 0 or h % hkv != 0:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    hb, ppt, bc, smem = smem_plan(dh, h // hkv, max(sq, 1))
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
@@ -74,27 +178,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if val is not None and not val > 0:
             raise ValueError(f"flash_attention: {name} must be > 0, got "
                              f"{val}")
-    if hkv > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: Hkv={hkv} exceeds {_MAX_GRID_Y}")
+    if hkv > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: Hkv={hkv} exceeds {_MAX_GRID_YZ}")
+    plan = kernel_plan(b, h, hkv, max(sq, 1), max(sk, 1), dh, int(q_offset),
+                       causal=causal, window=window, chunk=chunk)
     out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or sk == 0:
         return out.zero_()
-    if q.stride(3) != 1:
-        q = q.contiguous()
-    k, v = k.contiguous(), v.contiguous()
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     if kv_start is None:
         kv_start = torch.zeros((b,), dtype=torch.int32, device=dev)
     else:
         require_cuda("flash_attention kv_start", q, kv_start)
         kv_start = i32("flash_attention kv_start", kv_start.reshape(b))
     scale = dh ** -0.5 if scale is None else scale
+    hb = ppt = bc = vec = 0
+    scratch = None
+    if plan.kernel == "tiles":
+        hb, ppt, bc, smem = smem_plan(dh, h // hkv, sq)
+        if batch_on_z is None:
+            batch_on_z = b <= _MAX_GRID_YZ
+    elif plan.kernel == "split":
+        rows = h // hkv * sq
+        vec = split_vec(dh, (k, v))
+        smem = split_smem_bytes(dh, rows, vec)
+        scratch = torch.empty(b * hkv * plan.n_split * rows * (dh + 2),
+                              dtype=torch.float32, device=dev)
+    else:
+        smem = small_smem_bytes(dh)
     err = _build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_start.data_ptr(),
-        out.data_ptr(), b, h, hkv, sq, sk, dh, q.stride(0), q.stride(1),
-        q.stride(2), int(q_offset), int(bool(causal)), int(window or 0),
-        int(chunk or 0), float(softcap or 0.0), float(scale),
-        int(q.dtype == torch.bfloat16), hb, ppt, bc, smem,
-        _build.stream_ptr(dev))
+        out.data_ptr(), b, h, hkv, sq, sk, dh, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(q_offset), int(bool(causal)),
+        int(window or 0), int(chunk or 0), float(softcap or 0.0),
+        float(scale), int(q.dtype == torch.bfloat16),
+        _PATHS.index(plan.kernel), hb, ppt, bc, smem, int(bool(batch_on_z)),
+        plan.n_split, plan.split_lo, plan.split_len, vec,
+        0 if scratch is None else scratch.data_ptr(), _build.stream_ptr(dev))
     _build.check("flash_attention", err)
     flash_attention_cuda.launches += 1
     return out

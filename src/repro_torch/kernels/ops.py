@@ -233,8 +233,9 @@ def embedding_bag(table, idx, bag_ids, n_bags: int, mode: str = "sum", *,
                   backend: str = "auto"):
     """Rows of table (V, dim) gathered by idx (N,) and summed, or averaged
     with `mode="mean"`, into bag bag_ids[e]: (n_bags, dim) in the table's
-    dtype, f32 sums. Ids outside [0, V) (the -1 pads, anywhere) and bags
-    outside [0, n_bags) are skipped; empty bags are 0. The kernel computes
+    dtype, f32 sums. Negative ids (the -1 pads, anywhere) and bags outside
+    [0, n_bags) are skipped, ids at or past V read row V - 1 (the JAX
+    package's gather clamps them); empty bags are 0. The kernel computes
     both modes (the JAX package sends "mean" to its plain version); the
     TPU layout knobs `be` and `bw` have no counterpart."""
     kmode = resolve_backend(backend, table)

@@ -482,17 +482,18 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
                       mode: str = "sum") -> torch.Tensor:
     """Rows table[idx[e]] summed (or averaged, `mode="mean"`) into bag
     bag_ids[e]: (n_bags, dim) in the table's dtype, accumulated in f32. An
-    entry is skipped where idx is outside [0, V) (the -1 pads, wherever
-    they sit) or its bag is outside [0, n_bags); empty bags are 0, and the
-    mean divides by the number of entries not skipped. As the JAX
-    package's `embedding_bag_ref`, in the order of `segment_sum_ref`."""
+    entry is skipped where idx is negative (the -1 pads, wherever they
+    sit) or its bag is outside [0, n_bags); an id at or past the table's
+    end reads its last row, as the JAX package's gather clamps it; empty
+    bags are 0, and the mean divides by the number of entries not skipped.
+    As the JAX package's `embedding_bag_ref`, in the order of
+    `segment_sum_ref`."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got "
                          f"{mode!r}")
-    idx = idx.to(torch.int64)
+    idx = idx.to(torch.int64).clamp(max=table.shape[0] - 1)
     bags = bag_ids.to(torch.int64)
-    valid = (idx >= 0) & (idx < table.shape[0]) & (bags >= 0) & \
-        (bags < n_bags)
+    valid = (idx >= 0) & (bags >= 0) & (bags < n_bags)
     out = segment_sum_ref(lambda e: table[idx[e]], bags, valid, n_bags,
                           table.shape[1], mean=mode == "mean")
     return out.to(table.dtype)

@@ -22,8 +22,8 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import SMEM_MAX, \
-    flash_attention_cuda, smem_plan
+from repro_torch.kernels.flash_attention import SMEM_MAX, SPLIT_BLOCKS, \
+    Plan, attended_range, flash_attention_cuda, kernel_plan, smem_plan
 
 # the eight cases of tests/test_kernels.py::test_flash_attention_kernel
 CASES = [
@@ -221,3 +221,120 @@ def test_kernel_plan_danube_and_limits():
     assert smem_plan(80, 4, 1)[:3] == (4, 1, 256)       # danube decode
     with pytest.raises(ValueError, match="head_dim 257"):
         smem_plan(257, 4, 1)
+
+
+# kernel_plan's choice at the ported models' shapes: (B, H, Hkv, Sq, Sk, dh),
+# keywords, the plan
+PLAN_CASES = [
+    # chip_smoke 7a's decode: danube's packed batch, one query at slot
+    # 5,120 over 5,137 slots, window 4,096: 4 x 8 blocks would fill a
+    # quarter of the SMs, so 17 chunks of 241 slots from slot 1,025
+    ((4, 32, 8, 1, 5137, 80), dict(q_offset=5120, window=4096),
+     Plan("split", 17, 1025, 241)),
+    # the same step at 40 rows fills the SMs unsplit
+    ((40, 32, 8, 1, 5137, 80), dict(q_offset=5120, window=4096),
+     Plan("tiles")),
+    # a short decode: 256 slots, under the split's 512
+    ((1, 2, 2, 1, 256, 64), dict(q_offset=255), Plan("tiles")),
+    ((2, 2, 1, 1, 128, 16), dict(q_offset=127), Plan("tiles")),
+    # a long full-attention decode: as many chunks as make ~4 blocks a SM
+    ((1, 32, 8, 1, 32768, 128), dict(q_offset=32767),
+     Plan("split", 66, 0, 497)),
+    # gemma2's local decode (rep 2), a chunked decode (rep 4)
+    ((2, 32, 16, 1, 4200, 128), dict(q_offset=4199, window=1024),
+     Plan("split", 8, 3176, 128)),
+    ((1, 8, 2, 1, 3000, 64), dict(q_offset=2999, chunk=1024),
+     Plan("split", 8, 1976, 128)),
+    # 16 query rows of a kv head do not fit a split block
+    ((1, 64, 4, 1, 5000, 128), dict(q_offset=4999), Plan("tiles")),
+    # prefill
+    ((4, 32, 8, 5120, 5137, 80), dict(window=4096), Plan("tiles")),
+    # BST's attention at serve_bulk, and the LM tests' tiny shapes
+    ((262144, 8, 8, 21, 21, 4), dict(causal=False), Plan("small")),
+    ((3, 8, 8, 21, 21, 4), dict(causal=False), Plan("small")),
+    ((3, 2, 2, 5, 30, 16), dict(), Plan("small")),
+    ((3, 2, 2, 5, 33, 16), dict(), Plan("tiles")),
+]
+
+
+@pytest.mark.parametrize("shape,kw,want", PLAN_CASES)
+def test_kernel_plan_picks_the_kernel(shape, kw, want):
+    """Which of the three kernels each shape takes, and the split's cut:
+    split where few blocks would fill the SMs and the range is long."""
+    b, h, hkv, sq, sk, dh = shape
+    plan = kernel_plan(b, h, hkv, sq, sk, dh, **kw)
+    assert plan == want
+    if plan.kernel == "split":
+        lo, hi = attended_range(sq, sk, kw.get("q_offset", 0),
+                                kw.get("causal", True), kw.get("window"),
+                                kw.get("chunk"))
+        assert plan.split_lo == lo and \
+            plan.n_split * plan.split_len >= hi - lo + 1 > \
+            (plan.n_split - 1) * plan.split_len
+        assert b * hkv * plan.n_split <= SPLIT_BLOCKS + b * hkv
+
+
+def _split_emulated(q, k, v, q_offset, kv_start, plan, **kw):
+    """The split kernel's arithmetic in f32 on the CPU: per (row, kv
+    head, chunk) the partial max, sum and value sum over the chunk's
+    attended slots, then the partials merged in chunk order."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    mask = tref.attention_mask(sq, sk, q_offset, kv_start,
+                               causal=kw["causal"], window=kw["window"],
+                               chunk=kw["chunk"])
+    logits = torch.einsum("bgrsd,bgkd->bgrsk",
+                          q.float().view(b, hkv, rep, sq, dh),
+                          k.float()) * dh ** -0.5
+    logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
+    m_all, l_all, o_all = [], [], []
+    for s in range(plan.n_split):
+        lo = plan.split_lo + s * plan.split_len
+        part = logits[..., lo:lo + plan.split_len]
+        m = part.amax(-1, keepdim=True)
+        p = torch.where(m == float("-inf"), 0.0, torch.exp(part - m))
+        m_all.append(m)
+        l_all.append(p.sum(-1, keepdim=True))
+        o_all.append(p @ v.float()[:, :, None, lo:lo + plan.split_len])
+    m = torch.stack(m_all).amax(0)
+    w = [torch.where(m == float("-inf"), 0.0, torch.exp(ms - m))
+         for ms in m_all]
+    l = sum(ls * ws for ls, ws in zip(l_all, w))
+    o = sum(os * ws for os, ws in zip(o_all, w))
+    out = torch.where(l > 0, o / l, 0.0)
+    return out.reshape(b, h, sq, dh), mask.any(-1)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((3, 8, 2, 1, 1500, 16), dict(q_offset=1499, window=700)),
+    ((2, 4, 2, 2, 2100, 8), dict(q_offset=2098, chunk=512)),
+    ((2, 4, 4, 1, 1100, 8), dict(q_offset=1099)),
+    ((2, 2, 1, 1, 900, 8), dict(q_offset=600, causal=False, window=300)),
+])
+def test_split_plan_covers_and_merges(shape, kw):
+    """The host's bound holds every slot that any kv_start lets a query
+    attend (left pads that leave whole chunks empty included), and the
+    partials merged in chunk order give the plain version within its
+    rule; rows attending nothing come out 0."""
+    from repro_torch.kernels.flash_attention import compare_with_plain
+    b, h, hkv, sq, sk, dh = shape
+    kw = dict(dict(causal=True, window=None, chunk=None), **kw)
+    off = kw.pop("q_offset")
+    plan = kernel_plan(b, h, hkv, sq, sk, dh, off, **kw)
+    assert plan.kernel == "split"
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, h, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh)))
+    kv_start = torch.tensor([0, sk - 3, sk + 5][:b], dtype=torch.int32)
+    lo, hi = attended_range(sq, sk, off, kw["causal"], kw["window"],
+                            kw["chunk"])
+    mask = tref.attention_mask(sq, sk, off, kv_start, **kw)
+    slots = torch.nonzero(mask.any(1).any(0)).flatten()
+    assert slots.numel() and lo <= int(slots.min())
+    assert int(slots.max()) <= hi
+    got, rows = _split_emulated(q, k, v, off, kv_start, plan, **kw)
+    want = tref.attention_ref(q, k, v, q_offset=off, kv_start=kv_start,
+                              **kw)
+    res = compare_with_plain(got, want, rows)
+    assert res["bad"] == 0 and res["masked_nonzero"] == 0, res

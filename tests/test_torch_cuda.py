@@ -487,7 +487,9 @@ def test_segment_matmul_bitwise(dev, e, n, d, placement, dtype):
 def test_embedding_bag_bitwise(dev, placement, dtype, mode):
     """BST-like bags of 8 ids over a 131,072 x 32 table, pads at
     `placement` (their bags -1, as models/bst.py builds them), every 17th
-    bag empty, ids past the table skipped."""
+    bag empty, ids past the table clamped to the last row, as the JAX
+    reference does. "unsorted" takes the kernel's placement for bags out
+    of order; the others its in-order layout."""
     rng = np.random.default_rng(7)
     n_bags, v = 4000, 131_072
     idx = rng.integers(0, v, n_bags * 8).astype(np.int32)
@@ -507,7 +509,10 @@ def test_embedding_bag_bitwise(dev, placement, dtype, mode):
                                                   n_bags, mode, backend=b))
     assert got.dtype == dtype and got.shape == (n_bags, 32)
     assert torch.equal(got, want)
-    assert bool((got[::17] == 0).all())
+    empty = np.ones(n_bags, bool)
+    empty[bags[bags >= 0]] = False            # bags no valid entry names
+    assert empty[::17].sum() > 200
+    assert bool((got[torch.tensor(empty, device=dev)] == 0).all())
 
 
 @pytest.mark.cuda
@@ -581,3 +586,178 @@ def test_bst_serve_kernel_matches_plain(dev):
     got, want = (make_bst_retrieval_step(cfg, backend=b)(params, user)
                  for b in ("kernel", "ref"))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- split decode, BST path ----
+# decode shapes that kernel_plan sends to the split kernel: (B, H, Hkv, Sq,
+# Sk, dh, q_offset, kv_start, keywords); kv_start leaves whole chunks in
+# the pad (row 1), all but a few slots (row 2), or everything (row 3);
+# rep x Sq query rows of 1, 2, 3, 4 and 8 a kv head
+SPLIT_CASES = [
+    (4, 32, 8, 1, 2100, 80, 2099, [0, 1300, 2090, 2100], dict(window=1536)),
+    (3, 8, 2, 1, 3000, 64, 2999, [0, 700, 2999], dict(chunk=1024)),
+    (2, 16, 8, 1, 1200, 128, 1199, [0, 600], dict(softcap=30.0)),
+    (2, 4, 4, 1, 900, 16, 700, [0, 500], dict(causal=False, window=400)),
+    (2, 16, 2, 1, 1500, 64, 1499, [0, 900], dict()),
+    (3, 6, 2, 1, 1700, 32, 1699, [0, 5, 1600], dict(window=1000)),
+    (2, 8, 4, 2, 1400, 80, 1398, [0, 1000], dict(window=800)),
+    # 17 chunks of 177 slots: two tiles a block, rescaled between them
+    (4, 32, 8, 1, 3000, 80, 2999, [0, 10, 2000, 2990], dict()),
+]
+
+
+def _split_inputs(dev, case, dtype, seed=2):
+    b, h, hkv, sq, sk, dh, off, ks, kw = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
+               for shape in ((b, h, sq, dh), (b, hkv, sk, dh),
+                             (b, hkv, sk, dh)))
+    kv_start = torch.tensor(ks, dtype=torch.int32, device=dev)
+    return q, k, v, off, kv_start, dict(dict(causal=True), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_decode_matches_plain(dev, case, dtype):
+    """The split kernel (two launches: partials, then their combine in
+    chunk order) against the plain version by the stated rule, with whole
+    chunks in the pad and window / chunk / softcap masks; two calls give
+    the same bits."""
+    from repro_torch.kernels.flash_attention import kernel_plan
+    q, k, v, off, ks, kw = _split_inputs(dev, case, dtype)
+    b, h, sq, dh = q.shape
+    plan = kernel_plan(b, h, k.shape[1], sq, k.shape[2], dh, off,
+                       causal=kw["causal"], window=kw.get("window"),
+                       chunk=kw.get("chunk"))
+    assert plan.kernel == "split" and plan.n_split >= 2
+    got, want = _both(lambda be: ops.flash_attention(q, k, v, off,
+                                                     kv_start=ks, backend=be,
+                                                     **kw))
+    mask_kw = {x: kw.get(x) for x in ("causal", "window", "chunk")}
+    att = kref.attention_mask(sq, k.shape[2], off, ks, device=dev,
+                              **mask_kw).any(-1)
+    res = compare_with_plain(got, want, att)
+    assert res["bad"] == 0 and res["masked_nonzero"] == 0, res
+    again = ops.flash_attention(q, k, v, off, kv_start=ks, **kw)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bst_attention_path_on_views(dev, dtype):
+    """BST's attention (8 heads x 21 x 21 at dh 4, not causal) through the
+    small kernel with q, k and v the model's transposed views of one
+    (B, 21, 3, 32) projection: the rule against the plain version, the
+    same bits as contiguous copies, and a GQA case with masks."""
+    from repro_torch.kernels.flash_attention import kernel_plan
+    g = torch.Generator(device="cpu").manual_seed(5)
+    qkv = torch.randn((300, 21, 3, 32), generator=g).to(dev, dtype)
+    q, k, v = (qkv[:, :, i].view(300, 21, 8, 4).transpose(1, 2)
+               for i in range(3))
+    assert not k.is_contiguous()
+    assert kernel_plan(300, 8, 8, 21, 21, 4, causal=False).kernel == "small"
+    got, want = _both(lambda be: ops.flash_attention(q, k, v, 0,
+                                                     causal=False,
+                                                     backend=be))
+    rows = torch.ones((300, 21), dtype=torch.bool, device=dev)
+    res = compare_with_plain(got, want, rows)
+    assert res["bad"] == 0, res
+    assert torch.equal(got, ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), 0, causal=False))
+    q, k, v, off, ks, kw = _flash_inputs(dev, dict(b=3, h=6, hkv=2, sq=9,
+                                                   sk=30, dh=12, window=5,
+                                                   q_offset=21, pads=True),
+                                         dtype)
+    got, want = _both(lambda be: ops.flash_attention(q, k, v, off,
+                                                     kv_start=ks, backend=be,
+                                                     **kw))
+    att = kref.attention_mask(9, 30, off, ks, device=dev, causal=True,
+                              window=5).any(-1)
+    res = compare_with_plain(got, want, att)
+    assert res["bad"] == 0 and res["masked_nonzero"] == 0, res
+
+
+def _graph_equals_eager(fn):
+    """fn() captured in a CUDA graph and replayed: the same bits as an
+    eager call (a host read inside fn would break the capture)."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["trailing", "unsorted"])
+def test_graph_capture_of_bag_and_split_decode(dev, placement):
+    """ops.embedding_bag (in order and not) and the split decode record
+    into a CUDA graph, whose replay equals the eager calls: neither reads
+    anything back to the host."""
+    rng = np.random.default_rng(9)
+    seg = torch.tensor(_segment_ids(rng, 6000, 700, placement), device=dev)
+    idx = torch.tensor(rng.integers(0, 5000, 6000).astype(np.int32),
+                       device=dev)
+    idx[seg < 0] = -1
+    table = torch.randn((5000, 32), device=dev)
+    assert _graph_equals_eager(lambda: ops.embedding_bag(table, idx, seg,
+                                                         700))
+    q, k, v, off, ks, kw = _split_inputs(dev, SPLIT_CASES[0], torch.bfloat16)
+    assert _graph_equals_eager(lambda: ops.flash_attention(
+        q, k, v, off, kv_start=ks, **kw))
+
+
+@pytest.mark.cuda
+def test_embedding_bag_layout_edges(dev):
+    """The on-card layout with no entries, with only pads, with no bags,
+    with bags out of order at the 4,096-entry pass blocks' edges, and
+    with int64 ids: equal to the plain version."""
+    table = torch.randn((300, 16), device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert torch.equal(ops.embedding_bag(table, none, none, 7),
+                       torch.zeros((7, 16), device=dev))
+    pads = torch.full((5000,), -1, dtype=torch.int32, device=dev)
+    ids = torch.arange(5000, dtype=torch.int32, device=dev) % 300
+    for i, b in ((pads, ids), (ids, pads), (pads, pads)):
+        assert torch.equal(ops.embedding_bag(table, i, b, 9, "mean"),
+                           torch.zeros((9, 16), device=dev))
+    assert ops.embedding_bag(table, ids, ids, 0).shape == (0, 16)
+    bags = torch.arange(12_288, device=dev) // 3
+    for swap in (4095, 4096, 8191):     # one pair out of order at an edge
+        b = bags.clone()
+        b[swap], b[swap + 1] = bags[swap + 1] + 1, bags[swap]
+        i = torch.arange(12_288, device=dev) % 301      # 300 clamps
+        for it in (torch.int32, torch.int64):
+            got, want = _both(lambda be: ops.embedding_bag(
+                table, i.to(it), b.to(it), 4200, "mean", backend=be))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sea_is_bitwise_across_runs(dev):
+    """SEA's transpose product goes through ops.segment_matmul, which adds
+    in input order, so two runs on the card give the same bits."""
+    from repro_torch.core.baselines import sea
+    from repro_torch.data import make_blobs_with_noise
+    spec = make_blobs_with_noise(n_clusters=4, cluster_size=25, n_noise=60,
+                                 d=8, seed=7, overlap_pairs=0)
+    pts = torch.tensor(spec.points, device=dev)
+    k = estimate_k(pts)
+    g = sea.build_knn_graph(pts, k, 16)
+    x = torch.rand(pts.shape[0], device=dev)
+    before = ops.launch_counts()["segment_matmul"]
+    a, b = sea._spmv(g, x), sea._spmv(g, x)
+    assert torch.equal(a, b)
+    assert ops.launch_counts()["segment_matmul"] == before + 2
+    runs = [sea.sea_detect(spec.points, k, device=dev) for _ in range(2)]
+    assert np.array_equal(runs[0].labels, runs[1].labels)
+    assert np.array_equal(runs[0].densities, runs[1].densities)

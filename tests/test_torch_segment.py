@@ -114,15 +114,21 @@ def test_embedding_bag_matches_jax(placement, dtype, mode):
 
 
 def test_skipped_entries_and_empty_inputs():
-    """Ids past the table and bags past n_bags are skipped, as pads are;
-    no rows give zeros of the right shape; a bad mode raises."""
+    """Negative ids and bags past n_bags are skipped, as pads are; an id
+    past the table reads its last row (the JAX reference's gather clamps
+    it) and counts in the mean; no rows give zeros of the right shape; a
+    bad mode raises."""
     rng = np.random.default_rng(3)
     table = torch.tensor(rng.standard_normal((10, 4)).astype(np.float32))
     idx = torch.tensor([0, 10, 3, -1, 2, 5], dtype=torch.int32)
     bags = torch.tensor([0, 0, 1, 1, 3, 2], dtype=torch.int32)
     got = ops.embedding_bag(table, idx, bags, 3, "mean")
-    want = torch.stack([table[0], table[3], table[5]])
+    want = torch.stack([(table[0] + table[9]) / 2, table[3], table[5]])
     assert torch.equal(got, want)
+    jwant = jref.embedding_bag_ref(jnp.asarray(table.numpy()),
+                                   jnp.asarray(idx.numpy()),
+                                   jnp.asarray(bags.numpy()), 3, mode="mean")
+    assert np.array_equal(got.numpy(), np.asarray(jwant))
     assert torch.equal(ops.segment_matmul(table, torch.full((10,), 7), 3),
                        torch.zeros(3, 4))
     empty = ops.embedding_bag(table, idx[:0], bags[:0], 5)
@@ -130,6 +136,37 @@ def test_skipped_entries_and_empty_inputs():
     assert ops.segment_matmul(table[:0], idx[:0], 0).shape == (0, 4)
     with pytest.raises(ValueError, match="mode"):
         ops.embedding_bag(table, idx, bags, 3, "max")
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("placement", ["none", "interspersed", "unsorted"])
+def test_embedding_bag_ids_past_the_table_match_jax(placement, dtype, mode):
+    """Ids at and past the table's end (V, V + 5, 2**31 - 1 in int64)
+    mixed among valid ids and pads: each reads the last row, as the JAX
+    reference's gather clamps it, and counts in the mean."""
+    tdt, _, jdt = DTYPES[dtype]
+    rng = np.random.default_rng(17)
+    n_bags, bag, v, dim = 500, 8, 300, 16
+    idx = rng.integers(0, v, n_bags * bag).astype(np.int64)
+    idx[_segments(rng, idx.size, 2, placement, pad_share=0.2) < 0] = -1
+    past = rng.choice(idx.size, idx.size // 10, replace=False)
+    idx[past] = rng.choice([v, v + 5, 2 ** 31 - 1], past.size)
+    bags = np.repeat(np.arange(n_bags, dtype=np.int64), bag)
+    if placement == "unsorted":
+        order = rng.permutation(idx.size)
+        idx, bags = idx[order], bags[order]
+    bags = np.where(idx >= 0, bags, -1)
+    table = jnp.asarray(rng.standard_normal((v, dim)), jdt)
+    want = jref.embedding_bag_ref(table, jnp.asarray(idx.astype(np.int32)),
+                                  jnp.asarray(bags.astype(np.int32)),
+                                  n_bags, mode=mode)
+    ttable = torch.tensor(np.asarray(table.astype(jnp.float32))).to(tdt)
+    for it in (torch.int64, torch.int32):
+        got = ops.embedding_bag(ttable, torch.tensor(idx).to(it),
+                                torch.tensor(bags).to(it), n_bags, mode)
+        assert got.dtype == tdt and got.shape == (n_bags, dim)
+        _assert_close(got, want, dtype)
 
 
 def _layout_sum(rows: torch.Tensor, keys: torch.Tensor, n: int):
