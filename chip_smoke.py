@@ -23,17 +23,20 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    size-limited regime, with every fit kernel's launch count, which must
    be > 0;
 5. serving at full width on phase 4's Clustering (2,048 clusters x 240
-   supports x 128): the assign kernel against its plain version on 256
-   queries of the serving mix (dataset rows, jittered rows, far noise) and
-   on a NaN-poisoned, masked 64-slot batch (labels and scores bit-equal);
-   its device time for one 64-slot batch, per-call time, the plain
-   version's time, the bound, and the device time of the cuBLAS
-   composition (matmul expansion, exp, segment sum, argmax) as a
-   yardstick the port never calls; then the serving path from launch
-   counts at 0: a 4,096-row bulk `predict`, `ClusterService(batch_slots=
-   64)` over 1,024 queries, and `run_palid._serve_bench` (ClusterServer +
-   open-loop traffic at 2,000 requests/s), whose labels must equal
-   per-query assignment and whose `assign` launches must be > 0;
+   supports x 128): the assign kernels against their plain version on 256
+   queries of the serving mix (dataset rows, jittered rows, far noise; the
+   tiles kernel), on a NaN-poisoned, masked 64-slot batch and on a 4-row
+   batch (the lanes kernel, which serves a batch's occupied slots), and at
+   d = 2,048 (64 clusters, 64 and 4 rows, NaN pads; C2), labels and scores
+   bit-equal; the device time of a 64-slot and of a 4-row batch, per-call
+   time, the plain version's time, the bound, and the device time of the
+   cuBLAS composition (matmul expansion, exp, segment sum, argmax) as a
+   yardstick the port never calls, which the 64-slot batch must beat;
+   then the serving path from launch counts at 0: a 4,096-row bulk
+   `predict`, `ClusterService(batch_slots=64)` over 1,024 queries, and
+   `run_palid._serve_bench` (ClusterServer + open-loop traffic at 2,000
+   requests/s), whose labels must equal per-query assignment and whose
+   `assign` launches must be > 0 (printed by kernel);
 6. the full-matrix path (estimate_k, affinity_matrix through the affinity
    kernel, IID / DS peeling, the paper's baselines): (a) the affinity
    kernel bit-equal to its plain version on rows of the full-width
@@ -59,15 +62,18 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    full), a chunked mask and ragged shapes, by the rule of
    `kernels.flash_attention.compare_with_plain` (fully masked rows
    exactly 0), two calls bitwise equal, each case's `kernel_plan` (the
-   decode's split count) printed, with the kernel's device and per-call
-   time, the plain version's, the bound, and the time of
-   `scaled_dot_product_attention` with the same mask as a yardstick the
-   port never calls, and the prefill's tile kernel with the batch on
-   grid.z against it folded into grid.x, timed in turns; (b) from
-   launch counts at 0, `launch.serve`'s own request mix on BatchServer,
-   then one batch packing a 5,120-token prompt with three short ones,
-   with tokens/s, prefill seconds, decode ms per step and peak memory,
-   and `flash_attention` launches > 0; (c) for the packed batch and each
+   bf16 prefills' wgmma tile, the decode's split count) printed, with the
+   kernel's device and per-call time, the plain version's, the bound, and
+   the time of `scaled_dot_product_attention` with the same mask as a
+   yardstick the port never calls (the bf16 prefill's wgmma kernel must
+   beat it), the SIMT tiles kernel forced at the same prefill (within the
+   rule, timed), and the prefill's kernel with the batch on grid.z
+   against it folded into grid.x, timed in turns; (b) from launch counts
+   at 0, `launch.serve`'s own request mix on BatchServer, then one batch
+   packing a 5,120-token prompt with three short ones, with tokens/s,
+   prefill seconds, decode ms per step and peak memory, and
+   `flash_attention` launches > 0, the wgmma kernel's among them (printed
+   by kernel); (c) for the packed batch and each
    of the mix's batches, the generated tokens fed back through the model
    with the kernel and with the plain attention: the kernel's argmax is
    the served tokens, the logits differ by at most (layers + 1) bf16
@@ -139,6 +145,7 @@ REPLACES = {
     "assign": "src/repro/kernels/assign.py:52",
     "affinity": "src/repro/kernels/affinity.py:34",
     "flash_attention": "src/repro/kernels/flash_attention.py:102",
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:102",
     "embedding_bag": "src/repro/kernels/embedding_bag.py:56",
     "segment_matmul": "src/repro/kernels/segment_matmul.py:72",
 }
@@ -148,7 +155,9 @@ FIT_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep")
 # the CUDA kernels behind flash_attention and embedding_bag, by name in a
 # profile
 FLASH_KERNELS = ("flash_kernel", "flash_split_kernel", "flash_combine_kernel",
-                 "flash_small_kernel")
+                 "flash_small_kernel", "flash_wgmma_kernel")
+# the source of a kernel table row where it is not csrc/<name>.cu
+SOURCES = {"flash_attention_wgmma": "src/repro_torch/csrc/flash_wgmma.cu"}
 BAG_KERNELS = ("bag_pass_kernel", "bag_sum_kernel")
 # serving: run_palid's defaults, and the bulk predict's rows
 SERVE_RATE = 2000.0
@@ -618,10 +627,22 @@ def composition(q, sup_v, sup_w, dens, k: float, t: float):
     return torch.where(bscore >= t * dens[best], best, -1), bscore
 
 
+def assign_bound(m: int, n_c: int, a_cap: int, d: int) -> tuple[float, str]:
+    """The assign call's bound: q, the supports, weights and densities read
+    once, labels and scores written once; the dots, norms and per pair the
+    distance, exp and weighted sum, and the argmax."""
+    return bound(4 * (m * d + n_c * a_cap * (d + 1) + n_c) + 8 * m,
+                 2 * m * n_c * a_cap * d + 2 * n_c * a_cap * d + 2 * m * d
+                 + 9 * m * n_c * a_cap + 2 * m * n_c)
+
+
 def check_assign(dev, out, res, mix):
-    """The assign kernel against its plain version at full width."""
+    """The assign kernels against their plain version at full width: the
+    tiles kernel on 256 rows and a NaN-poisoned, masked 64-slot batch, the
+    lanes kernel on a 4-row batch (serving's occupied slots), both at d =
+    2,048 (C2); each timed beside its bound and the cuBLAS composition."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assign import assign_cuda, smem_plan
+    from repro_torch.kernels.assign import assign_cuda, plan
     sup_v, sup_w, dens = (torch.as_tensor(x, device=dev) for x in
                           (res.support_v, res.support_w, res.densities))
     n_c, a_cap, d = sup_v.shape
@@ -634,8 +655,8 @@ def check_assign(dev, out, res, mix):
     same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     labelled = int((got[0] >= 0).sum())
     print(f"[serve] assign m=256 C={n_c} A={a_cap} d={d} k={k:.6g} "
-          f"threshold={thr} smem_plan={smem_plan(d)}: labelled={labelled} "
-          f"max_abs_err={err:.3e} bitwise_equal={same}")
+          f"threshold={thr} plan={plan(256, n_c, a_cap, d)}: labelled="
+          f"{labelled} max_abs_err={err:.3e} bitwise_equal={same}")
     need(same, "assign: labels or scores differ from the plain version")
     need(labelled > 0, "assign: no query of the mix was labelled")
     # a NaN-poisoned, masked 64-slot batch: pads -1 / 0.0, real rows equal
@@ -652,24 +673,75 @@ def check_assign(dev, out, res, mix):
          and torch.equal(g[1][:40], got[1][:40]),
          "assign: poisoned pad rows changed the real rows")
     print("[serve] assign masked 64-slot batch, NaN pads: bitwise_equal=True")
-    q64 = q[:64]
-    t = timings(lambda: assign_cuda(q64, sup_v, sup_w, dens, k, thr),
-                lambda: ref.assign_ref(q64, sup_v, sup_w, dens, k, thr),
-                plain_runs=3)
-    lib = composition(q64, sup_v, sup_w, dens, k, thr)
-    agree = float((lib[0] == got[0][:64]).float().mean())
-    lib_ms = graph_ms(lambda: composition(q64, sup_v, sup_w, dens, k, thr))
-    m = 64
-    b_ms, b_by = bound(4 * (m * d + n_c * a_cap * (d + 1) + n_c) + 8 * m,
-                       2 * m * n_c * a_cap * d + 2 * n_c * a_cap * d
-                       + 2 * m * d + 9 * m * n_c * a_cap + 2 * m * n_c)
-    out["assign"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
-    print(f"[serve] assign one 64-slot batch: {time_line(t)} "
-          f"bound_ms={b_ms:.4f} ({b_by}) library_ms=null (no one PyTorch "
-          "call computes distance + exp + segment sum + argmax + "
-          f"threshold); cuBLAS composition {lib_ms:.4f} ms (device time, "
-          f"CUDA graph; yardstick, labels agree on {agree:.4f} of the rows)")
+    # the occupied prefix of a batch: 4 rows on the lanes kernel, each row
+    # bitwise the 256-row call's
+    q4 = q[:4].contiguous()
+    g4 = assign_cuda(q4, sup_v, sup_w, dens, k, thr)
+    need(torch.equal(g4[0], got[0][:4]) and torch.equal(g4[1], got[1][:4]),
+         "assign: a 4-row batch differs from the same rows in a full one")
+    print(f"[serve] assign 4-row batch plan={plan(4, n_c, a_cap, d)}: "
+          f"bitwise equal to the same rows of the 256-row call")
+    check_assign_wide(dev)
+    timed = {}
+    for m, qm in ((64, q[:64]), (4, q4)):
+        t = timings(lambda: assign_cuda(qm, sup_v, sup_w, dens, k, thr),
+                    lambda: ref.assign_ref(qm, sup_v, sup_w, dens, k, thr),
+                    plain_runs=3)
+        lib = composition(qm, sup_v, sup_w, dens, k, thr)
+        agree = float((lib[0] == got[0][:m]).float().mean())
+        lib_ms = graph_ms(lambda: composition(qm, sup_v, sup_w, dens, k,
+                                              thr))
+        b_ms, b_by = assign_bound(m, n_c, a_cap, d)
+        t.update(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                 composition_ms=lib_ms,
+                 plan=plan(m, n_c, a_cap, d).kernel)
+        timed[m] = t
+        print(f"[serve] assign one {m}-row batch ({t['plan']} kernel): "
+              f"{time_line(t)} bound_ms={b_ms:.4f} ({b_by}) library_ms=null "
+              "(no one PyTorch call computes distance + exp + segment sum + "
+              f"argmax + threshold); cuBLAS composition {lib_ms:.4f} ms "
+              f"(device time, CUDA graph; yardstick, labels agree on "
+              f"{agree:.4f} of the rows)")
+    need(timed[64]["ms"] < timed[64]["composition_ms"], "assign: the 64-slot "
+         "batch is not faster than the cuBLAS composition")
+    out["assign"] = dict(timed[64], rows4={
+        key: timed[4][key] for key in ("ms", "call_ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "composition_ms", "plan")})
     return sup_v, sup_w, dens
+
+
+def check_assign_wide(dev):
+    """C2: d = 2,048 (past the old kernel's 1,184) at 64 and 4 rows, bitwise
+    equal to the plain version, NaN-poisoned masked pads included."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assign import assign_cuda, plan
+    rng = np.random.default_rng(21)
+    n_c, a_cap, d = 64, 240, 2048
+    centers = rng.normal(size=(n_c, d)).astype(np.float32) * 4.0
+    sup_v = torch.as_tensor(centers[:, None] + rng.normal(
+        size=(n_c, a_cap, d)).astype(np.float32), device=dev)
+    sup_w = torch.as_tensor(rng.uniform(0, 1, (n_c, a_cap)).astype(
+        np.float32), device=dev)
+    sup_w /= sup_w.sum(1, keepdim=True)
+    dens = torch.as_tensor(rng.uniform(0.0, 0.05, n_c).astype(np.float32),
+                           device=dev)
+    q = torch.as_tensor(centers[rng.integers(0, n_c, 64)] + rng.normal(
+        size=(64, d)).astype(np.float32), device=dev)
+    k = float(np.float32(1.0 / np.sqrt(2.0 * d)))
+    valid = torch.arange(64, device=dev) % 5 != 3
+    q[~valid] = float("nan")
+    for m in (64, 4):
+        args = (q[:m], sup_v, sup_w, dens, k, 0.5, valid[:m])
+        got, want = assign_cuda(*args), ref.assign_ref(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        labelled = int((got[0] >= 0).sum())
+        print(f"[serve] assign C2 case: m={m} C={n_c} A={a_cap} d={d} plan="
+              f"{plan(m, n_c, a_cap, d)}: labelled={labelled} "
+              f"bitwise_equal={same}")
+        need(same, f"assign at d={d}, m={m}: differs from the plain version")
+        need(labelled > 0, f"assign at d={d}: nothing labelled")
 
 
 def check_serving(dev, res, points, mix, sup):
@@ -728,7 +800,8 @@ def check_serving(dev, res, points, mix, sup):
           f"{st['queue_wait_s']:.4f}; labels equal to the service's: {same}")
     need(same, "ClusterServer labels differ from ClusterService labels")
     counts = ops.launch_counts()
-    print(f"[serve] launches of the serving path: {counts}")
+    print(f"[serve] launches of the serving path: {counts}; assign by "
+          f"kernel: {ops.path_counts()['assign']}")
     need(counts["assign"] > 0, "the serving path never launched assign")
     return counts
 
@@ -1080,17 +1153,20 @@ def check_flash_attention(dev, out):
     rule, at the serving path's shapes and the other masks."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import compare_with_plain, \
-        flash_attention_cuda, kernel_plan, smem_plan
+        flash_attention_cuda, kernel_plan, smem_plan, wgmma_plan
     timed = {}
     for seed, (name, b, h, hkv, sq, sk, dh, offs, ks, kw, dt, q_view) in \
             enumerate(flash_shapes()):
         mask_kw = {x: kw[x] for x in ("causal", "window", "chunk")
                    if kw.get(x) is not None}
-        plans = sorted({kernel_plan(b, h, hkv, sq, sk, dh, off, **mask_kw)
+        plans = sorted({kernel_plan(b, h, hkv, sq, sk, dh, off, **mask_kw,
+                                    bf16=dt == torch.bfloat16)
                         for off in offs}, key=str)
         plan = "; ".join(
             (f"{p.kernel} {smem_plan(dh, h // hkv, sq)[:3]}"
-             if p.kernel == "tiles" else f"{p.kernel} n_split={p.n_split} "
+             if p.kernel == "tiles" else
+             f"{p.kernel} {wgmma_plan(dh, h // hkv, sq)}"
+             if p.kernel == "wgmma" else f"{p.kernel} n_split={p.n_split} "
              f"from slot {p.split_lo}, {p.split_len} slots a chunk"
              if p.kernel == "split" else p.kernel) for p in plans)
         q, k, v = flash_inputs(dev, b, h, hkv, sq, sk, dh, dt, seed, q_view)
@@ -1150,6 +1226,7 @@ def check_flash_attention(dev, out):
             runs = 5 if sq > 1 else TIMED_RUNS
             if sq > 1:
                 grid_cmp = prefill_grids(q, k, v, off, kv_start, kw)
+                tiles = prefill_tiles(q, k, v, off, kv_start, kw, want, rows)
             t = dict(ms=graph_ms(kernel, runs=runs), call_ms=call_ms(kernel),
                      plain_ms=graph_ms(plain, runs=1 if sq > 1 else runs,
                                        replays=3),
@@ -1158,6 +1235,8 @@ def check_flash_attention(dev, out):
                                          runs=runs),
                      max_abs_err=err, bound_ms=b_ms,
                      bound_by=b_by, pairs=pairs, plan=plan)
+            if sq > 1:
+                t["tiles"] = tiles
             timed[name.split()[0]] = t
             print(f"[flash] {name}: {time_line(t)} bound_ms={b_ms:.4f} "
                   f"({b_by}; {pairs} attended pairs x 4 dh operations at "
@@ -1170,20 +1249,63 @@ def check_flash_attention(dev, out):
                   f"{lib_err['max_abs_err']:.3e})")
         del q, k, v, got, want
         torch.cuda.empty_cache()
-    out["flash_attention"] = dict(timed["prefill"], decode={
-        key: timed["decode"][key] for key in
-        ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-         "max_abs_err", "plan")}, prefill_grid=grid_cmp)
+    pre = timed["prefill"]
+    # flash_attention.cu's kernels: the SIMT tiles kernel at the prefill
+    # shape (forced), the split kernel at decode; flash_wgmma.cu's kernel:
+    # the plan's at the prefill shape
+    out["flash_attention"] = dict(
+        {key: pre[key] for key in ("plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "pairs")},
+        ms=pre["tiles"]["ms"], call_ms=pre["tiles"]["call_ms"],
+        max_abs_err=pre["tiles"]["max_abs_err"], decode={
+            key: timed["decode"][key] for key in
+            ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err", "plan")})
+    out["flash_attention_wgmma"] = dict(
+        {key: pre[key] for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "plan")}, prefill_grid=grid_cmp)
+    need(pre["ms"] < pre["library_ms"], "flash_attention prefill bf16: the "
+         "wgmma kernel is not faster than SDPA with the same mask")
+    print(f"[flash] prefill bf16: wgmma kernel {pre['ms']:.4f} ms, SIMT "
+          f"tiles kernel {pre['tiles']['ms']:.4f} ms, SDPA "
+          f"{pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms "
+          f"(device time, same run)")
     print(f"[flash] decode bf16: kernel {timed['decode']['ms']:.4f} ms vs "
           f"SDPA {timed['decode']['library_ms']:.4f} ms (device time, same "
           f"run): no slower than SDPA "
           f"{timed['decode']['ms'] <= timed['decode']['library_ms']}")
 
 
+def prefill_tiles(q, k, v, off, kv_start, kw, want, rows):
+    """The SIMT tiles kernel forced at the prefill shape that the plan
+    gives the wgmma kernel: within the rule, two calls bitwise equal, its
+    device time (CUDA graph) and per-call time."""
+    from repro_torch.kernels.flash_attention import compare_with_plain, \
+        flash_attention_cuda
+
+    def run():
+        return flash_attention_cuda(q, k, v, off, kv_start=kv_start,
+                                    force_tiles=True, **kw)
+    got = run()
+    res = compare_with_plain(got, want, rows)
+    need(res["bad"] == 0 and res["masked_nonzero"] == 0 and
+         torch.equal(got, run()), f"flash_attention prefill, SIMT tiles "
+         f"kernel: {res}")
+    t = dict(ms=graph_ms(run, runs=5), call_ms=call_ms(run),
+             max_abs_err=res["max_abs_err"])
+    print(f"[flash] prefill bf16, SIMT tiles kernel (forced): within the "
+          f"rule, max_abs_err={res['max_abs_err']:.3e}; kernel_ms="
+          f"{t['ms']:.4f} (device time, CUDA graph) kernel_call_ms="
+          f"{t['call_ms']:.4f}")
+    return t
+
+
 def prefill_grids(q, k, v, off, kv_start, kw):
-    """The tile kernel at the prefill shape with the batch on grid.z and
-    folded into grid.x, timed in turns (z, x, x, z; device time, CUDA
-    graphs); both give the same bits."""
+    """The plan's kernel at the prefill shape with the batch on grid.z and
+    folded into grid.x (the fold takes batches past 65,535 rows), timed in
+    turns (z, x, x, z; device time, CUDA graphs); both give the same
+    bits."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     def run(on_z):
@@ -1269,6 +1391,12 @@ def serve_lm(dev):
          "packed batch output")
     need(counts["flash_attention"] > 0, "LM serving never launched the "
          "flash_attention kernel")
+    paths = ops.path_counts()["flash_attention"]
+    print(f"[lm] flash_attention launches by kernel: {paths}")
+    need(paths["wgmma"] > 0, "LM serving's prefill never launched the "
+         "wgmma kernel")
+    counts["flash_attention_wgmma"] = paths["wgmma"]
+    counts["flash_attention"] -= paths["wgmma"]
     mix_served = [mix["results"][i] for i in mix["ids"]]
     return cfg, params, prompts, gen, mix_served, counts
 
@@ -1889,6 +2017,7 @@ def main() -> int:
     check_flash_attention(dev, stats)
     cfg, params, prompts, gen, mix_served, lm_counts = serve_lm(dev)
     counts["flash_attention"] = lm_counts["flash_attention"]
+    counts["flash_attention_wgmma"] = lm_counts["flash_attention_wgmma"]
     teacher_force_all(dev, cfg, params, prompts, gen, mix_served)
     del params, gen, mix_served
     torch.cuda.empty_cache()
@@ -1906,13 +2035,14 @@ def main() -> int:
     for name, s in stats.items():
         table.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": SOURCES.get(name, f"src/repro_torch/csrc/{name}.cu"),
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             **{key: s[key] for key in ("decode", "bst", "prefill_grid",
-                                       "shapes", "unsorted_ms", "bf16_ms")
+                                       "shapes", "unsorted_ms", "bf16_ms",
+                                       "rows4", "composition_ms", "plan")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

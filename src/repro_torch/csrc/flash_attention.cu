@@ -14,13 +14,15 @@
 // flash_attention.py, `_flash_kernel`). That kernel walks a (B, H, Sq/bq,
 // Sk/bk) grid with the kv axis sequential and schedules every kv block,
 // masked or not. Here kernels/flash_attention.py `kernel_plan` picks one of
-// three kernels by shape; all sum in f32 and round the output once to q's
-// type.
+// four kernels by shape and dtype: the three below, and for bf16 prefill
+// with dh a multiple of 16 up to 128 the tensor-core kernel of
+// flash_wgmma.cu; all sum in f32 and round the output once to q's type.
 //
-// 1. `flash_kernel` (prefill, and anything the other two do not take): one
-//    block of 256 threads takes a tile of query rows that share one kv
-//    head: the rep = H / Hkv heads of a kv head times up to 64 / rep query
-//    positions (64 rows; 32 past dh = 96). Its kv loop covers only the
+// 1. `flash_kernel` (prefill in f32 or at another dh, and anything the
+//    others do not take): one block of 256 threads takes a tile of query
+//    rows that share one kv head: the rep = H / Hkv heads of a kv head
+//    times up to 64 / rep query positions (64 rows; 32 past dh = 96).
+//    Its kv loop covers only the
 //    slots some row of the tile can attend, from max(kv_start, first slot -
 //    window + 1) (and the first row's chunk) to the last row's slot, in
 //    tiles of bc keys staged through shared memory as f32. Each tile: the
@@ -30,8 +32,8 @@
 //    then the value product in 4 x 4 register tiles added to accumulators
 //    in shared memory after the rescale. What bounds it: operations (4 dh
 //    per attended pair: 129 GFLOP for danube's 5,120-token prompt, 0.13 ms
-//    at the bf16 tensor-core peak); it runs on the SIMT units, without
-//    tensor cores or TMA (later work).
+//    at the bf16 tensor-core peak); it runs on the SIMT units, and bf16
+//    prefill at the models' dh goes to the wgmma kernel instead.
 // 2. `flash_split_kernel` + `flash_combine_kernel` (decode: few query rows
 //    over a long cache): what bounds it is bytes, the cache read once, and
 //    B x Hkv blocks alone would leave most of the 132 SMs idle. So the
@@ -61,7 +63,10 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "flash_common.cuh"
 #include "segment_sum.cuh"
+
+using namespace repro_flash;
 
 namespace {
 
@@ -76,78 +81,6 @@ constexpr int kMerge = 16;        // partials a combine thread loads at once
 constexpr int kCombineThreads = 512;
 constexpr int kSmallS = 32;       // Sq, Sk of the small kernel, at most
 constexpr int kSmallDh = 16;      // dh of the small kernel, at most
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* kv_start;
-  void* out;
-  float* scratch;                       // the split kernel's partials
-  int h, hkv, sq, sk, dh;
-  long long q_sb, q_sh, q_ss;  // strides (elements); the dh stride is 1
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  int q_offset, causal, window, chunk;  // window, chunk: 0 = none
-  float softcap, scale;                 // softcap: 0 = none
-  int hb, ppt, n_hc, bc, rp, dh4;       // tile plan, see smem_plan
-  int blocks_per_row;                   // query tiles x head chunks
-  int b0;                               // the launch's first batch row
-  int batch_on_z;                       // flash_kernel: the batch on grid.z
-  int n_split, split_lo, split_len;     // split plan, see kernel_plan
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// a // b for b > 0, rounding toward -inf as Python and JAX do
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// the logit of an attended pair: scale, then softcap
-__device__ __forceinline__ float logit(const Params& p, float dot) {
-  const float s = dot * p.scale;
-  return p.softcap > 0.f ? p.softcap * tanhf(s / p.softcap) : s;
-}
-
-// whether query position qp attends key position kp, both logical (slot -
-// kv_start); kp < 0 is a pad slot
-__device__ __forceinline__ bool attends(const Params& p, int kp, int qp) {
-  bool ok = kp >= 0;
-  if (p.causal) ok = ok && kp <= qp;
-  if (p.window > 0) ok = ok && kp > qp - p.window;
-  if (p.chunk > 0) {
-    ok = ok && floor_div(kp, p.chunk) == floor_div(qp, p.chunk);
-  }
-  return ok;
-}
-
-// the kv slots [lo, hi] that some query at slots first..last can attend
-__device__ __forceinline__ void kv_range(const Params& p, int start,
-                                         int first, int last, int* lo_out,
-                                         int* hi_out) {
-  int lo = max(start, 0), hi = p.sk - 1;
-  if (p.causal) hi = min(hi, last);
-  if (p.window > 0) lo = max(lo, first - p.window + 1);
-  if (p.chunk > 0) {
-    lo = max(lo, start + floor_div(first - start, p.chunk) * p.chunk);
-    hi = min(hi, start + (floor_div(last - start, p.chunk) + 1) * p.chunk - 1);
-  }
-  *lo_out = lo;
-  *hi_out = hi;
-}
 
 // ------------------------------------------------------------ 1. tiles ----
 template <typename T>
@@ -168,14 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   // the batch row on grid.z, or folded into grid.x (past grid.z's 65,535)
   int b, tile;
-  if (p.batch_on_z) {
-    b = blockIdx.z;
-    tile = blockIdx.x;
-  } else {
-    const int bl = blockIdx.x / p.blocks_per_row;
-    b = p.b0 + bl;
-    tile = blockIdx.x - bl * p.blocks_per_row;
-  }
+  tile_of_block(p, &b, &tile);
   const int g = blockIdx.y;
   const int qtile = tile / p.n_hc, hc = tile - qtile * p.n_hc;
   const int rep = p.h / p.hkv;
@@ -787,46 +713,12 @@ __global__ void __launch_bounds__(kThreads)
 // raise a kernel's dynamic shared-memory limit only when a launch needs
 // more than before, so that repeated launches (and CUDA graph captures of
 // them) make no further API call
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, int* limit) {
-  if (bytes > *limit && bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    *limit = bytes;
-  }
-  return cudaSuccess;
-}
-
 template <typename T>
 cudaError_t launch_tiles(const Params& p, int batch, int smem_bytes,
                          cudaStream_t stream) {
   static int smem_limit = 0;
-  cudaError_t err = allow_smem(flash_kernel<T>, smem_bytes, &smem_limit);
-  if (err != cudaSuccess) return err;
-  const long long per_row =
-      static_cast<long long>((p.sq + p.ppt - 1) / p.ppt) * p.n_hc;
-  if (per_row > 0x7fffffffLL || p.hkv > 65535) return cudaErrorInvalidValue;
-  Params lp = p;
-  lp.blocks_per_row = static_cast<int>(per_row);
-  if (p.batch_on_z) {
-    if (batch > 65535) return cudaErrorInvalidValue;
-    const dim3 grid(static_cast<unsigned>(per_row), p.hkv, batch);
-    flash_kernel<T><<<grid, kThreads, smem_bytes, stream>>>(lp);
-    return cudaGetLastError();
-  }
-  // batch rows a launch: as many as grid.x holds (one launch unless the
-  // grid would pass 2**31 - 1 blocks)
-  const long long rows = 0x7fffffffLL / per_row;
-  for (long long b0 = 0; b0 < batch; b0 += rows) {
-    const long long n = batch - b0 < rows ? batch - b0 : rows;
-    lp.b0 = static_cast<int>(b0);
-    const dim3 grid(static_cast<unsigned>(n * per_row), p.hkv, 1);
-    flash_kernel<T><<<grid, kThreads, smem_bytes, stream>>>(lp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return launch_tile_grid(flash_kernel<T>, p, batch, kThreads, smem_bytes,
+                          &smem_limit, stream);
 }
 
 template <typename T, int VEC, int ROWS>
@@ -925,7 +817,7 @@ extern "C" int flash_attention_launch(
     int bc, int smem_bytes, int batch_on_z, int n_split, int split_lo,
     int split_len, int vec, void* scratch, void* stream) {
   if (batch <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
-      sk <= 0 || dh <= 0 || dh > 256 || path < 0 || path > 2) {
+      sk <= 0 || dh <= 0 || dh > 256 || path < 0 || path > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -984,12 +876,17 @@ extern "C" int flash_attention_launch(
     err = is_bf16
               ? launch_split_vec<__nv_bfloat16>(p, vec, batch, smem_bytes, st)
               : launch_split_vec<float>(p, vec, batch, smem_bytes, st);
-  } else {
+  } else if (path == 2) {
     if (sq > kSmallS || sk > kSmallS || dh > kSmallDh) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     err = is_bf16 ? launch_small_dh<__nv_bfloat16>(p, batch, smem_bytes, st)
                   : launch_small_dh<float>(p, batch, smem_bytes, st);
+  } else {
+    if (!is_bf16 || hb <= 0 || ppt <= 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = launch_wgmma(p, batch, smem_bytes, st);
   }
   return static_cast<int>(err);
 }

@@ -49,14 +49,16 @@ SIGNATURES = {
     "lid_sweep_launch": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I,
                          F, I, F, I, I, P),
     # q, sup_v, sup_w, dens, valid, scores, labels, bscore,
-    # m, n_clusters, a_cap, d, tq, smem_bytes, k, threshold, stream
-    "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P),
+    # m, n_clusters, a_cap, d, path, rows, slices, smem_bytes, k,
+    # threshold, stream
+    "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F,
+                      P),
     # q, c, out, batch, m, n, d, tq, smem_bytes, k, stream
     "affinity_launch": (P, P, P, I, I, I, I, I, I, F, P),
     # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q, k and v
     # strides (b, h, s), q_offset, causal, window, chunk, softcap, scale,
-    # is_bf16, path, hb, ppt, bc, smem_bytes, batch_on_z, n_split,
-    # split_lo, split_len, vec, scratch, stream
+    # is_bf16, path (tiles, split, small, wgmma), hb, ppt, bc, smem_bytes,
+    # batch_on_z, n_split, split_lo, split_len, vec, scratch, stream
     "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, L,
                                L, L, L, L, L, I, I, I, I, F, F, I, I, I, I,
                                I, I, I, I, I, I, I, P, P),

@@ -1,6 +1,7 @@
-"""CUDA wrapper of the attention kernels (`csrc/flash_attention.cu`), which
-replace the TPU kernel `flash_attention_pallas` of the JAX package, and
-the plan that picks one of them by shape (`kernel_plan`)."""
+"""CUDA wrapper of the attention kernels (`csrc/flash_attention.cu`,
+`csrc/flash_wgmma.cu`), which replace the TPU kernel
+`flash_attention_pallas` of the JAX package, and the plan that picks one
+of them by shape and dtype (`kernel_plan`)."""
 
 from __future__ import annotations
 
@@ -30,14 +31,18 @@ SPLIT_BLOCKS = 4 * N_SM
 SMALL_S = 32
 SMALL_DH = 16
 _WARPS = 8
-_PATHS = ("tiles", "split", "small")
+# wgmma kernel: query rows a warpgroup, dh it takes (a multiple of 16, at
+# most)
+WGMMA_ROWS = 64
+WGMMA_DH = 128
+_PATHS = ("tiles", "split", "small", "wgmma")
 
 
 class Plan(NamedTuple):
     """Which kernel computes a call, and for "split" how the host's bound
     [split_lo, split_lo + n_split * split_len) of the attended kv slots is
     cut into n_split chunks of split_len slots, one block each."""
-    kernel: str            # "tiles", "split" or "small"
+    kernel: str            # "tiles", "split", "small" or "wgmma"
     n_split: int = 1
     split_lo: int = 0
     split_len: int = 0
@@ -73,6 +78,22 @@ def smem_plan(dh: int, rep: int, sq: int) -> tuple[int, int, int, int]:
                      f"{SMEM_MAX} bytes of shared memory")
 
 
+def wgmma_plan(dh: int, rep: int, sq: int) -> tuple[int, int, int]:
+    """(q heads per tile, query positions per tile, dynamic shared bytes)
+    of `flash_wgmma_kernel`: tiles of all `rep` heads of a kv head (at most
+    64) times as many positions as fit, no more than Sq, in 128 rows (two
+    warpgroups sharing each K / V tile) where more than 64 rows fill, else
+    in 64. The bytes: a 64-row Q tile a warpgroup and two stages of K and
+    V tiles of 64 keys, in bf16 core matrices of 8 rows x 16 bytes, 144
+    bytes apart along a row."""
+    hb = min(rep, WGMMA_ROWS)
+    ppt = min(max(1, 2 * WGMMA_ROWS // hb), sq)
+    if hb * ppt <= WGMMA_ROWS:
+        ppt = min(max(1, WGMMA_ROWS // hb), sq)
+    warpgroups = -(-(hb * ppt) // WGMMA_ROWS)
+    return hb, ppt, (warpgroups + 2 * 2) * (WGMMA_ROWS // 8) * (dh // 8) * 144
+
+
 def attended_range(sq: int, sk: int, q_offset: int, causal: bool,
                    window, chunk) -> tuple[int, int]:
     """The host's bound [lo, hi] of the kv slots that some query at slots
@@ -93,8 +114,8 @@ def attended_range(sq: int, sk: int, q_offset: int, causal: bool,
 
 def kernel_plan(b: int, h: int, hkv: int, sq: int, sk: int, dh: int,
                 q_offset: int = 0, *, causal: bool = True, window=None,
-                chunk=None) -> Plan:
-    """The kernel for a call of these shapes.
+                chunk=None, bf16: bool = False) -> Plan:
+    """The kernel for a call of these shapes (and dtype: bf16 or f32).
 
     "small" where Sq and Sk are at most 32 and dh at most 16 (BST's 21 x
     21 x 4): a warp per (row, head). "split" where the rep x Sq query rows
@@ -102,7 +123,9 @@ def kernel_plan(b: int, h: int, hkv: int, sq: int, sk: int, dh: int,
     would not fill the 132 SMs once, and the attended range is long (at
     least 512 slots): the range is cut into as many chunks as bring the
     grid (a block per chunk, kv head and batch row) to about four blocks
-    a SM, no more than one a 128 keys. "tiles" otherwise (prefill)."""
+    a SM, no more than one a 128 keys. Otherwise (prefill) "wgmma", the
+    tensor cores, for bf16 with dh a multiple of 16 up to 128, and the
+    SIMT "tiles" for the rest (f32, other dh)."""
     if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH and \
             b * h < 2 ** 31 - 2 ** 20:
         return Plan("small")
@@ -116,6 +139,8 @@ def kernel_plan(b: int, h: int, hkv: int, sq: int, sk: int, dh: int,
         n_split = min(-(-n // SPLIT_TILE), -(-SPLIT_BLOCKS // (b * hkv)),
                       MAX_SPLIT)
         return Plan("split", n_split, lo, -(-n // n_split))
+    if bf16 and dh % 16 == 0 and dh <= WGMMA_DH:
+        return Plan("wgmma")
     return Plan("tiles")
 
 
@@ -150,16 +175,19 @@ def split_vec(dh: int, tensors) -> int:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0, *, causal: bool = True,
                          window=None, chunk=None, softcap=None, scale=None,
-                         kv_start=None, batch_on_z=None) -> torch.Tensor:
+                         kv_start=None, batch_on_z=None,
+                         force_tiles: bool = False) -> torch.Tensor:
     """q (B, H, Sq, dh), k and v (B, Hkv, Sk, dh) on the card, all f32 or
     all bf16, H a multiple of Hkv, dh <= 256 -> (B, H, Sq, dh) in q's
     dtype. q, k and v may be any views whose last dim is contiguous (the
     models pass transposed ones): they are read through their strides.
     kv_start: (B,) int32 pad slots per row, or None for none. The kernel
-    is `kernel_plan`'s; the tile kernel puts the batch on grid.z where
-    B <= 65,535 and folds it into grid.x past that (`batch_on_z` forces
-    one or the other, for timing the two). One launch, two for "split"
-    (its partials, then their combine)."""
+    is `kernel_plan`'s; the tile kernels put the batch on grid.z where
+    B <= 65,535 and fold it into grid.x past that (`batch_on_z` forces
+    one or the other, for timing the two; `force_tiles` runs the SIMT
+    tiles kernel where the plan took wgmma). One launch, two for "split"
+    (its partials, then their combine). `flash_attention_cuda.by_path`
+    counts the launches of each kernel."""
     dev = require_cuda("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -181,7 +209,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention: Hkv={hkv} exceeds {_MAX_GRID_YZ}")
     plan = kernel_plan(b, h, hkv, max(sq, 1), max(sk, 1), dh, int(q_offset),
-                       causal=causal, window=window, chunk=chunk)
+                       causal=causal, window=window, chunk=chunk,
+                       bf16=q.dtype == torch.bfloat16)
+    if force_tiles and plan.kernel == "wgmma":
+        plan = Plan("tiles")
     out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0 or sk == 0:
         return out.zero_()
@@ -194,8 +225,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = dh ** -0.5 if scale is None else scale
     hb = ppt = bc = vec = 0
     scratch = None
-    if plan.kernel == "tiles":
-        hb, ppt, bc, smem = smem_plan(dh, h // hkv, sq)
+    if plan.kernel in ("tiles", "wgmma"):
+        if plan.kernel == "tiles":
+            hb, ppt, bc, smem = smem_plan(dh, h // hkv, sq)
+        else:
+            hb, ppt, smem = wgmma_plan(dh, h // hkv, sq)
+            # its copies move 16 bytes: base and strides in whole 8 x bf16
+            q, k, v = (t if t.data_ptr() % 16 == 0 and
+                       all(st % 8 == 0 for st in t.stride()[:3])
+                       else t.contiguous() for t in (q, k, v))
         if batch_on_z is None:
             batch_on_z = b <= _MAX_GRID_YZ
     elif plan.kernel == "split":
@@ -217,10 +255,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         0 if scratch is None else scratch.data_ptr(), _build.stream_ptr(dev))
     _build.check("flash_attention", err)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.by_path[plan.kernel] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.by_path = dict.fromkeys(_PATHS, 0)
 
 
 def _bf16_ordinal(x: torch.Tensor) -> torch.Tensor:

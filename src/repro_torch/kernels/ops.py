@@ -55,9 +55,18 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def path_counts() -> dict[str, dict[str, int]]:
+    """Launches of each kernel behind a wrapper that picks one of several
+    by a plan (`flash_attention`, `assign`), by the plan's name."""
+    return {name: dict(fn.by_path) for name, fn in KERNELS.items()
+            if hasattr(fn, "by_path")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "by_path"):
+            fn.by_path = dict.fromkeys(fn.by_path, 0)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:

@@ -230,12 +230,22 @@ class Tenant:
     def assign_np(self, q: np.ndarray, valid: np.ndarray) -> np.ndarray:
         """Assign one packed batch: (slots, d) f32 + (slots,) bool validity
         -> (slots,) int32 labels, -1 on pad slots and below-threshold real
-        slots. Synchronous (returns host labels)."""
-        if self.n_clusters == 0:
-            return np.full((q.shape[0],), -1, np.int32)
-        return assign_labels(q, self._sup_v, self._sup_w, self._dens,
-                             self.clustering.k, self.threshold, self.backend,
-                             valid, device=self.device)
+        slots. Synchronous (returns host labels).
+
+        Only the occupied prefix is computed: slots past the last valid
+        one (the packing loops put live requests first) come out -1
+        without reaching the device. A row's label does not depend on the
+        batch's other rows, so the labels are bitwise the full masked
+        batch's."""
+        labels = np.full((q.shape[0],), -1, np.int32)
+        live = np.flatnonzero(valid)
+        if self.n_clusters == 0 or live.size == 0:
+            return labels
+        n = int(live[-1]) + 1
+        labels[:n] = assign_labels(
+            q[:n], self._sup_v, self._sup_w, self._dens, self.clustering.k,
+            self.threshold, self.backend, valid[:n], device=self.device)
+        return labels
 
     def assign_source(self, source, batch_size: int = 256) -> np.ndarray:
         """Bulk offline counterpart: label every row of a DataSource against

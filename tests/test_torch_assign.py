@@ -16,8 +16,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.assign import LANE_ROWS, SMEM_MAX, plan, \
+    tile_smem_bytes
 
-SHAPES = [(16, 3, 8, 8), (100, 5, 24, 16), (257, 2, 33, 100), (1, 1, 4, 6)]
+SHAPES = [(16, 3, 8, 8), (100, 5, 24, 16), (257, 2, 33, 100), (1, 1, 4, 6),
+          (5, 3, 40, 1500)]   # d past the old kernel's 1,184 (C2)
 
 
 def _inputs(m, n_clusters, a, d, seed=13):
@@ -143,3 +146,118 @@ def test_plain_version_sums_in_the_pinned_order(monkeypatch):
     monkeypatch.setattr(ref, "_ASSIGN_PAIRS", 1)
     one_row = ref.assign_ref(q, sup_v, sup_w, dens, 0.25, 0.0)
     assert torch.equal(one_row[0], labels) and torch.equal(one_row[1], best)
+
+
+@pytest.mark.parametrize("d", [6, 128, 448, 449, 700, 1500, 2048, 4096])
+@pytest.mark.parametrize("m", [1, 3, 4, 16, 17, 64, 77, 4096])
+def test_assign_plan_picks_by_rows_and_takes_any_d(m, d):
+    """The kernel plan from host ints: the lanes kernel for up to 16 rows
+    (a power of two of them a warp) and wherever the tiles kernel's rows
+    would not fit in shared memory; the tiles kernel for more rows, about
+    three blocks a SM. No d raises (C2: the old plan did past d = 1,184)."""
+    p = plan(m, 2048, 240, d)
+    if m <= LANE_ROWS or tile_smem_bytes(d) > SMEM_MAX:
+        assert p.kernel == "lanes" and p.rows in (1, 2, 4, 8, 16)
+        assert min(m, LANE_ROWS) <= p.rows < 2 * min(m, LANE_ROWS)
+    else:
+        assert p.kernel == "tiles" and 1 <= p.slices <= 2048
+        assert p.smem == tile_smem_bytes(d) <= SMEM_MAX
+        assert -(-m // 64) * p.slices >= 3 * 132 or p.slices == 2048
+    assert (plan(m, 2048, 240, d).kernel == "tiles") == (m > 16 and d <= 448)
+
+
+def _transpose_tree(x: torch.Tensor) -> torch.Tensor:
+    """`transpose_tree` of csrc/assign.cu on (32 lanes, V) values: each
+    step of the halving tree keeps the half of a lane's values that its
+    lane bit names and adds the partner lane's copy of that half; one
+    value left, the steps add it across lanes. -> (32,) lane values."""
+    lane = torch.arange(32)
+    for step in range(5):
+        off = 16 >> step
+        partner = lane ^ off
+        upper = ((lane & off) != 0)[:, None]
+        if x.shape[1] > 1:
+            half = x.shape[1] // 2
+            keep = torch.where(upper, x[:, half:], x[:, :half])
+            send = torch.where(upper, x[:, :half], x[:, half:])
+            x = keep + send[partner]
+        else:
+            x = x + x[partner]
+    return x[:, 0]
+
+
+def _lanes_emulated(q, sup_v, sup_w, k, rows):
+    """The scores of `assign_lanes_kernel` in f32 on the CPU, lane by lane:
+    a warp per (cluster, group of `rows` queries), lane l holding terms
+    t = l (mod 32) of every dot as d streams in chunks of 32 columns, G =
+    32 / rows supports at a time, the transposing reductions, and the sum
+    over a in running sums of residues g G + k kept per lane."""
+    m, d = q.shape
+    n_c, a_cap, _ = sup_v.shape
+    g_sup = 32 // rows
+    lg = g_sup.bit_length() - 1
+    nch = -(-d // 32)
+    lane = torch.arange(32)
+    my_i, my_k = lane >> lg, lane & (g_sup - 1)
+    pad = torch.nn.functional.pad
+    scores = torch.empty((m, n_c))
+    for i0 in range(0, m, rows):
+        qg = pad(q[i0:i0 + rows], (0, 32 * nch - d, 0, rows - q[i0:i0 + rows].shape[0]))
+        qc = qg.view(rows, nch, 32)
+        acc = None
+        for ch in range(nch):
+            pr = (qc[:, ch] * qc[:, ch]).T                  # (32, rows)
+            acc = pr if ch == 0 else acc + pr
+        q2 = _transpose_tree(acc)
+        for c in range(n_c):
+            a32_n = -(-a_cap // 32) * 32
+            sv = pad(sup_v[c], (0, 32 * nch - d, 0, a32_n - a_cap))
+            w = pad(sup_w[c], (0, a32_n - a_cap))
+            sc = sv.view(a32_n, nch, 32)
+            run = [None] * rows
+            for a32 in range(0, a_cap, 32):
+                for g in range(rows):
+                    a0 = a32 + g * g_sup
+                    dot = sq = None
+                    for ch in range(nch):
+                        s_ch = sc[a0:a0 + g_sup, ch].T          # (32, G)
+                        q_ch = qc[:, ch].T                      # (32, rows)
+                        prd = (q_ch[:, :, None] * s_ch[:, None, :]).reshape(32, -1)
+                        prs = s_ch * s_ch
+                        dot = prd if ch == 0 else dot + prd
+                        sq = prs if ch == 0 else sq + prs
+                    dv = _transpose_tree(dot)
+                    s2 = _transpose_tree(sq)[my_k << (5 - lg)]
+                    d2 = (q2 + s2) - 2.0 * dv
+                    aff = torch.exp(-k * torch.sqrt(torch.clamp_min(d2, 0.0)))
+                    a = a0 + my_k
+                    p = torch.where(a < a_cap, aff * w[a], 0.0)
+                    run[g] = p if a32 == 0 else run[g] + p
+            off = 16
+            while off >= g_sup:
+                for g in range(off // g_sup):
+                    run[g] = run[g] + run[g + off // g_sup]
+                off //= 2
+            v = run[0]
+            while off > 0:
+                v = v + v[lane ^ off]
+                off //= 2
+            for i in range(min(rows, m - i0)):
+                scores[i0 + i, c] = v[i * g_sup]
+    return scores
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16])
+@pytest.mark.parametrize("m,a_cap,d", [(3, 45, 40), (16, 33, 6), (5, 70, 100)])
+def test_lane_kernel_order_is_the_pinned_order(m, a_cap, d, rows):
+    """An emulation of the lanes kernel's arithmetic (lane-parallel dots,
+    transposing reductions, the sum over a in per-lane residues) gives
+    the plain version's scores bit for bit: its order is the pinned one."""
+    q, sup_v, sup_w, _ = (torch.as_tensor(x) for x in
+                          _inputs(m, 3, a_cap, d, seed=m + a_cap))
+    k = float(np.float32(0.3))
+    want = torch.stack([ref.pinned_sum(
+        ref.affinity_ref(q, sup_v[c], k) * sup_w[c]) for c in range(3)],
+        dim=1)
+    got = _lanes_emulated(q, sup_v, sup_w, k, rows)
+    assert torch.equal(got, want)

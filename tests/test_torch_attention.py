@@ -23,7 +23,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import SMEM_MAX, SPLIT_BLOCKS, \
-    Plan, attended_range, flash_attention_cuda, kernel_plan, smem_plan
+    Plan, attended_range, compare_with_plain, flash_attention_cuda, \
+    kernel_plan, smem_plan, wgmma_plan
 
 # the eight cases of tests/test_kernels.py::test_flash_attention_kernel
 CASES = [
@@ -223,6 +224,59 @@ def test_kernel_plan_danube_and_limits():
         smem_plan(257, 4, 1)
 
 
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("rep,sq", [(1, 1), (4, 1), (4, 5120), (2, 2048),
+                                    (3, 70), (8, 100), (80, 3)])
+def test_wgmma_plan_fits_shared_memory(dh, rep, sq):
+    """The tensor-core kernel's tile plan: tiles of whole kv-head groups
+    (at most 64 heads), no more positions than Sq, 128 rows (two
+    warpgroups) where more than 64 fill and 64 otherwise, and the Q tiles
+    plus two stages of K and V tiles within the 232,448 bytes a block may
+    hold."""
+    hb, ppt, nbytes = wgmma_plan(dh, rep, sq)
+    assert 1 <= hb <= min(rep, 64) and 1 <= ppt <= sq and hb * ppt <= 128
+    assert nbytes <= SMEM_MAX < 232448
+    if hb * ppt <= 64:
+        assert ppt == sq or hb * (ppt + 1) > 64
+    else:
+        assert hb * (ppt + 1) > 128 or ppt == sq
+    if (dh, rep, sq) == (80, 4, 5120):
+        assert (hb, ppt) == (4, 32)                  # danube prefill
+
+
+def test_p_split_keeps_the_rule_where_sums_cancel(capsys):
+    """The wgmma kernel multiplies V by P = hi + lo, hi = bf16(P) and lo =
+    bf16(P - hi) (f32 products summed in f32, emulated here by f32
+    matmuls): P enters exact to ~2^-17 of itself, and the result keeps
+    `compare_with_plain`'s rule, whose 1e-5 leg holds where the weighted
+    sum cancels near 0. One rounding of P to bf16 (~2^-9) breaks it there:
+    the test prints that error beside the split's, the reason for the
+    split."""
+    rng = np.random.default_rng(17)
+    b, h, sq, dh = 2, 4, 256, 64
+    q, k, v = (torch.tensor(rng.standard_normal((b, h, sq, dh)),
+                            dtype=torch.float32).to(torch.bfloat16)
+               for _ in range(3))
+    want = tref.attention_ref(q, k, v)
+    mask = tref.attention_mask(sq, sq, 0, None)
+    logits = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l_sum = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    vf = v.float()
+    rows = mask.any(-1).expand(b, -1)
+    split = compare_with_plain(((hi @ vf + lo @ vf) / l_sum).to(
+        torch.bfloat16), want, rows)
+    single = compare_with_plain((hi @ vf / l_sum).to(torch.bfloat16), want,
+                                rows)
+    with capsys.disabled():
+        print(f"\nP as hi + lo: {split}; P rounded once to bf16: {single}")
+    assert split["bad"] == 0 and split["masked_nonzero"] == 0
+    assert single["bad"] > 0
+
+
 # kernel_plan's choice at the ported models' shapes: (B, H, Hkv, Sq, Sk, dh),
 # keywords, the plan
 PLAN_CASES = [
@@ -254,6 +308,20 @@ PLAN_CASES = [
     ((3, 8, 8, 21, 21, 4), dict(causal=False), Plan("small")),
     ((3, 2, 2, 5, 30, 16), dict(), Plan("small")),
     ((3, 2, 2, 5, 33, 16), dict(), Plan("tiles")),
+    # bf16 prefill on the tensor cores: danube (dh 80) and gemma2's local
+    # layer (dh 128), and a short bf16 decode that the split does not take;
+    # bf16 decode and BST keep their kernels; f32, dh 72 and dh 256 stay on
+    # the SIMT tiles
+    ((4, 32, 8, 5120, 5137, 80), dict(window=4096, bf16=True),
+     Plan("wgmma")),
+    ((2, 32, 16, 2048, 2065, 128), dict(window=1024, bf16=True),
+     Plan("wgmma")),
+    ((1, 2, 2, 1, 256, 64), dict(q_offset=255, bf16=True), Plan("wgmma")),
+    ((4, 32, 8, 1, 5137, 80), dict(q_offset=5120, window=4096, bf16=True),
+     Plan("split", 17, 1025, 241)),
+    ((3, 8, 8, 21, 21, 4), dict(causal=False, bf16=True), Plan("small")),
+    ((2, 8, 2, 2048, 2065, 72), dict(bf16=True), Plan("tiles")),
+    ((2, 8, 2, 100, 100, 256), dict(bf16=True), Plan("tiles")),
 ]
 
 

@@ -149,7 +149,7 @@ def _assign_inputs(dev, m, n_clusters, a_cap, d, seed=0):
     (64, 2048, 240, 128),    # one full-width serving batch
     (77, 37, 240, 128),      # ragged m: a second, partial query tile
     (5, 9, 240, 256),        # A * d * 4 past 227 KB: supports stream
-    (3, 4, 33, 700),         # d too wide for 64-query tiles: 16-row tiles
+    (3, 4, 33, 700),         # a few rows at a wide d: the lanes kernel
     (1, 1, 4, 6)])
 def test_assign_bitwise(dev, m, n_clusters, a_cap, d):
     q, sup_v, sup_w, dens, k = _assign_inputs(dev, m, n_clusters, a_cap, d)
@@ -176,6 +176,34 @@ def test_assign_masked_batch_bitwise(dev):
     assert bool((got[0][40:] == -1).all()) and bool((got[1][40:] == 0).all())
     alone = ops.assign_clusters(q[:40], sup_v, sup_w, dens, k, 0.1)
     assert _equal((got[0][:40], got[1][:40]), alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [6, 128, 700, 1500, 2048])
+@pytest.mark.parametrize("m", [1, 4, 16, 64, 77, 4096])
+def test_assign_plans_bitwise(dev, m, d):
+    """Both scores kernels (`kernels.assign.plan`: lanes up to 16 rows and
+    past d = 448, tiles otherwise) bit-equal to the plain version at every
+    d (C2: the old kernel refused d > 1,184), masked and unmasked, with
+    NaN-poisoned pad rows coming out -1 and 0.0."""
+    from repro_torch.kernels.assign import plan
+    q, sup_v, sup_w, dens, k = _assign_inputs(dev, m, 7, 45, d, seed=m + d)
+    valid = torch.rand(m, generator=torch.Generator().manual_seed(d)) > 0.25
+    valid = valid.to(dev)
+    dirty = q.clone()
+    dirty[~valid] = float("nan")
+    before = ops.path_counts()["assign"]
+    got, want = _both(lambda b: ops.assign_clusters(
+        dirty, sup_v, sup_w, dens, k, 0.1, valid, backend=b))
+    assert _equal(got, want)
+    assert bool((got[0][~valid] == -1).all())
+    assert bool((got[1][~valid] == 0).all())
+    got, want = _both(lambda b: ops.assign_clusters(
+        q, sup_v, sup_w, dens, k, 0.1, backend=b))
+    assert _equal(got, want)
+    assert int((got[0] >= 0).sum()) > 0
+    kernel = plan(m, 7, 45, d).kernel
+    assert ops.path_counts()["assign"][kernel] == before[kernel] + 2
 
 
 @pytest.mark.cuda
@@ -534,6 +562,57 @@ def test_segment_kernels_count_and_refuse(dev):
         ops.segment_matmul(table.half(), idx % 7, 7)
     with pytest.raises(ValueError, match="mode"):
         ops.embedding_bag(table, idx, idx // 4, 10, "max")
+
+
+# calls that kernel_plan sends to the wgmma kernel: (B, H, Hkv, Sq, Sk, dh,
+# q_offset, kv_start, keywords)
+WGMMA_CASES = [
+    # danube's prefill cut to 1,024 queries, three rows left-padded
+    (4, 32, 8, 1024, 1041, 80, 0, [0, 1017, 1015, 1013], dict(window=512)),
+    # gemma2's local and full layers: dh 128, softcap 50, rep 2
+    (2, 32, 16, 512, 529, 128, 0, [0, 300], dict(window=256, softcap=50.0)),
+    (2, 32, 16, 512, 529, 128, 0, [0, 300], dict(softcap=50.0)),
+    # chunked, not causal, and a prefill chunk after a cache with rep 3
+    (2, 8, 2, 600, 617, 128, 0, [0, 77], dict(chunk=128)),
+    (2, 4, 4, 300, 300, 64, 0, [0, 50], dict(causal=False)),
+    (2, 6, 2, 70, 190, 48, 120, [0, 30], dict(window=100)),
+    (1, 4, 1, 130, 140, 112, 3, [2], {}),
+    (2, 8, 2, 300, 333, 16, 0, [0, 30], dict(chunk=64)),
+    (2, 4, 2, 100, 130, 96, 0, [0, 17], dict(window=40)),
+    # past 65,535 batch rows: the batch folded into grid.x
+    (70_000, 2, 1, 8, 40, 32, 32, None, {}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: f"B{c[0]}-dh{c[5]}-{sorted(c[8])}")
+def test_wgmma_prefill_matches_plain(dev, case):
+    """The tensor-core kernel (bf16, dh a multiple of 16) against the plain
+    version by `compare_with_plain`, rows attending nothing exactly 0, and
+    two calls bitwise equal; it is the plan's kernel and its launches are
+    counted by path."""
+    from repro_torch.kernels.flash_attention import kernel_plan
+    b, h, hkv, sq, sk, dh, off, ks, kw = case
+    mask_kw = {x: kw[x] for x in ("window", "chunk", "causal") if x in kw}
+    assert kernel_plan(b, h, hkv, sq, sk, dh, off, bf16=True,
+                       **mask_kw).kernel == "wgmma"
+    g = torch.Generator(device="cpu").manual_seed(sq + dh)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+               for shape in ((b, h, sq, dh), (b, hkv, sk, dh),
+                             (b, hkv, sk, dh)))
+    kv_start = None if ks is None else torch.tensor(ks, dtype=torch.int32,
+                                                    device=dev)
+    before = ops.path_counts()["flash_attention"]["wgmma"]
+    got, want = _both(lambda be: ops.flash_attention(
+        q, k, v, off, kv_start=kv_start, backend=be, **kw))
+    again = ops.flash_attention(q, k, v, off, kv_start=kv_start, **kw)
+    assert ops.path_counts()["flash_attention"]["wgmma"] == before + 2
+    assert torch.equal(got, again)
+    rows = kref.attention_mask(sq, sk, off, kv_start, device=dev,
+                               **mask_kw).any(-1).expand(b, -1)
+    res = compare_with_plain(got, want, rows)
+    assert res["bad"] == 0 and res["masked_nonzero"] == 0, res
 
 
 @pytest.mark.cuda

@@ -248,3 +248,41 @@ def test_run_palid_quick_serve_bench_prints_the_jax_lines(capsys,
 def test_run_palid_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_palid.main(["--quick", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("live", ["prefix", "holes", "full", "none"])
+def test_occupied_prefix_serving(fitted, monkeypatch, live):
+    """`Tenant.assign_np` computes only up to the last occupied slot of a
+    64-slot batch: the device sees that many rows, and the labels equal
+    the full masked 64-slot call's and the JAX package's Tenant's (whose
+    fixed shapes are a jit concern the port does not have)."""
+    from repro.serve.batching import Tenant as JTenant
+    from repro_torch.kernels import ops
+    from repro_torch.serve.batching import Tenant
+    spec, want, got = fitted
+    queries = _queries(spec, want)
+    q = np.zeros((64, queries.shape[1]), np.float32)
+    valid = np.zeros(64, bool)
+    n = {"prefix": 5, "holes": 9, "full": 64, "none": 0}[live]
+    q[:n] = queries[:n]
+    valid[:n] = True
+    if live == "holes":
+        valid[[1, 4]] = False
+    seen = []
+    real = ops.assign_clusters
+
+    def counting(qt, *a, **kw):
+        seen.append(int(qt.shape[0]))
+        return real(qt, *a, **kw)
+    monkeypatch.setattr(ops, "assign_clusters", counting)
+    labels = Tenant("t", got, device="cpu").assign_np(q, valid)
+    assert seen == ([n] if n else [])
+    full = talid.assign_labels(q, got.support_v, got.support_w,
+                               got.densities, got.k, 0.5, valid=valid,
+                               device="cpu")
+    np.testing.assert_array_equal(labels, full)
+    np.testing.assert_array_equal(
+        labels, JTenant("t", want, backend="ref").assign_np(q, valid))
+    assert (labels[~valid] == -1).all()
+    if n:
+        assert (labels[valid] >= 0).any()
