@@ -8,14 +8,20 @@ first use), then runs, in order, failing with a non-zero exit on any error:
 1. environment: torch / CUDA versions, the kernel build time, the card's
    name and power limit (nvidia-smi);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (lsh_hash at 1,000,000 x 128; roi_filter,
-   affinity_matvec and lid_sweep over 32 seeds), including a lid_sweep
-   block past the 227 KB of shared memory, ragged tails and NaN-poisoned
-   padded slots; each with its error, its device time (25 calls replayed
-   from a CUDA graph) and per-call time (CUDA events, median of 25 after
+   shapes of the main path (lsh_hash at 1,000,000 x 128 and at the CIVS
+   probe's 3,584 x 128; roi_filter, affinity_matvec and lid_sweep over 32
+   seeds), each with its error, its device time (25 calls replayed from a
+   CUDA graph) and per-call time (CUDA events, median of 25 after
    warm-up), the plain version's device time from a CUDA graph (per call
    for lid_sweep's, which checks its lanes on the host every step), and
-   the card's bound;
+   the card's bound. affinity_matvec and lid_sweep bit-equal to their
+   plain versions: the matvec at the fit's two shapes (32 x 240 x 240 and
+   32 x 240 x 112, both timed), at d = 256 in passes and at d = 2,048 on
+   its "global" route; the sweep on every cluster size of its plan (B = 1,
+   32, 40, 100), d = 256, the in-sweep refresh, cap 560 and the "global"
+   route (cap 2,000 x d 256), NaN-poisoned padded slots, and lanes
+   converged on entry (unchanged); its one-step, 8-step and converged
+   calls timed;
 3. end-to-end parity: one fit through the kernels and one through the plain
    versions, both on the card, at n = 20,000 x 128: equal canonical labels
    and round counts, densities within tolerance;
@@ -162,6 +168,8 @@ BAG_KERNELS = ("bag_pass_kernel", "bag_sum_kernel")
 # serving: run_palid's defaults, and the bulk predict's rows
 SERVE_RATE = 2000.0
 BULK_ROWS = 4096
+# lsh_hash at the CIVS probe: seeds_per_round x a_cap support rows
+PROBE_ROWS = 32 * 112
 
 
 class SmokeFailure(RuntimeError):
@@ -325,6 +333,20 @@ def check_lsh_hash(dev, out, data):
     print(f"[kernel] lsh_hash {time_line(t)} bound_ms={b_ms:.4f} ({b_by}) "
           "library_ms=null (no single PyTorch call computes projection + "
           "floor + fold); max_abs_err is the fraction of flipped keys")
+    # the CIVS probe: 32 seeds x a_cap 112 support rows a call (436 of the
+    # fit's 437 launches; the store build above is the other)
+    rows = PROBE_ROWS
+    xp = x[:rows].contiguous()
+    tp = timings(lambda: lsh_hash_cuda(xp, proj, bias, seg),
+                 lambda: ref.lsh_hash_ref(xp, proj, bias, seg))
+    pb_ms, pb_by = bound(4 * (rows * d + lm * d + lm + rows * n_tables),
+                         2 * rows * lm * d)
+    out["lsh_hash"]["probe"] = dict(rows=rows, ms=tp["ms"],
+                                    call_ms=tp["call_ms"],
+                                    plain_ms=tp["plain_ms"], bound_ms=pb_ms,
+                                    bound_by=pb_by)
+    print(f"[kernel] lsh_hash probe n={rows}: {time_line(tp)} "
+          f"bound_ms={pb_ms:.5f} ({pb_by})")
 
 
 def check_roi_filter(dev, out):
@@ -375,27 +397,61 @@ def check_roi_filter(dev, out):
           "distance + radius mask + -inf scores)")
 
 
+def matvec_bound(bsz: int, m: int, n: int, d: int) -> tuple[float, str]:
+    """Inputs read once, the output written once; per pair the d-long dot
+    (an FMA counted as two operations), the norms, and the affinity's and
+    the weighted sum's handful."""
+    return bound(4 * bsz * (m * d + n * d + m + 2 * n + m),
+                 bsz * (2 * m * n * d + 2 * (m + n) * d + 8 * m * n))
+
+
 def check_affinity_matvec(dev, out):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
+    from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda, plan
     bsz, cap, a_cap, d = 32, 240, 112, 128
     k = k_for(d)
     st = live_states(bsz, cap, d, dev, seed=3)
     g = torch.Generator(device="cpu").manual_seed(3)
     w = torch.rand((bsz, cap), generator=g).to(dev)
-    timed = None
-    for n_c in (cap, a_cap):
-        c, ci, wc = st.v_beta[:, :n_c], st.beta_idx[:, :n_c], w[:, :n_c]
-        got = affinity_matvec_cuda(st.v_beta, st.beta_idx, c, ci, wc, k)
-        want = ref.affinity_matvec_ref(st.v_beta, st.beta_idx, c, ci, wc, k)
+    shapes = {}
+    # the fit's two shapes (ROI pi(x) over the range; the CIVS support
+    # rebuild against a_cap rows), then d = 256 in passes and d = 2,048
+    # read in place (the "global" route)
+    for n_c, dd in ((cap, d), (a_cap, d), (560, 256), (37, 2048)):
+        if dd == d:  # the support side contiguous, as the fit gives it
+            q, qi = st.v_beta, st.beta_idx
+            c, ci, wc = (t[:, :n_c].contiguous()
+                         for t in (st.v_beta, st.beta_idx, w))
+        else:
+            gb = torch.Generator(device="cpu").manual_seed(dd)
+            q = torch.randn((4, cap, dd), generator=gb).to(dev)
+            qi = torch.arange(cap, dtype=torch.int32, device=dev).repeat(4, 1)
+            half = min(cap, n_c // 2)  # columns equal to rows
+            c = torch.cat([q[:, :half], torch.randn(
+                (4, n_c - half, dd), generator=gb).to(dev)], 1)
+            ci = torch.arange(n_c, dtype=torch.int32, device=dev).repeat(4, 1)
+            wc = torch.rand((4, n_c), generator=gb).to(dev)
+        pl = plan(q.shape[1], n_c, dd)
+        got = affinity_matvec_cuda(q, qi, c, ci, wc, k)
+        want = ref.affinity_matvec_ref(q, qi, c, ci, wc, k)
         err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        print(f"[kernel] affinity_matvec B={bsz} ({cap},{d}) x ({n_c},{d}): "
-              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-              f"bitwise_equal={torch.equal(got, want)}")
-        need(rel <= 1e-4, f"affinity_matvec rel err {rel}")
-        if timed is None:
-            timed = (err, c, ci, wc)
+        same = torch.equal(got, want)
+        print(f"[kernel] affinity_matvec B={q.shape[0]} ({q.shape[1]},{dd}) "
+              f"x ({n_c},{dd}) plan={pl.route} rows={pl.rows} "
+              f"classes={pl.classes} groups={pl.groups} "
+              f"groups_a_pass={pl.gpp} smem={pl.smem}B: max_abs_err="
+              f"{err:.3e} bitwise_equal={same}")
+        need(same, f"affinity_matvec differs from its plain version at "
+             f"n={n_c} d={dd}")
+        if dd != d:
+            continue
+        t = timings(lambda: affinity_matvec_cuda(q, qi, c, ci, wc, k),
+                    lambda: ref.affinity_matvec_ref(q, qi, c, ci, wc, k))
+        b_ms, b_by = matvec_bound(bsz, cap, n_c, d)
+        shapes[n_c] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        print(f"[kernel] affinity_matvec n={n_c} {time_line(t)} "
+              f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null (no single "
+              "PyTorch call computes the masked affinity matvec)")
     # c-side pad rows with weight 0 and large finite garbage: unchanged
     c = st.v_beta.clone()
     wz = w.clone()
@@ -405,24 +461,10 @@ def check_affinity_matvec(dev, out):
     need(torch.equal(base, affinity_matvec_cuda(st.v_beta, st.beta_idx, c,
                                                 st.beta_idx, wz, k)),
          "affinity_matvec: weight-0 pad rows changed the output")
-    # equal products give the bit-equal tree sum
-    a = ref.affinity_ref(st.v_beta[:2, :5], c[:2, :37], k)
-    need(torch.equal(ref.tree_matvec(a, w[:2, :37]),
-                     ref.tree_matvec(a.clone(), w[:2, :37].clone())),
-         "tree_matvec is not deterministic")
-    err, c, ci, wc = timed
-    t = timings(lambda: affinity_matvec_cuda(st.v_beta, st.beta_idx, c, ci,
-                                             wc, k),
-                lambda: ref.affinity_matvec_ref(st.v_beta, st.beta_idx, c,
-                                                ci, wc, k))
-    b_ms, b_by = bound(4 * bsz * (2 * cap * d + 4 * cap),
-                       bsz * (2 * cap * cap * d + 4 * cap * d
-                              + 8 * cap * cap))
-    out["affinity_matvec"] = dict(t, max_abs_err=err, bound_ms=b_ms,
-                                  bound_by=b_by)
-    print(f"[kernel] affinity_matvec {time_line(t)} bound_ms={b_ms:.4f} "
-          f"({b_by}) library_ms=null (no single PyTorch call computes the "
-          "masked affinity matvec)")
+    out["affinity_matvec"] = dict(
+        shapes[cap], shapes={f"32x{cap}x{n}": {key: v[key] for key in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+            for n, v in shapes.items()})
 
 
 def _sweep_pair(st, k, **kw):
@@ -438,33 +480,42 @@ def _sweep_pair(st, k, **kw):
 
 def check_lid_sweep(dev, out):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lid_sweep import lid_sweep_cuda, smem_plan
-    bsz = 32
+    from repro_torch.kernels.lid_sweep import lid_sweep_cuda, plan
     timed = None
-    cases = [(240, 128, 0, 8), (240, 256, 0, 8), (240, 256, 4, 8),
-             (200, 128, 4, 16)]
-    for cap, d, refresh, steps in cases:
+    # (B, cap, d, refresh_every, n_steps): the fit's shape first (32 seeds:
+    # clusters of 4 blocks), then one cluster size of each other kind, d =
+    # 256 (a slice of a 2-block cluster would not fit: 4 blocks at B = 32),
+    # the in-sweep refresh, and rows read in place from device memory
+    cases = [(32, 240, 128, 0, 8), (32, 240, 256, 0, 8), (32, 240, 256, 4, 8),
+             (32, 200, 128, 4, 16), (1, 240, 128, 0, 8), (40, 240, 128, 0, 8),
+             (100, 240, 128, 0, 8), (4, 560, 256, 0, 8),
+             (2, 2000, 256, 0, 4)]
+    routes = set()
+    for bsz, cap, d, refresh, steps in cases:
         k = k_for(d)
         st = live_states(bsz, cap, d, dev, seed=cap + d)
         kw = dict(n_steps=steps, max_iters=256, tol=1e-5,
                   refresh_every=refresh)
         (gx, gax, git, gcv), (wx, wax, wit, wcv) = _sweep_pair(st, k, **kw)
         err = max(float((gx - wx).abs().max()), float((gax - wax).abs().max()))
-        smem, nbytes = smem_plan(cap, d, refresh)
+        pl = plan(bsz, cap, d)
+        routes.add((pl.route, pl.cluster))
         same = all(torch.equal(a, b) for a, b in
                    zip((gx, gax, git, gcv), (wx, wax, wit, wcv)))
         print(f"[kernel] lid_sweep B={bsz} cap={cap} d={d} refresh_every="
-              f"{refresh} n_steps={steps} rows_in_shared={smem} "
-              f"dyn_smem={nbytes}B: max_abs_err(x,ax)={err:.3e} "
+              f"{refresh} n_steps={steps} plan={pl.route} cluster="
+              f"{pl.cluster} rows_a_block={pl.rows_per} threads={pl.threads} "
+              f"dyn_smem={pl.smem}B: max_abs_err(x,ax)={err:.3e} "
               f"bitwise_equal={same} iters={int(git.sum())} "
               f"(plain {int(wit.sum())})")
         need(bool(int(wit.min()) > 1), "lid_sweep: the states did not iterate")
-        need(torch.equal(git, wit) and torch.equal(gcv, wcv),
-             "lid_sweep: n_iters / converged differ from the plain version")
-        need(err <= 1e-5, f"lid_sweep: x/ax error {err} > 1e-5")
+        need(same, "lid_sweep differs from its plain version")
         if timed is None:
             timed = (st, k, kw, err)
-    need(not smem_plan(240, 256, 0)[0], "the d=256 case must exceed 227 KB")
+    need({c for _, c in routes} == {1, 2, 4, 8} and
+         {r for r, _ in routes} == {"smem", "global"},
+         f"lid_sweep: the cases ran routes {sorted(routes)}, not every "
+         "cluster size and both routes")
     # masked-off rows poisoned with NaN/Inf (refresh off) or large finite
     # garbage (refresh on, where they are weight-0 terms): valid slots equal
     for refresh, finite in ((0, False), (4, True)):
@@ -488,21 +539,32 @@ def check_lid_sweep(dev, out):
     args = (st.v_beta, st.beta_idx, st.beta_mask, st.x, st.ax, st.n_iters,
             st.converged, k)
     got = lid_sweep_cuda(*args, **kw)
+    # lanes converged (or at max_iters) on entry: returned unchanged
+    done_in = (got[0], got[1], got[2], torch.ones_like(got[3]))
+    again = lid_sweep_cuda(st.v_beta, st.beta_idx, st.beta_mask, *done_in, k,
+                           **kw)
+    need(all(torch.equal(p, q) for p, q in zip(again, done_in)),
+         "lid_sweep: converged lanes changed")
     t = timings(lambda: lid_sweep_cuda(*args, **kw),
                 lambda: ref.lid_sweep_ref(*args, kw["n_steps"],
                                           kw["max_iters"], kw["tol"]),
                 plain_in_graph=False)
     one = graph_ms(lambda: lid_sweep_cuda(*args, **dict(kw, n_steps=1)))
+    idle = graph_ms(lambda: lid_sweep_cuda(st.v_beta, st.beta_idx,
+                                           st.beta_mask, *done_in, k, **kw))
     print(f"[kernel] lid_sweep device time of a one-step call {one:.4f} ms, "
           f"of a {kw['n_steps']}-step call {t['ms']:.4f} ms: "
-          f"~{(t['ms'] - one) / (kw['n_steps'] - 1):.4f} ms per further step")
+          f"~{(t['ms'] - one) / (kw['n_steps'] - 1):.4f} ms per further "
+          f"step; of a call on converged lanes {idle:.4f} ms")
     # the work this run's data needs: one pass over the rows, and per
     # executed step the pi/score lanes plus one affinity column
     cap, d = st.v_beta.shape[1:]
+    bsz = st.v_beta.shape[0]
     steps = float((got[2] - st.n_iters).sum())
     b_ms, b_by = bound(4 * bsz * (cap * d + 4 * cap + 2 * cap) + 8 * bsz,
                        steps * (2 * cap * d + 16 * cap) + bsz * 2 * cap * d)
-    out["lid_sweep"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    out["lid_sweep"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                            one_step_ms=one, converged_ms=idle)
     print(f"[kernel] lid_sweep {time_line(t)} bound_ms={b_ms:.5f} ({b_by}) "
           f"steps={int(steps)} library_ms=null (no PyTorch call runs LID "
           "iterations)")
@@ -578,6 +640,8 @@ def full_fit(dev, spec, lshp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = {name: paths for name, paths in ops.path_counts().items()
+              if name in FIT_KERNELS}
     members = int((res.labels >= 0).sum())
     print(f"[fit] SIFT1M shape {n}x128, a_cap={cfg.a_cap} "
           f"delta={cfg.delta} seeds_per_round={cfg.seeds_per_round} "
@@ -586,7 +650,8 @@ def full_fit(dev, spec, lshp):
           f"clusters={res.n_clusters} members={members} "
           f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f} (reported, "
           "not gated) max_memory_allocated="
-          f"{torch.cuda.max_memory_allocated()} launches={counts}")
+          f"{torch.cuda.max_memory_allocated()} launches={counts} "
+          f"routes={routes}")
     need(res.n_clusters > 0, "the full-width fit found no cluster")
     need(np.isfinite(res.densities).all()
          and res.labels.shape == (n,), "full-width fit output")
@@ -2042,7 +2107,9 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             **{key: s[key] for key in ("decode", "bst", "prefill_grid",
                                        "shapes", "unsorted_ms", "bf16_ms",
-                                       "rows4", "composition_ms", "plan")
+                                       "rows4", "composition_ms", "plan",
+                                       "probe", "one_step_ms",
+                                       "converged_ms")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

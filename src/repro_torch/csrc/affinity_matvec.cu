@@ -4,149 +4,366 @@
 // Replaces the TPU kernel `affinity_matvec_pallas` (src/repro/kernels/
 // affinity_matvec.py, `_matvec_kernel`). The distance is the clamped
 // expansion sqrt(max((|q|^2 + |c|^2) - 2 q.c, 0)), the diagonal is zeroed
-// by comparing indices, and the n products of each output row are
-// contracted in the pinned `tree_matvec` order: zero-padded to a power of
-// two P and summed by halving, s[j] += s[j + half], in shared memory. Given
-// equal products the sum is therefore bit-equal to the plain PyTorch
-// version's. The seed batch is the grid's second dimension (the JAX
-// package vmapped this op).
+// by comparing indices, |q|^2, |c|^2 and the dots are summed in the pinned
+// order of kernels/ref.py (`pinned_sum`), and the n products of each output
+// row in `tree_matvec`'s (zero-padded to a power of two P, halved), every
+// multiply and add a separate IEEE operation: on equal inputs the kernel
+// gives its plain version's bits. The seed batch is grid.y.
 //
-// What bounds it on an H100: neither bytes nor flops at the main path's
-// sizes (m = cap = 240, n <= 240, d = 128, 32 seeds: ~0.5 GFLOP over ~8 MB
-// of L2-resident rows); it is latency-bound, by the log2(P) synchronised
-// levels of the pinned tree. One block takes kRows = 8 output rows: their q
-// rows sit in shared memory, each warp reads whole c rows with coalesced
-// loads and reduces |c|^2 and the 8 dots with shuffles, so every c row is
-// read once per 8 outputs, and the 8 trees share their synchronised levels.
-// |q|^2, |c|^2 and the dots are summed in the pinned order of
-// kernels/ref.py (`pinned_sum`) with separate IEEE multiplies and adds, so
-// on equal inputs the kernel gives its plain version's bits.
+// What bounds it on an H100: the operations. Kept separate, as the pinned
+// order needs them, the multiplies and adds of the m n dots (255 a pair at
+// d = 128) are ~470 M FP32 instructions at 32 x 240 x 240, ~15 us of the
+// card's issue rate; bytes (~8 MB) and the exps are far below that. So the
+// design spends nothing on data movement that the dots could use:
+//
+// - a block takes 64 output rows of one seed (4 a thread, in 16 groups) and
+//   stages them, and the columns it needs, in shared memory LEAF-MAJOR: the
+//   four terms t = l, l+32, l+64, l+96 of a dot's running sum l sit in one
+//   float4, so a thread's 4 x 4 register tile of pairs takes 8 float4 loads
+//   for 128 multiply-adds;
+// - a thread walks the 32 running sums in bit-reversed order, folding each
+//   into the halving tree on a stack (four quarters of eight, each a
+//   complete subtree): no shuffle per pair;
+// - the j-sum: the 16 threads of a row group own the column classes
+//   j = r mod 16, each a complete subtree of tree_matvec's halving tree.
+//   A thread meets its class's columns in bit-reversed order, four at a
+//   time (a complete subtree of four, summed in registers), folds them on a
+//   stack, and the top four levels are xor shuffles 8, 4, 2, 1. No shared
+//   memory tree and no barrier inside the sum.
+//
+// Columns are staged in passes of whole groups when they do not all fit;
+// past the d whose rows fit in shared memory ("global" route) the same
+// schedule, one output row a thread, reads the rows in place from device
+// memory. Ragged d adds zero chunks (common.cuh), which change no bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
+using repro_kernels::LeafMajor;
+using repro_kernels::Natural;
+using repro_kernels::bit_reverse;
+using repro_kernels::comp;
+using repro_kernels::leaf_groups;
+using repro_kernels::quad_dot;
+
+constexpr int kTC = 4;         // columns a thread holds: one group
+constexpr int kSlots = 16;     // threads of a row group: column classes
+constexpr int kGroupSlots = kSlots * kTC;  // staged columns of a group
+constexpr int kDepth = 8;      // the j stack: up to 128 groups a class
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;  // output rows per block, one per warp for |q|^2
 
-__global__ void affinity_matvec_kernel(const float* __restrict__ q,
-                                       const int32_t* __restrict__ q_idx,
-                                       const float* __restrict__ c,
-                                       const int32_t* __restrict__ c_idx,
-                                       const float* __restrict__ w,
-                                       float* __restrict__ out,
-                                       int m, int n, int d, int pow2,
-                                       float k) {
-  extern __shared__ float smem[];
-  const int sp = pow2 + 1;          // tree row stride, off the bank period
-  float* qs = smem;                 // (kRows, d) q rows of this block
-  float* s = qs + kRows * d;        // (kRows, sp) products, then the trees
-  __shared__ float q2s[kRows];
-  __shared__ int qis[kRows];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long b = blockIdx.y;
-  const int i0 = blockIdx.x * kRows;
-  const int rows = min(kRows, m - i0);
-
-  for (int e = threadIdx.x; e < kRows * d; e += blockDim.x) {
-    const int r = e / d;
-    qs[e] = r < rows ? q[(b * m + i0 + r) * d + (e - r * d)] : 0.f;
-  }
-  __syncthreads();
-  {  // warp r: |q_r|^2 and the row's index (-2 past the ragged edge)
-    const float* qr = qs + warp * d;
-    float acc = lane < d ? __fmul_rn(qr[lane], qr[lane]) : 0.f;
-    for (int t = lane + 32; t - lane < d; t += 32) {
-      acc = __fadd_rn(acc, t < d ? __fmul_rn(qr[t], qr[t]) : 0.f);
-    }
-    acc = repro_kernels::warp_tree32(acc);
-    if (lane == 0) {
-      q2s[warp] = acc;
-      qis[warp] = warp < rows ? q_idx[b * m + i0 + warp] : -2;
-    }
-  }
-  __syncthreads();
-
-  for (int j = warp; j < pow2; j += kWarps) {
-    if (j >= n) {
-      if (lane < kRows) s[lane * sp + j] = 0.f;
-      continue;
-    }
-    // lane l: running sums of the products at t = l, l + 32, ... (the
-    // pinned order), then the butterfly over the lanes
-    const float* cr = c + (b * n + j) * d;
-    float c2 = 0.f;
-    float dot[kRows];
+// group g (chunks 4g .. 4g+3) of leaf l of the tile's TQ x kTC dots; the
+// first group's first chunk starts each running sum
+template <class Src, int TQ, bool kFirst>
+__device__ __forceinline__ void leaf_group(const float* const (&qr)[TQ],
+                                           const float* const (&cr)[kTC],
+                                           int l, int g, int prm,
+                                           float (&leaf)[TQ][kTC]) {
+  float4 a[TQ], b[kTC];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) dot[r] = 0.f;
-    for (int t = lane; t - lane < d; t += 32) {
-      const bool in = t < d;
-      const float cv = in ? __ldg(cr + t) : 0.f;
-      const float p2 = in ? __fmul_rn(cv, cv) : 0.f;
-      c2 = t == lane ? p2 : __fadd_rn(c2, p2);
+  for (int r = 0; r < TQ; ++r) a[r] = Src::group(qr[r], l, g, prm);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pr = in ? __fmul_rn(qs[r * d + t], cv) : 0.f;
-        dot[r] = t == lane ? pr : __fadd_rn(dot[r], pr);
+  for (int t = 0; t < kTC; ++t) b[t] = Src::group(cr[t], l, g, prm);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+      for (int t = 0; t < kTC; ++t) {
+        const float p = __fmul_rn(comp(a[r], e), comp(b[t], e));
+        leaf[r][t] = (kFirst && e == 0) ? p : __fadd_rn(leaf[r][t], p);
       }
     }
-    c2 = repro_kernels::warp_tree32(c2);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dot[r] = repro_kernels::warp_tree32(dot[r]);
-    float mine = 0.f;  // lane r < kRows takes output row r
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) mine = lane == r ? dot[r] : mine;
-    if (lane < kRows) {
-      const float a = repro_kernels::affinity(q2s[lane], c2, mine, k);
-      s[lane * sp + j] =
-          __fmul_rn(qis[lane] == c_idx[b * n + j] ? 0.f : a, w[b * n + j]);
-    }
   }
-  __syncthreads();
-  for (int half = pow2 >> 1; half > 0; half >>= 1) {
-    for (int e = threadIdx.x; e < kRows * half; e += blockDim.x) {
-      const int r = e / half;
-      const int jj = e - r * half;
-      s[r * sp + jj] = __fadd_rn(s[r * sp + jj], s[r * sp + jj + half]);
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < rows) out[b * m + i0 + threadIdx.x] = s[threadIdx.x * sp];
 }
 
-}  // namespace
+// Leaf JJ of a quarter: running sum res + 4 brev3(JJ), folded on the
+// quarter's 3-deep stack (template recursion keeps every index constant,
+// so the stack stays in registers)
+template <class Src, int TQ, int JJ>
+struct Quarter {
+  static __device__ __forceinline__ void run(
+      const float* const (&qr)[TQ], const float* const (&cr)[kTC], int res,
+      int ng, int prm, float (&st)[3][TQ][kTC], float (&v)[TQ][kTC]) {
+    constexpr int u = ((JJ & 1) << 2) | (JJ & 2) | ((JJ & 4) >> 2);
+    constexpr int merges =
+        (JJ & 1) ? ((JJ & 2) ? ((JJ & 4) ? 3 : 2) : 1) : 0;
+    const int l = res + 4 * u;
+    float leaf[TQ][kTC];
+    leaf_group<Src, TQ, true>(qr, cr, l, 0, prm, leaf);
+#pragma unroll 1
+    for (int g = 1; g < ng; ++g) {
+      leaf_group<Src, TQ, false>(qr, cr, l, g, prm, leaf);
+    }
+#pragma unroll
+    for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+      for (int t = 0; t < kTC; ++t) {
+        float x = leaf[r][t];
+#pragma unroll
+        for (int lvl = 0; lvl < merges; ++lvl) {
+          x = __fadd_rn(st[lvl][r][t], x);
+        }
+        if constexpr (merges < 3) {
+          st[merges][r][t] = x;
+        } else {
+          v[r][t] = x;
+        }
+      }
+    }
+    Quarter<Src, TQ, JJ + 1>::run(qr, cr, res, ng, prm, st, v);
+  }
+};
 
-extern "C" int affinity_matvec_launch(const float* q, const int32_t* q_idx,
-                                      const float* c, const int32_t* c_idx,
-                                      const float* w, float* out, int batch,
-                                      int m, int n, int d, float k,
-                                      void* stream) {
-  int pow2 = 1;
-  while (pow2 < n) pow2 <<= 1;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kRows) * (d + pow2 + 1));
+template <class Src, int TQ>
+struct Quarter<Src, TQ, 8> {
+  static __device__ __forceinline__ void run(
+      const float* const (&)[TQ], const float* const (&)[kTC], int, int, int,
+      float (&)[3][TQ][kTC], float (&)[TQ][kTC]) {}
+};
+
+// The tile's TQ x kTC dots in the pinned order. Leaf J (bit-reversed
+// order) is running sum l = 4 brev3(J mod 8) + brev2(J / 8): the quarter
+// qq = J / 8 holds the leaves l = brev2(qq) mod 4, a complete subtree of
+// eight; the four quarters' sums are the tree's top two levels, folded in
+// turn.
+template <class Src, int TQ>
+__device__ __forceinline__ void tile_dots(const float* const (&qr)[TQ],
+                                          const float* const (&cr)[kTC],
+                                          int ng, int prm,
+                                          float (&dot)[TQ][kTC]) {
+  float hi[2][TQ][kTC];  // completed quarter (level 3), half (level 4)
+#pragma unroll 1
+  for (int qq = 0; qq < 4; ++qq) {
+    float st[3][TQ][kTC];
+    float v[TQ][kTC];
+    Quarter<Src, TQ, 0>::run(qr, cr, ((qq & 1) << 1) | (qq >> 1), ng, prm,
+                             st, v);
+#pragma unroll
+    for (int r = 0; r < TQ; ++r) {
+#pragma unroll
+      for (int t = 0; t < kTC; ++t) {
+        float x = v[r][t];
+        if (qq & 1) {
+          x = __fadd_rn(hi[0][r][t], x);
+          if (qq & 2) {
+            dot[r][t] = __fadd_rn(hi[1][r][t], x);
+          } else {
+            hi[1][r][t] = x;
+          }
+        } else {
+          hi[0][r][t] = x;
+        }
+      }
+    }
+  }
+}
+
+// rows: output rows of a block (TQ a thread, 16 threads a row group);
+// classes, ubits, tc, groups: the column classes G, log2 of a class's
+// columns U = P / G, the columns a group sums in registers, U / tc groups
+// a class; gpp: groups a pass
+template <bool kSmemRows, int TQ>
+__global__ void __launch_bounds__(kThreads) matvec_kernel(
+    const float* __restrict__ q, const int32_t* __restrict__ q_idx,
+    const float* __restrict__ c, const int32_t* __restrict__ c_idx,
+    const float* __restrict__ w, float* __restrict__ out, int m, int n,
+    int d, float k, int rows, int classes, int ubits, int tc, int groups,
+    int gpp) {
+  using Src = typename std::conditional<kSmemRows, LeafMajor, Natural>::type;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ng = leaf_groups(d);
+  const int ld = 128 * ng + 4;  // row stride: 16 bytes off the bank period
+  const int prm = kSmemRows ? 4 * ng : d;
+  const int pass_slots = gpp * kGroupSlots;
+  float* qs = smem;
+  float* cs = qs + (kSmemRows ? rows * ld : 0);
+  float* q2s = cs + (kSmemRows ? pass_slots * ld : 0);
+  int* qis = reinterpret_cast<int*>(q2s + rows);
+  float* c2s = reinterpret_cast<float*>(qis + rows);
+  float* ws = c2s + pass_slots;
+  int* cis = reinterpret_cast<int*>(ws + pass_slots);
+  int* cjs = cis + pass_slots;
+
+  const int tid = threadIdx.x;
+  const int r = tid & (kSlots - 1);   // column class slot
+  const int qg = tid / kSlots;        // row group
+  const long b = blockIdx.y;
+  const int i0 = blockIdx.x * rows;
+  const float* qb = q + b * m * static_cast<long>(d);
+  const float* cb = c + b * n * static_cast<long>(d);
+  auto q_row = [&](int row) -> const float* {  // in place, clamped
+    return qb + min(i0 + row, m - 1) * static_cast<long>(d);
+  };
+
+  if constexpr (kSmemRows) {
+    repro_kernels::stage_leaf_major(
+        qs, ld, ng, d, rows, qb,
+        [&](int row) -> const float* {
+          return i0 + row < m ? q_row(row) : nullptr;
+        });
+    __syncthreads();
+  }
+  // |q|^2 and |c|^2 in the pinned order, four threads a row (quad_dot);
+  // every thread runs every round, so that the shuffles see whole warps
+  const int quad = tid >> 2, t4 = tid & 3, nquads = blockDim.x >> 2;
+  for (int row0 = 0; row0 < rows; row0 += nquads) {
+    const int row = min(row0 + quad, rows - 1);
+    const float* qrow = kSmemRows ? qs + row * ld : q_row(row);
+    const float v = quad_dot<Src>(qrow, qrow, t4, ng, prm);
+    if (t4 == 0 && row0 + quad < rows) {
+      q2s[row] = v;
+      qis[row] = i0 + row < m ? q_idx[b * m + i0 + row] : -2;
+    }
+  }
+
+  const float* qr[TQ];
+#pragma unroll
+  for (int rr = 0; rr < TQ; ++rr) {
+    const int row = qg * TQ + rr;
+    qr[rr] = kSmemRows ? qs + row * ld : q_row(row);
+  }
+  // the class's groups folded in walk order (local memory: one access a
+  // group and row)
+  float jst[TQ][kDepth];
+
+  for (int g0 = 0; g0 < groups; g0 += gpp) {
+    const int slots = min(gpp, groups - g0) * kGroupSlots;
+    __syncthreads();  // the previous pass is done with the slots
+    for (int s = tid; s < slots; s += blockDim.x) {
+      const int gg = s / kGroupSlots, tt = (s / kSlots) % kTC;
+      const int cls = s % kSlots;
+      int j = -1;
+      if (cls < classes && tt < tc) {
+        const int u = bit_reverse((g0 + gg) * tc + tt, ubits);
+        j = cls + classes * u;
+        if (j >= n) j = -1;
+      }
+      cjs[s] = j;
+      ws[s] = j >= 0 ? w[b * n + j] : 0.f;
+      cis[s] = j >= 0 ? c_idx[b * n + j] : 0;
+    }
+    __syncthreads();
+    if constexpr (kSmemRows) {
+      repro_kernels::stage_leaf_major(
+          cs, ld, ng, d, slots, cb,
+          [&](int s) -> const float* {
+            const int j = cjs[s];
+            return j >= 0 ? cb + j * static_cast<long>(d) : nullptr;
+          });
+      __syncthreads();
+    }
+    for (int s0 = 0; s0 < slots; s0 += nquads) {
+      const int s = min(s0 + quad, slots - 1);
+      const float* crow =
+          kSmemRows ? cs + s * ld : cb + max(cjs[s], 0) * static_cast<long>(d);
+      const float v = quad_dot<Src>(crow, crow, t4, ng, prm);
+      if (t4 == 0 && s0 + quad < slots) c2s[s] = v;
+    }
+    __syncthreads();
+
+    for (int gg = 0; gg * kGroupSlots < slots; ++gg) {
+      const int sb = gg * kGroupSlots + r;
+      const float* cr[kTC];
+#pragma unroll
+      for (int tt = 0; tt < kTC; ++tt) {
+        const int s = sb + tt * kSlots;
+        cr[tt] = kSmemRows ? cs + s * ld
+                           : cb + max(cjs[s], 0) * static_cast<long>(d);
+      }
+      float dot[TQ][kTC];
+      tile_dots<Src, TQ>(qr, cr, ng, prm, dot);
+      float prod[TQ][kTC];
+#pragma unroll
+      for (int tt = 0; tt < kTC; ++tt) {
+        const int s = sb + tt * kSlots;
+        const bool on = cjs[s] >= 0;
+        const float c2 = c2s[s], wj = ws[s];
+        const int cj = cis[s];
+#pragma unroll
+        for (int rr = 0; rr < TQ; ++rr) {
+          const int row = qg * TQ + rr;
+          const float a = qis[row] == cj
+              ? 0.f : repro_kernels::affinity(q2s[row], c2, dot[rr][tt], k);
+          prod[rr][tt] = on ? __fmul_rn(a, wj) : 0.f;
+        }
+      }
+      const int p = g0 + gg;
+      const int merges = __popc(p ^ (p + 1)) - 1;
+#pragma unroll
+      for (int rr = 0; rr < TQ; ++rr) {
+        float v = prod[rr][0];
+        if (tc == 2) v = __fadd_rn(prod[rr][0], prod[rr][1]);
+        if (tc == 4) {
+          v = __fadd_rn(__fadd_rn(prod[rr][0], prod[rr][1]),
+                        __fadd_rn(prod[rr][2], prod[rr][3]));
+        }
+        for (int lvl = 0; lvl < merges; ++lvl) v = __fadd_rn(jst[rr][lvl], v);
+        jst[rr][merges] = v;
+      }
+    }
+  }
+
+  const int depth = 31 - __clz(groups);  // groups is a power of two
+#pragma unroll
+  for (int rr = 0; rr < TQ; ++rr) {
+    float v = jst[rr][depth];
+    for (int off = classes >> 1; off > 0; off >>= 1) {
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+    }
+    const int i = i0 + qg * TQ + rr;
+    if (r == 0 && i < m) out[b * m + i] = v;
+  }
+}
+
+template <bool kSmemRows, int TQ>
+int launch(const float* q, const int32_t* q_idx, const float* c,
+           const int32_t* c_idx, const float* w, float* out, int batch,
+           int m, int n, int d, float k, int rows, int classes, int ubits,
+           int tc, int groups, int gpp, int smem_bytes, cudaStream_t stream) {
   // raise the dynamic shared-memory limit only when a launch needs more
   // than before, so that repeated launches (and CUDA graph captures of
   // them) make no further API call
   static int smem_limit = 0;
-  const int smem_need = static_cast<int>(smem);
-  if (smem_need > smem_limit) {
+  if (smem_bytes > smem_limit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        affinity_matvec_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_need);
+        matvec_kernel<kSmemRows, TQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_limit = smem_need;
+    smem_limit = smem_bytes;
   }
-  if (batch > 0 && m > 0) {
-    dim3 grid((m + kRows - 1) / kRows, batch);
-    affinity_matvec_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        q, q_idx, c, c_idx, w, out, m, n, d, pow2, k);
-  }
+  const dim3 grid((m + rows - 1) / rows, batch);
+  matvec_kernel<kSmemRows, TQ><<<grid, rows / TQ * kSlots, smem_bytes,
+                                 stream>>>(
+      q, q_idx, c, c_idx, w, out, m, n, d, k, rows, classes, ubits, tc,
+      groups, gpp);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The plan (route, rows, classes, ubits, tc, groups, gpp, smem_bytes) comes
+// from kernels/affinity_matvec.py `plan`: 4 output rows a thread on the
+// "smem" route, 1 on the "global" route.
+extern "C" int affinity_matvec_launch(
+    const float* q, const int32_t* q_idx, const float* c,
+    const int32_t* c_idx, const float* w, float* out, int batch, int m,
+    int n, int d, float k, int smem_rows, int rows, int classes, int ubits,
+    int tc, int groups, int gpp, int smem_bytes, void* stream) {
+  if (batch <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return smem_rows
+      ? launch<true, 4>(q, q_idx, c, c_idx, w, out, batch, m, n, d, k, rows,
+                        classes, ubits, tc, groups, gpp, smem_bytes, s)
+      : launch<false, 1>(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
+                         rows, classes, ubits, tc, groups, gpp, smem_bytes,
+                         s);
 }

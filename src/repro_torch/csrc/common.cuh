@@ -36,41 +36,6 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
   }
 }
 
-// The pinned order of every d-long sum (kernels/ref.py `pinned_sum`):
-// products rounded, element t added to running sum t mod 32 chunk after
-// chunk (zero-padded to a multiple of 32), then a halving tree over the 32
-// sums. One thread computes the whole sum here, in 32 registers.
-__device__ __forceinline__ float pinned_dot(const float* a, const float* b,
-                                           int d) {
-  float acc[32];
-  if ((d & 31) == 0) {  // whole chunks: no padding to test for
-#pragma unroll
-    for (int l = 0; l < 32; ++l) acc[l] = __fmul_rn(a[l], b[l]);
-    for (int c = 32; c < d; c += 32) {
-#pragma unroll
-      for (int l = 0; l < 32; ++l) {
-        acc[l] = __fadd_rn(acc[l], __fmul_rn(a[c + l], b[c + l]));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int l = 0; l < 32; ++l) acc[l] = l < d ? __fmul_rn(a[l], b[l]) : 0.f;
-    for (int c = 32; c < d; c += 32) {
-#pragma unroll
-      for (int l = 0; l < 32; ++l) {
-        acc[l] = __fadd_rn(acc[l], c + l < d ? __fmul_rn(a[c + l], b[c + l])
-                                             : 0.f);
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 16; h > 0; h >>= 1) {
-#pragma unroll
-    for (int l = 0; l < h; ++l) acc[l] = __fadd_rn(acc[l], acc[l + h]);
-  }
-  return acc[0];
-}
-
 // The same order spread over a warp: lane l holds running sum l; the
 // butterfly below gives every lane the halving tree's result (each pair is
 // added once, and IEEE addition commutes).
@@ -228,6 +193,225 @@ __device__ __forceinline__ void stage(float* dst, int ld, int dp,
         (r < rows && col < d) ? __ldg(src + static_cast<long>(r) * d + col)
                               : 0.f;
   }
+}
+
+// ---- leaf-major rows (the fit kernels: affinity_matvec, lid_sweep) ----
+//
+// The pinned order's leaf l of a d-long dot is the running sum of the
+// products at t = l, l + 32, l + 64, ... (chunk c = t / 32), started from
+// the first product. A leaf-major row holds element t = 32 c + l at
+// l * ldl + c, with ldl = 4 ng (ng = ceil(nch / 4) float4 groups a leaf,
+// nch = ceil(d / 32) chunks) and zeros past d, so that one float4 load
+// brings four consecutive chunks of one leaf. The fit kernels add all 4 ng
+// chunks of a leaf: the chunks past nch hold zeros, and adding their +0
+// products changes no output bit (a leaf of -0 may become +0, which only
+// the sign of a zero dot can show, and the distance (|a|^2 + |b|^2) -
+// 2 dot, whose first term is never -0, is the same for either zero).
+// Two sources of such groups:
+
+// a leaf-major row (shared memory, local or a cluster peer's)
+struct LeafMajor {
+  static __device__ __forceinline__ float4 group(const float* row, int l,
+                                                 int g, int ldl) {
+    return *reinterpret_cast<const float4*>(row + l * ldl + 4 * g);
+  }
+};
+
+// a row of d floats in device memory, read in place (zeros past d; the
+// loads are clamped to the row and unconditional, so that they all issue
+// before their first use)
+struct Natural {
+  static __device__ __forceinline__ float4 group(const float* row, int l,
+                                                 int g, int d) {
+    const int t = 128 * g + l;
+    float4 v;
+    v.x = __ldg(row + min(t, d - 1));
+    v.y = __ldg(row + min(t + 32, d - 1));
+    v.z = __ldg(row + min(t + 64, d - 1));
+    v.w = __ldg(row + min(t + 96, d - 1));
+    v.x = t < d ? v.x : 0.f;
+    v.y = t + 32 < d ? v.y : 0.f;
+    v.z = t + 64 < d ? v.z : 0.f;
+    v.w = t + 96 < d ? v.w : 0.f;
+    return v;
+  }
+};
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// float4 groups a leaf of a leaf-major row
+__host__ __device__ __forceinline__ int leaf_groups(int d) {
+  return ((d + 31) / 32 + 3) / 4;
+}
+
+// Copy rows of d floats into leaf-major shared rows of stride ld (4 ng
+// floats a leaf), zero past d and for rows whose source is null: row r
+// comes from src(r). A warp takes a row at a time: lane l loads the
+// floats t = l + 32 c (128 contiguous bytes a load across the warp) and
+// stores leaf l's float4s; a null row reads the `fallback` row and stores
+// zeros, so that every load issues unconditionally.
+template <class RowSrc>
+__device__ __forceinline__ void stage_leaf_major(float* dst, int ld, int ng,
+                                                 int d, int n_rows,
+                                                 const float* fallback,
+                                                 RowSrc src) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+#pragma unroll 4
+  for (int r = threadIdx.x >> 5; r < n_rows; r += nw) {
+    const float* row = src(r);
+    const bool on = row != nullptr;
+    const float4 v = Natural::group(on ? row : fallback, lane, 0, d);
+    float* out = dst + r * ld + lane * 4 * ng;
+    *reinterpret_cast<float4*>(out) =
+        on ? v : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 1; g < ng; ++g) {
+      const float4 w = Natural::group(on ? row : fallback, lane, g, d);
+      *reinterpret_cast<float4*>(out + 4 * g) =
+          on ? w : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// leaf l of the dot of leaf-major rows (or rows in place): the running sum
+// of the products at t = l, l + 32, ..., from the first, over 4 ng chunks
+template <class Src>
+__device__ __forceinline__ float leaf_dot(const float* a, const float* b,
+                                          int l, int ng, int prm) {
+  float4 x = Src::group(a, l, 0, prm), y = Src::group(b, l, 0, prm);
+  float leaf = __fmul_rn(x.x, y.x);
+  leaf = __fadd_rn(leaf, __fmul_rn(x.y, y.y));
+  leaf = __fadd_rn(leaf, __fmul_rn(x.z, y.z));
+  leaf = __fadd_rn(leaf, __fmul_rn(x.w, y.w));
+  for (int g = 1; g < ng; ++g) {
+    x = Src::group(a, l, g, prm);
+    y = Src::group(b, l, g, prm);
+    leaf = __fadd_rn(leaf, __fmul_rn(x.x, y.x));
+    leaf = __fadd_rn(leaf, __fmul_rn(x.y, y.y));
+    leaf = __fadd_rn(leaf, __fmul_rn(x.z, y.z));
+    leaf = __fadd_rn(leaf, __fmul_rn(x.w, y.w));
+  }
+  return leaf;
+}
+
+// Leaf P of thread t's subtree: running sum t + 4 brev3(P), folded on a
+// 3-deep stack (template recursion keeps the indices constant)
+template <class Src, int P>
+struct QuadWalk {
+  static __device__ __forceinline__ void run(const float* a, const float* b,
+                                             int t, int ng, int prm,
+                                             float (&st)[3], float& v) {
+    constexpr int u = ((P & 1) << 2) | (P & 2) | ((P & 4) >> 2);
+    constexpr int merges = (P & 1) ? ((P & 2) ? ((P & 4) ? 3 : 2) : 1) : 0;
+    float leaf = leaf_dot<Src>(a, b, t + 4 * u, ng, prm);
+#pragma unroll
+    for (int k = 0; k < merges; ++k) leaf = __fadd_rn(st[k], leaf);
+    if constexpr (merges < 3) {
+      st[merges] = leaf;
+    } else {
+      v = leaf;
+    }
+    QuadWalk<Src, P + 1>::run(a, b, t, ng, prm, st, v);
+  }
+};
+
+template <class Src>
+struct QuadWalk<Src, 8> {
+  static __device__ __forceinline__ void run(const float*, const float*, int,
+                                             int, int, float (&)[3],
+                                             float&) {}
+};
+
+// Leaf P of thread t's subtree from groups already in registers
+template <int P>
+struct QuadFold {
+  static __device__ __forceinline__ void run(const float4 (&a)[8],
+                                             const float4 (&b)[8],
+                                             float (&st)[3], float& v) {
+    constexpr int merges = (P & 1) ? ((P & 2) ? ((P & 4) ? 3 : 2) : 1) : 0;
+    float leaf = __fmul_rn(a[P].x, b[P].x);
+    leaf = __fadd_rn(leaf, __fmul_rn(a[P].y, b[P].y));
+    leaf = __fadd_rn(leaf, __fmul_rn(a[P].z, b[P].z));
+    leaf = __fadd_rn(leaf, __fmul_rn(a[P].w, b[P].w));
+#pragma unroll
+    for (int k = 0; k < merges; ++k) leaf = __fadd_rn(st[k], leaf);
+    if constexpr (merges < 3) {
+      st[merges] = leaf;
+    } else {
+      v = leaf;
+    }
+    QuadFold<P + 1>::run(a, b, st, v);
+  }
+};
+
+template <>
+struct QuadFold<8> {
+  static __device__ __forceinline__ void run(const float4 (&)[8],
+                                             const float4 (&)[8],
+                                             float (&)[3], float&) {}
+};
+
+// The pinned dot of rows a and b by the four threads of a quad (lanes
+// 4k .. 4k+3, all of the warp calling): thread t meets its running sums
+// l = t + 4u in bit-reversed order of u and folds them on a 3-deep stack
+// (the subtree of the leaves l = t mod 4); the shuffles 2, 1 are the tree's
+// top two levels. Every thread of the quad gets the dot. Up to d = 128
+// (one group a leaf) a thread loads its 16 float4s before the first add.
+template <class Src>
+__device__ __forceinline__ float quad_dot(const float* a, const float* b,
+                                          int t, int ng, int prm) {
+  float st[3];
+  float v;
+  if (ng == 1) {
+    float4 av[8], bv[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int l = t + 4 * (((p & 1) << 2) | (p & 2) | ((p & 4) >> 2));
+      av[p] = Src::group(a, l, 0, prm);
+      bv[p] = Src::group(b, l, 0, prm);
+    }
+    QuadFold<0>::run(av, bv, st, v);
+  } else {
+    QuadWalk<Src, 0>::run(a, b, t, ng, prm, st, v);
+  }
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+}
+
+// The halving tree over 2^D leaves met in bit-reversed order: leaf number
+// p (in the order met) is merged with the completed left siblings on the
+// stack, as many as p has trailing one bits, and pushed. After leaf 2^D - 1
+// the tree's sum sits at depth D. Indices are resolved by unrolled selects,
+// so the stack stays in registers.
+template <int kDepth>
+struct TreeStack {
+  float s[kDepth];
+  __device__ __forceinline__ void push(float v, int p) {
+    const int merges = __popc(p ^ (p + 1)) - 1;  // trailing ones of p
+#pragma unroll
+    for (int k = 0; k < kDepth - 1; ++k) {
+      if (k < merges) v = __fadd_rn(s[k], v);
+    }
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      if (k == merges) s[k] = v;
+    }
+  }
+  __device__ __forceinline__ float top(int depth) const {
+    float v = s[0];
+#pragma unroll
+    for (int k = 1; k < kDepth; ++k) {
+      if (k == depth) v = s[k];
+    }
+    return v;
+  }
+};
+
+__device__ __forceinline__ int bit_reverse(int p, int bits) {
+  return bits == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(p))
+                                          >> (32 - bits));
 }
 
 }  // namespace repro_kernels

@@ -41,13 +41,15 @@ SIGNATURES = {
     "lsh_hash_launch": (P, P, P, P, I, I, I, I, I, F, P),
     # vc, center, radius, valid, dist, ok, neg, rows, per_seed, d, stream
     "roi_filter_launch": (P, P, P, P, P, P, P, I, I, I, P),
-    # q, q_idx, c, c_idx, w, out, batch, m, n, d, k, stream
-    "affinity_matvec_launch": (P, P, P, P, P, P, I, I, I, I, F, P),
+    # q, q_idx, c, c_idx, w, out, batch, m, n, d, k, smem_rows, rows,
+    # classes, ubits, tc, groups, gpp, smem_bytes, stream
+    "affinity_matvec_launch": (P, P, P, P, P, P, I, I, I, I, F, I, I, I, I,
+                               I, I, I, I, P),
     # v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out, cv_out,
     # batch, cap, d, k, n_steps, max_iters, tol, refresh_every,
-    # support_eps, use_smem, smem_bytes, stream
+    # support_eps, cluster, threads, rows_per, smem_rows, smem_bytes, stream
     "lid_sweep_launch": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I,
-                         F, I, F, I, I, P),
+                         F, I, F, I, I, I, I, I, P),
     # q, sup_v, sup_w, dens, valid, scores, labels, bscore,
     # m, n_clusters, a_cap, d, path, rows, slices, smem_bytes, k,
     # threshold, stream

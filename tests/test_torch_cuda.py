@@ -100,10 +100,15 @@ def test_roi_filter_bitwise(dev, per_seed, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,n,d", [(48, 37, 16), (240, 112, 128),
-                                     (130, 130, 100)])
-def test_affinity_matvec_bitwise(dev, cap, n, d):
-    st = _states(dev, cap=cap, d=d)
+@pytest.mark.parametrize("bsz,cap,n,d", [
+    (3, 48, 37, 16), (3, 240, 112, 128), (3, 130, 130, 100),
+    (1, 240, 240, 128), (7, 240, 200, 128), (32, 240, 112, 128),
+    (3, 240, 240, 256), (2, 560, 560, 256), (2, 64, 37, 2048),
+    (2, 9, 3, 16)])
+def test_affinity_matvec_bitwise(dev, bsz, cap, n, d):
+    """Every column-class layout (n 3 to 560), the column passes (d = 256,
+    n = 560) and the route that reads rows in place (d = 2,048)."""
+    st = _states(dev, bsz=bsz, cap=cap, d=d)
     w = st.x[:, :n] + 0.1
     assert _equal(*_both(lambda b: ops.affinity_matvec(
         st.v_beta, st.beta_idx, st.v_beta[:, :n], st.beta_idx[:, :n], w, K,
@@ -111,17 +116,39 @@ def test_affinity_matvec_bitwise(dev, cap, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,d,refresh", [(48, 16, 0), (48, 16, 2),
-                                           (240, 128, 0), (240, 256, 4),
-                                           (100, 30, 3)])
-def test_lid_sweep_bitwise(dev, cap, d, refresh):
-    st = _states(dev, cap=cap, d=d, n_valid=cap - 5)
+@pytest.mark.parametrize("bsz,cap,d,refresh", [
+    (3, 48, 16, 0), (3, 48, 16, 2), (3, 240, 128, 0), (3, 240, 256, 4),
+    (3, 100, 30, 3), (1, 240, 128, 0), (7, 240, 128, 4), (32, 240, 128, 0),
+    (40, 240, 128, 0), (100, 240, 128, 0), (32, 200, 16, 4),
+    (32, 200, 256, 0), (4, 560, 256, 0), (4, 560, 128, 4),
+    (2, 2000, 256, 0)])
+def test_lid_sweep_bitwise(dev, bsz, cap, d, refresh):
+    """Every cluster size of `kernels.lid_sweep.plan` (8 at B = 1 and 7, 4
+    at 32, 2 at 40, 1 at 100), ragged caps, d 16 to 256, the in-sweep
+    refresh, and rows read in place (cap 2,000 x d 256)."""
+    st = _states(dev, bsz=bsz, cap=cap, d=d, n_valid=cap - 5)
     got, want = _both(lambda b: ops.lid_sweep(
         st.v_beta, st.beta_idx, st.beta_mask, st.x, st.ax, st.n_iters,
         st.converged, K, n_steps=8, max_iters=64, tol=1e-5,
         refresh_every=refresh, backend=b))
     assert int(want[2].min()) > 1, "the states did not iterate"
     assert _equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lid_sweep_converged_lanes_unchanged(dev):
+    """Lanes converged or at max_iters on entry come back unchanged, with
+    n_iters as it was, beside a lane that still iterates."""
+    st = _states(dev, bsz=3, cap=240, d=128)
+    cv = torch.tensor([True, False, False], device=dev)
+    it = torch.tensor([5, 64, 0], dtype=torch.int32, device=dev)
+    x, ax, it_out, cv_out = ops.lid_sweep(
+        st.v_beta, st.beta_idx, st.beta_mask, st.x, st.ax, it, cv, K,
+        n_steps=8, max_iters=64, tol=1e-5, backend="kernel")
+    assert torch.equal(x[:2], st.x[:2]) and torch.equal(ax[:2], st.ax[:2])
+    assert it_out.tolist()[:2] == [5, 64] and cv_out.tolist()[:2] == [
+        True, False]
+    assert int(it_out[2]) > 1
 
 
 def _assign_inputs(dev, m, n_clusters, a_cap, d, seed=0):
@@ -295,11 +322,12 @@ def test_affinity_matrix_symmetric(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,d", [(48, 16), (240, 128), (560, 256)])
-def test_lid_solve_unfused_equals_fused(dev, cap, d):
+@pytest.mark.parametrize("bsz,cap,d", [(4, 48, 16), (4, 240, 128),
+                                       (4, 560, 256), (32, 240, 128)])
+def test_lid_solve_unfused_equals_fused(dev, bsz, cap, d):
     """lid_solve_unfused (its columns from the affinity kernel) equals
     lid_solve (the lid_sweep kernel) bit for bit."""
-    st = _states(dev, bsz=4, cap=cap, d=d, n_valid=cap - 3)
+    st = _states(dev, bsz=bsz, cap=cap, d=d, n_valid=cap - 3)
     fused = lid_solve(st, K, max_iters=200)
     unfused = lid_solve_unfused(st, K, max_iters=200)
     assert int(unfused.n_iters.max()) > 2
