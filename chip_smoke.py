@@ -9,7 +9,10 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    name and power limit (nvidia-smi);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path (lsh_hash at 1,000,000 x 128 and at the CIVS
-   probe's 3,584 x 128; roi_filter, affinity_matvec and lid_sweep over 32
+   probe's 3,584 x 128, each with its plan's route, NaN pads on both
+   routes and the probe's keys equal to the store build's, beside the
+   device time of an empty kernel as the floor of one launch;
+   roi_filter, affinity_matvec and lid_sweep over 32
    seeds), each with its error, its device time (25 calls replayed from a
    CUDA graph) and per-call time (CUDA events, median of 25 after
    warm-up), the plain version's device time from a CUDA graph (per call
@@ -45,16 +48,22 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    `assign` launches must be > 0 (printed by kernel);
 6. the full-matrix path (estimate_k, affinity_matrix through the affinity
    kernel, IID / DS peeling, the paper's baselines): (a) the affinity
-   kernel bit-equal to its plain version on rows of the full-width
-   40,000 x 40,000 x 128 block (symmetric bitwise), on LID columns, ragged
-   shapes, NaN rows and a call past 2**31 entries, with its device time,
-   per-call time, plain time, bound and the cuBLAS composition's time;
+   kernel's two routes bit-equal to its plain version: the symmetric
+   route (q and c one tensor) on rows of the full-width 40,000 x 40,000 x
+   128 block (symmetric bitwise), the general route (the same rows as a
+   second tensor) on the whole block against it, LID columns, ragged
+   shapes, a batch, NaN rows and calls past 2**31 entries on both, each
+   case's route printed; both routes' device times, per-call time, plain
+   time, each route's bound (the symmetric call needs the pairs i <= j,
+   the general one all n^2) and the cuBLAS composition's time, which both
+   must beat;
    (b) `lid_solve_unfused` (affinity kernel) bit-equal to `lid_solve`
    (lid_sweep kernel); (c) IID and DS peels at n = 4,000 equal on the
    kernel's and the plain version's matrices, and one IID solve from CUDA
    graphs equal to the eager loop, with the time of each; (d) the
    full-width IID run, `launch/full_matrix.py` at 40,000 x 128, whose
-   `affinity` launches must be > 0; (e) every baseline on the CPU tests'
+   `affinity` launches (symmetric route) must be > 0; (e) every baseline
+   on the CPU tests'
    `easy` data, each above its AVG-F floor, and SEA run twice with the
    same bits;
 7. LM serving (h2o-danube-1.8b at full width, bf16, random weights from
@@ -296,9 +305,11 @@ def k_for(d: int) -> float:
 
 
 def check_lsh_hash(dev, out, data):
-    """On the full-width fit's own points, projections and seg_len."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.lsh_hash import key_flips, lsh_hash_cuda
+    """On the full-width fit's own points, projections and seg_len: the
+    store build's 1,000,000 points (stream route) and the CIVS probe's
+    3,584 (probe route)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.lsh_hash import key_flips, lsh_hash_cuda, plan
     from repro_torch.lsh.pstable import make_projections
     from repro_torch.random import PRNGKey, split
     points, lshp = data
@@ -311,42 +322,57 @@ def check_lsh_hash(dev, out, data):
     torch.cuda.synchronize()
     n_flip, near = key_flips(x, proj, bias, seg, got, want)
     agree = 1.0 - n_flip / float(n * n_tables)
-    print(f"[kernel] lsh_hash n={n} d={d} L={n_tables} m={n_proj}: "
-          f"flips={n_flip} agree={agree:.7f} flips_near_integer={near}")
+    print(f"[kernel] lsh_hash n={n} d={d} L={n_tables} m={n_proj} "
+          f"plan={tuple(plan(n, d, n_tables, n_proj))}: flips={n_flip} "
+          f"agree={agree:.7f} flips_near_integer={near}")
     need(agree >= 0.99999, "lsh_hash agrees on < 99.999% of pairs")
     need(near, "lsh_hash flipped a key whose z/seg_len is not within 1e-4 "
          "of an integer")
-    # ragged tail + NaN rows: valid rows unchanged
-    clean = torch.cat([x[:1000], torch.zeros((7, d), device=dev)])
-    dirty = clean.clone()
-    dirty[1000:] = float("nan")
-    need(torch.equal(lsh_hash_cuda(clean, proj, bias, seg)[:1000],
-                     lsh_hash_cuda(dirty, proj, bias, seg)[:1000]),
-         "lsh_hash: NaN pad rows changed valid keys")
+    # ragged tail + NaN rows, on both routes: valid rows unchanged
+    for rows in (1000, 20_000):
+        clean = torch.cat([x[:rows], torch.zeros((7, d), device=dev)])
+        dirty = clean.clone()
+        dirty[rows:] = float("nan")
+        need(torch.equal(lsh_hash_cuda(clean, proj, bias, seg)[:rows],
+                         lsh_hash_cuda(dirty, proj, bias, seg)[:rows]),
+             f"lsh_hash: NaN pad rows changed valid keys ({rows} rows, "
+             f"{plan(rows + 7, d, n_tables, n_proj).route} route)")
+    # both routes sum in one order: a point's keys do not depend on it
+    rows = PROBE_ROWS
+    xp = x[:rows].contiguous()
+    pl = plan(rows, d, n_tables, n_proj)
+    need(torch.equal(lsh_hash_cuda(xp, proj, bias, seg), got[:rows]),
+         "lsh_hash: the probe and stream routes give other keys")
+    print(f"[kernel] lsh_hash NaN pad rows change no valid key on either "
+          f"route; the probe's {rows} rows (plan={tuple(pl)}) get the "
+          "store build's keys bitwise")
     t = timings(lambda: lsh_hash_cuda(x, proj, bias, seg),
                 lambda: ref.lsh_hash_ref(x, proj, bias, seg))
     lm = n_tables * n_proj
     b_ms, b_by = bound(4 * (n * d + lm * d + lm + n * n_tables),
                        2 * n * lm * d)
     out["lsh_hash"] = dict(t, max_abs_err=n_flip / float(n * n_tables),
-                           bound_ms=b_ms, bound_by=b_by)
+                           bound_ms=b_ms, bound_by=b_by,
+                           plan=plan(n, d, n_tables, n_proj).route)
     print(f"[kernel] lsh_hash {time_line(t)} bound_ms={b_ms:.4f} ({b_by}) "
           "library_ms=null (no single PyTorch call computes projection + "
           "floor + fold); max_abs_err is the fraction of flipped keys")
     # the CIVS probe: 32 seeds x a_cap 112 support rows a call (436 of the
-    # fit's 437 launches; the store build above is the other)
-    rows = PROBE_ROWS
-    xp = x[:rows].contiguous()
+    # fit's 437 launches; the store build above is the other), against the
+    # floor of one launch: an empty kernel's device time
     tp = timings(lambda: lsh_hash_cuda(xp, proj, bias, seg),
                  lambda: ref.lsh_hash_ref(xp, proj, bias, seg))
+    floor_ms = graph_ms(lambda: _build.empty_kernel(dev))
     pb_ms, pb_by = bound(4 * (rows * d + lm * d + lm + rows * n_tables),
                          2 * rows * lm * d)
     out["lsh_hash"]["probe"] = dict(rows=rows, ms=tp["ms"],
                                     call_ms=tp["call_ms"],
                                     plain_ms=tp["plain_ms"], bound_ms=pb_ms,
-                                    bound_by=pb_by)
+                                    bound_by=pb_by, plan=pl.route,
+                                    launch_floor_ms=floor_ms)
     print(f"[kernel] lsh_hash probe n={rows}: {time_line(tp)} "
-          f"bound_ms={pb_ms:.5f} ({pb_by})")
+          f"bound_ms={pb_ms:.5f} ({pb_by}) launch_floor_ms={floor_ms:.5f} "
+          "(an empty kernel, device time, CUDA graph)")
 
 
 def check_roi_filter(dev, out):
@@ -886,6 +912,7 @@ PEEL_DATA = dict(n_clusters=20, cluster_size=80, n_noise=2_400, d=128,
                  seed=0)
 SLAB = 256        # rows of the full-width block checked against the plain
 BIG = (65_537, 32_800, 16)   # a block of more than 2**31 entries
+BIG_SYM = 46_400              # a symmetric one: 46,400^2 > 2**31
 
 
 def affinity_library(v, k: float):
@@ -905,13 +932,16 @@ def nan_equal(a, b) -> bool:
 
 
 def check_affinity(dev, out):
-    """6a: the affinity kernel against its plain version, bitwise."""
+    """6a: the affinity kernel's two routes against its plain version,
+    bitwise: symmetric (q and c one tensor, affinity_matrix's call) and
+    general (everything else)."""
     from repro_torch.core.affinity import estimate_k
     from repro_torch.data import make_blobs_with_noise
     from repro_torch.kernels import ref
-    from repro_torch.kernels.affinity import affinity_cuda, smem_plan
+    from repro_torch.kernels.affinity import affinity_cuda, plan
     spec = make_blobs_with_noise(**FULL_MATRIX)
     v = torch.as_tensor(spec.points, device=dev)
+    w = v.clone()    # the same rows as another tensor: the general route
     n, d = v.shape
     k = estimate_k(v)
     a = affinity_cuda(v, v, k)
@@ -924,10 +954,17 @@ def check_affinity(dev, out):
              f"affinity: rows [{lo}, {lo + SLAB}) of the {n} x {n} block "
              "differ from the plain version")
     sym = torch.equal(a, a.T)
-    print(f"[affinity] {n}x{n}x{d} k={k:.6g} smem_plan={smem_plan(d)}: rows "
-          f"[0, {SLAB}) and [{n - SLAB}, {n}) bitwise_equal=True, "
-          f"symmetric={sym}")
+    print(f"[affinity] {n}x{n}x{d} k={k:.6g} route=symmetric "
+          f"plan={tuple(plan(n, n, d, True))}: rows [0, {SLAB}) and "
+          f"[{n - SLAB}, {n}) bitwise_equal=True, symmetric={sym}")
     need(sym, "affinity: the full-width block is not bitwise symmetric")
+    same = torch.equal(affinity_cuda(v, w, k), a)
+    print(f"[affinity] {n}x{n}x{d} route=general "
+          f"plan={tuple(plan(n, n, d, False))}: the whole block bitwise "
+          f"equal to the symmetric route's {same}")
+    need(same, "affinity: the general route's block differs")
+    del a
+    torch.cuda.empty_cache()
     cases = []
     for cap, dd in ((240, 128), (560, 256)):         # a LID column
         st = live_states(1, cap, dd, dev, seed=cap)
@@ -938,9 +975,13 @@ def check_affinity(dev, out):
         cases.append((f"ragged ({m_}, {n_}, {d_})",
                       torch.randn((m_, d_), generator=g).to(dev),
                       torch.randn((n_, d_), generator=g).to(dev), 0.37))
+    sq = torch.randn((3, 257, 100), generator=g).to(dev)
+    cases.append(("batched (3, 257, 257, 100), q is c", sq, sq, 0.37))
     for name, q, c, kk in cases:
         same = torch.equal(affinity_cuda(q, c, kk), ref.affinity_ref(q, c, kk))
-        print(f"[affinity] {name}: bitwise_equal={same}")
+        route = plan(q.shape[-2], c.shape[-2], q.shape[-1],
+                     q is c).route
+        print(f"[affinity] {name} route={route}: bitwise_equal={same}")
         need(same, f"affinity: {name} differs from the plain version")
     q = torch.randn((70, 40), generator=g).to(dev)
     c = torch.randn((90, 40), generator=g).to(dev)
@@ -949,41 +990,65 @@ def check_affinity(dev, out):
     got, want = affinity_cuda(q, c, 0.5), ref.affinity_ref(q, c, 0.5)
     need(nan_equal(got, want) and bool(torch.isnan(got[3]).all()),
          "affinity: NaN rows come out other than in the plain version")
-    print("[affinity] NaN-poisoned rows: NaN where the plain version puts "
-          "it, other entries bitwise_equal=True")
+    c[3, 7] = float("nan")
+    got, want = affinity_cuda(c, c, 0.5), ref.affinity_ref(c, c, 0.5)
+    need(nan_equal(got, want) and bool(torch.isnan(got[:, 11]).all()),
+         "affinity: NaN rows come out other than in the plain version "
+         "(symmetric route)")
+    print("[affinity] NaN-poisoned rows, route=general and route=symmetric: "
+          "NaN where the plain version puts it, other entries "
+          "bitwise_equal=True")
     m_, n_, d_ = BIG
     qb = torch.randn((m_, d_), generator=g).to(dev)
     cb = torch.randn((n_, d_), generator=g).to(dev)
-    big = affinity_cuda(qb, cb, 0.37)
-    tail = torch.equal(big[-64:], ref.affinity_ref(qb[-64:], cb, 0.37))
-    head = torch.equal(big[:64], ref.affinity_ref(qb[:64], cb, 0.37))
-    print(f"[affinity] {m_}x{n_}x{d_} = {big.numel()} entries (2**31 = "
-          f"{2 ** 31}): last 64 rows bitwise_equal={tail}, first 64 rows "
-          f"bitwise_equal={head}")
-    need(big.numel() > 2 ** 31 and tail and head,
-         "affinity: the block past 2**31 entries differs")
-    del big, qb, cb, a
+    for name, q, c in ((f"{m_}x{n_}x{d_} route=general", qb, cb),
+                       (f"{BIG_SYM}x{BIG_SYM}x{d_} route=symmetric",
+                        qb[:BIG_SYM], qb[:BIG_SYM])):
+        big = affinity_cuda(q, c, 0.37)
+        tail = torch.equal(big[-64:], ref.affinity_ref(q[-64:], c, 0.37))
+        head = torch.equal(big[:64], ref.affinity_ref(q[:64], c, 0.37))
+        print(f"[affinity] {name} = {big.numel()} entries (2**31 = "
+              f"{2 ** 31}): last 64 rows bitwise_equal={tail}, first 64 "
+              f"rows bitwise_equal={head}")
+        need(big.numel() > 2 ** 31 and tail and head,
+             f"affinity: the block past 2**31 entries differs ({name})")
+        del big
+        torch.cuda.empty_cache()
+    del qb, cb
     torch.cuda.empty_cache()
     t = dict(ms=graph_ms(lambda: affinity_cuda(v, v, k), runs=3, replays=3),
              call_ms=call_ms(lambda: affinity_cuda(v, v, k), runs=5),
              plain_ms=graph_ms(lambda: ref.affinity_ref(v, v, k), runs=1,
                                replays=1),
              plain_in_graph=True)
+    general_ms = graph_ms(lambda: affinity_cuda(v, w, k), runs=3, replays=3)
     lib_ms = graph_ms(lambda: affinity_library(v, k), runs=3, replays=3)
     lib = affinity_library(v, k)
     lib_err = float((lib[:SLAB] - affinity_cuda(v[:SLAB], v, k)).abs().max())
     del lib
     torch.cuda.empty_cache()
     # each input read once and the result written once; the dots, the
-    # norms, and per entry add, double, subtract, scale, sqrt and exp
-    b_ms, b_by = bound(4 * (2 * n * d + n * n),
-                       2 * n * n * d + 4 * n * d + 6 * n * n)
+    # norms, and per pair add, double, subtract, scale, sqrt and exp. The
+    # symmetric call (one tensor) needs the pairs i <= j, n (n + 1) / 2;
+    # the general call (two tensors) all n^2
+    pairs = n * (n + 1) // 2
+    b_ms, b_by = bound(4 * (n * d + n * n), 2 * pairs * d + 2 * n * d
+                       + 6 * pairs)
+    gb_ms, gb_by = bound(4 * (2 * n * d + n * n),
+                         2 * n * n * d + 4 * n * d + 6 * n * n)
     out["affinity"] = dict(t, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=lib_ms)
-    print(f"[affinity] {n}x{n}x{d}: {time_line(t)} bound_ms={b_ms:.4f} "
-          f"({b_by}) library_ms={lib_ms:.4f} (cuBLAS q c^T + norms, clamp, "
-          f"sqrt, exp; device time, CUDA graph; a yardstick the port never "
-          f"calls; max_abs_err against the kernel {lib_err:.3e})")
+                           library_ms=lib_ms, general_ms=general_ms,
+                           general_bound_ms=gb_ms, general_bound_by=gb_by)
+    print(f"[affinity] {n}x{n}x{d}: {time_line(t)} (route=symmetric) "
+          f"bound_ms={b_ms:.4f} ({b_by}, the pairs i <= j) "
+          f"general_ms={general_ms:.4f} (route=general, device time, CUDA "
+          f"graph) general_bound_ms={gb_ms:.4f} ({gb_by}, all n^2 pairs) "
+          f"library_ms={lib_ms:.4f} "
+          f"(cuBLAS q c^T + norms, clamp, sqrt, exp; device time, CUDA "
+          f"graph; a yardstick the port never calls; max_abs_err against "
+          f"the kernel {lib_err:.3e})")
+    need(t["ms"] < lib_ms and general_ms < lib_ms,
+         "affinity: a route is not faster than the cuBLAS composition")
     return k
 
 
@@ -1076,17 +1141,19 @@ def full_matrix_run(dev):
                             *full_matrix_args()])
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = ops.path_counts()["affinity"]
     print(f"[full-matrix] n={res['n']} d={res['d']} (not cut): wall="
           f"{wall:.2f}s affinity_matrix_s={res['matrix_s']:.4f} "
           f"iid_peel_s={res['peel_s']:.2f} rounds={res['rounds']} "
           f"clusters={res['clusters']} AVG-F={res['avg_f']:.4f} (reported, "
           f"not gated) max_memory_allocated={res['peak_bytes']} "
-          f"launches={counts}")
+          f"launches={counts} affinity routes={routes}")
     peel = res["result"]
     need(peel.labels.shape == (res["n"],) and res["rounds"] > 0
          and np.isfinite(peel.densities).all(), "full-matrix output")
-    need(counts["affinity"] > 0, "the full-matrix path never launched "
-         "the affinity kernel")
+    need(counts["affinity"] > 0 and routes["symmetric"] > 0,
+         "the full-matrix path never launched the affinity kernel's "
+         "symmetric route")
     return counts
 
 
@@ -2109,7 +2176,9 @@ def main() -> int:
                                        "shapes", "unsorted_ms", "bf16_ms",
                                        "rows4", "composition_ms", "plan",
                                        "probe", "one_step_ms",
-                                       "converged_ms")
+                                       "converged_ms", "general_ms",
+                                       "general_bound_ms",
+                                       "general_bound_by")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

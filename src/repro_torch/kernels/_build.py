@@ -37,8 +37,9 @@ L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (all return the int cudaError_t)
 SIGNATURES = {
-    # x, proj, bias, out, n, d, n_tables, n_proj, pts_per_block, seg, stream
-    "lsh_hash_launch": (P, P, P, P, I, I, I, I, I, F, P),
+    # x, proj, bias, out, n, d, n_tables, n_proj, points a thread,
+    # points a block, threads, smem_bytes, seg, stream
+    "lsh_hash_launch": (P, P, P, P, I, I, I, I, I, I, I, I, F, P),
     # vc, center, radius, valid, dist, ok, neg, rows, per_seed, d, stream
     "roi_filter_launch": (P, P, P, P, P, P, P, I, I, I, P),
     # q, q_idx, c, c_idx, w, out, batch, m, n, d, k, smem_rows, rows,
@@ -55,8 +56,10 @@ SIGNATURES = {
     # threshold, stream
     "assign_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F,
                       P),
-    # q, c, out, batch, m, n, d, tq, smem_bytes, k, stream
-    "affinity_launch": (P, P, P, I, I, I, I, I, I, F, P),
+    # q, c, out, qp, q2, cp, c2, batch, m, n, d, ng, tile, stages,
+    # symmetric, smem_bytes, k, stream
+    "affinity_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
+                        P),
     # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q, k and v
     # strides (b, h, s), q_offset, causal, window, chunk, softcap, scale,
     # is_bf16, path (tiles, split, small, wgmma), hb, ppt, bc, smem_bytes,
@@ -69,6 +72,8 @@ SIGNATURES = {
     # table, v_rows, idx, bag_ids, idx64, scratch, out, n, n_bags, dim,
     # is_bf16, vec, group, mean, stream
     "embedding_bag_launch": (P, L, P, P, I, P, P, L, I, I, I, I, I, I, P),
+    # stream (a kernel that does nothing: the floor of one launch)
+    "empty_launch": (P,),
 }
 
 
@@ -138,6 +143,12 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+
+
+def empty_kernel(device) -> None:
+    """Launch a kernel that does nothing on `device`'s current stream: its
+    device time is the floor of one launch."""
+    check("empty", library().empty_launch(stream_ptr(device)))
 
 
 def stream_ptr(device) -> int:

@@ -57,7 +57,8 @@ def launch_counts() -> dict[str, int]:
 
 def path_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel behind a wrapper that picks one of several
-    by a plan (`flash_attention`, `assign`), by the plan's name."""
+    by a plan (`flash_attention`, `assign`, `affinity`, `lsh_hash`), by
+    the plan's name."""
     return {name: dict(fn.by_path) for name, fn in KERNELS.items()
             if hasattr(fn, "by_path")}
 

@@ -14,12 +14,23 @@ steps: the sweep's staging, |v|^2 and its exchange, then per step pi,
 the argmax, the scalar chain, the x update, the column (and the part of
 it up to the first dot, v_i's loads included) and the cluster barrier;
 the matvec's q rows and norms, the columns' staging, their norms and the
-register-tile products. Needs a CUDA device and nvcc.
+register-tile products.
+
+Then where the time of `affinity` and `lsh_hash` goes, by ablation: each
+source is built again with -DDROP_PHASE=n (the phase switches its head
+comment lists) and every copy is timed as the kernel is, at the main path's
+shapes: `affinity` at 40,000^2 x 128 on both routes, `lsh_hash` at the
+store build's 1,000,000 x 128 points (stream route) and the CIVS probe's
+3,584 (probe route), L = 4 tables of m = 8. A phase's cost is the copy's
+time less the whole kernel's (drop 0); the copies' results are wrong and
+only timed. Prints one JSON line of those times. Needs a CUDA device and
+nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -34,6 +45,9 @@ PROF = ('\n__device__ unsigned long long g_prof[16];\n'
 SWEEP_PHASES = ("stage", "v2", "pi", "argmax", "scalars", "x", "column",
                 "barrier")
 MATVEC_PHASES = ("q_rows_and_norms", "c_stage", "c_norms", "products")
+# the phases -DDROP_PHASE=1, 2, ... take out of each source (0 drops none)
+DROPS = {"affinity": ("none", "stores", "epilogue", "half_leaves"),
+         "lsh_hash": ("none", "fma", "point_copies", "division", "fold")}
 
 # (anchor, text put before it) pairs; each anchor must occur in the source
 SWEEP_MARKS = [
@@ -109,12 +123,19 @@ def main() -> int:
     srcs["lid_sweep_prof"] = instrument(srcs["lid_sweep"], SWEEP_MARKS)
     srcs["affinity_matvec_prof"] = instrument(srcs["affinity_matvec"],
                                               MATVEC_MARKS)
-    procs = {}
+    jobs = {}   # library -> (source, extra flags, kernel)
     for name, text in srcs.items():
         (tmp / f"{name}.cu").write_text(text)
+        jobs[name] = (tmp / f"{name}.cu", [], name.replace("_prof", ""))
+    for kernel, phases in DROPS.items():
+        for i, phase in enumerate(phases):
+            jobs[f"{kernel}_drop_{phase}"] = (SRC / f"{kernel}.cu",
+                                              [f"-DDROP_PHASE={i}"], kernel)
+    procs = {}
+    for name, (src, flags, _) in jobs.items():   # all nvcc at once
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(SRC),
-             str(tmp / f"{name}.cu"), "-o", str(tmp / f"{name}.so")],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-I",
+             str(SRC), str(src), "-o", str(tmp / f"{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -122,7 +143,7 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{out[-3000:]}")
         lib = ctypes.CDLL(str(tmp / f"{name}.so"))
-        key = name.replace("_prof", "") + "_launch"
+        key = jobs[name][2] + "_launch"
         getattr(lib, key).argtypes = list(_build.SIGNATURES[key])
         getattr(lib, key).restype = ctypes.c_int
         libs[name] = lib
@@ -204,7 +225,69 @@ def main() -> int:
                         MATVEC_PHASES)
         print(f"[phases] affinity_matvec 32 x 240 x {n} x 128: {ms:.4f} ms; "
               f"cycles of block 0: {got}")
+    del st, w
+    print(json.dumps(dict(ablation(libs, dev, stream), card=card)))
     return 0
+
+
+def ablation(libs, dev, stream) -> dict:
+    """Device time (ms) of every DROP_PHASE copy of `lsh_hash` and
+    `affinity` at the main path's shapes, keyed kernel_drop_phase_route."""
+    import torch
+    from repro_torch.kernels.affinity import plan as affinity_plan
+    from repro_torch.kernels.lsh_hash import PER_THREAD
+    from repro_torch.kernels.lsh_hash import plan as lsh_plan
+    from repro_torch.launch.time_fit_kernels import graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    x = torch.randn((1_000_000, 128), generator=gen, device=dev) * 4
+    proj = torch.randn((4, 8, 128), generator=gen, device=dev)
+    bias = torch.rand((4, 8), generator=gen, device=dev) * 4.0
+    keys = torch.empty((1_000_000, 4), dtype=torch.int32, device=dev)
+    for n in (1_000_000, 3_584):
+        pl = lsh_plan(n, 128, 4, 8)
+        for phase in DROPS["lsh_hash"]:
+            name = f"lsh_hash_drop_{phase}"
+
+            def go(lib=libs[name], n=n, pl=pl, name=name):
+                err = lib.lsh_hash_launch(
+                    x.data_ptr(), proj.data_ptr(), bias.data_ptr(),
+                    keys.data_ptr(), n, 128, 4, 8,
+                    PER_THREAD[pl.route], pl.pts, pl.threads, pl.smem, 4.0,
+                    stream())
+                if err:
+                    raise SystemExit(f"{name} failed to launch: {err}")
+            out[f"{name}_{pl.route}_ms"] = graph_ms(go)
+    del x, keys
+    torch.cuda.empty_cache()
+
+    n, d = 40_000, 128
+    rows = torch.randn((n, d), generator=gen, device=dev) * 3
+    copy = rows.clone()
+    res = torch.empty((n, n), device=dev)
+    for route, c in (("symmetric", rows), ("general", copy)):
+        pl = affinity_plan(n, n, d, route == "symmetric")
+        pad = -(-n // pl.tile) * pl.tile
+        qp = torch.empty((pad, pl.ld), device=dev)
+        q2 = torch.empty(pad, device=dev)
+        cp, c2 = ((qp, q2) if route == "symmetric" else
+                  (torch.empty((pad, pl.ld), device=dev),
+                   torch.empty(pad, device=dev)))
+        for phase in DROPS["affinity"]:
+            name = f"affinity_drop_{phase}"
+
+            def go(lib=libs[name], c=c, pl=pl, qp=qp, q2=q2, cp=cp, c2=c2,
+                   name=name):
+                err = lib.affinity_launch(
+                    rows.data_ptr(), c.data_ptr(), res.data_ptr(),
+                    qp.data_ptr(), q2.data_ptr(), cp.data_ptr(),
+                    c2.data_ptr(), 1, n, n, d, pl.ng, pl.tile, pl.stages,
+                    int(pl.route == "symmetric"), pl.smem, 0.05, stream())
+                if err:
+                    raise SystemExit(f"{name} failed to launch: {err}")
+            out[f"{name}_{route}_ms"] = graph_ms(go, 3, 3)
+    return out
 
 
 if __name__ == "__main__":

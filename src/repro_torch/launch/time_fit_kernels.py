@@ -1,5 +1,6 @@
-"""Device time of the fit's two LID kernels at the full-width fit's shapes,
-for comparing two trees of the port on one card.
+"""Device time of the fit's kernels at the full-width fit's shapes, and of
+the full matrix's affinity kernel on both routes, for comparing two trees
+of the port on one card.
 
     python src/repro_torch/launch/time_fit_kernels.py [--src DIR] [--runs 25]
 
@@ -10,8 +11,12 @@ takes them: 25 calls captured in a CUDA graph, the median of 5 replays,
 per call. Shapes: `lid_sweep` over 32 seeds x (240, 128) for 8 steps and
 for 1 (its fixed cost), and on lanes converged on entry; `affinity_matvec`
 at 32 x 240 x 240 x 128 (the ROI's pi(x)) and 32 x 240 x 112 x 128 (the
-CIVS support rebuild). Prints one JSON line with the card's name and power
-limit. Needs a CUDA device.
+CIVS support rebuild); `lsh_hash` at the store build's 1,000,000 x 128
+points and the CIVS probe's 3,584 (L = 4 tables of m = 8); `affinity` on
+the full-matrix path's 40,000 x 128 rows against themselves (symmetric
+route: q and c one tensor, as `affinity_matrix` calls it) and against a
+copy (general route), 3 calls a graph, 3 replays. Prints one JSON line
+with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -83,8 +88,10 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_fit_kernels needs a CUDA device")
+    from repro_torch.kernels.affinity import affinity_cuda
     from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
     from repro_torch.kernels.lid_sweep import lid_sweep_cuda
+    from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 
     bsz, cap, a_cap = 32, 240, 112
     st, k = fit_state(bsz, cap)
@@ -110,11 +117,27 @@ def main(argv=None) -> int:
         "lid_sweep_converged_ms": graph_ms(sweep(8, done), args.runs),
         "affinity_matvec_240_ms": graph_ms(matvec(cap), args.runs),
         "affinity_matvec_112_ms": graph_ms(matvec(a_cap), args.runs),
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0],
     }
+    gen = torch.Generator(device=v.device).manual_seed(5)
+    x = torch.randn((1_000_000, 128), generator=gen, device=v.device) * 4
+    proj = torch.randn((4, 8, 128), generator=gen, device=v.device)
+    bias = torch.rand((4, 8), generator=gen, device=v.device) * 4.0
+    probe = x[:bsz * a_cap].contiguous()
+    out["lsh_hash_1m_ms"] = graph_ms(
+        lambda: lsh_hash_cuda(x, proj, bias, 4.0), args.runs)
+    out["lsh_hash_probe_ms"] = graph_ms(
+        lambda: lsh_hash_cuda(probe, proj, bias, 4.0), args.runs)
+    del x, probe
+    rows = torch.randn((40_000, 128), generator=gen, device=v.device) * 3
+    copy = rows.clone()
+    out["affinity_symmetric_ms"] = graph_ms(
+        lambda: affinity_cuda(rows, rows, 0.05), 3, 3)
+    out["affinity_general_ms"] = graph_ms(
+        lambda: affinity_cuda(rows, copy, 0.05), 3, 3)
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
     print(json.dumps(out))
     return 0
 

@@ -69,8 +69,13 @@ def _equal(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(777, 24), (5000, 128), (3, 100)])
+@pytest.mark.parametrize("n,d", [(777, 24), (5000, 128), (3, 100), (0, 128),
+                                 (1, 24), (7, 100), (3584, 128),
+                                 (100_003, 128), (100_003, 24)])
 def test_lsh_hash_matches_plain(dev, n, d):
+    """Both routes (probe up to 16,384 points, stream past it) within the
+    key-flip rule; NaN pad rows after the points change none of their
+    keys."""
     rng = np.random.default_rng(n)
     x = torch.tensor(rng.normal(size=(n, d)).astype(np.float32) * 4,
                      device=dev)
@@ -79,8 +84,32 @@ def test_lsh_hash_matches_plain(dev, n, d):
     bias = torch.tensor(rng.uniform(0, 2, (3, 5)).astype(np.float32),
                         device=dev)
     got, want = _both(lambda b: ops.lsh_hash(x, proj, bias, 2.0, backend=b))
+    assert got.shape == (n, 3)
     n_flip, near = key_flips(x, proj, bias, 2.0, got, want)
     assert near and n_flip <= 1e-4 * got.numel(), n_flip
+    pads = torch.full((5, d), float("nan"), device=dev)
+    padded = ops.lsh_hash(torch.cat([x, pads]), proj, bias, 2.0)
+    assert torch.equal(padded[:n], got)
+
+
+@pytest.mark.cuda
+def test_lsh_hash_routes_agree(dev):
+    """The probe route (the CIVS probes) and the stream route (the store
+    build) sum in one order: a point gets the same keys from both."""
+    from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.normal(size=(20_000, 128)).astype(np.float32) * 4,
+                     device=dev)
+    proj = torch.tensor(rng.normal(size=(4, 8, 128)).astype(np.float32),
+                        device=dev)
+    bias = torch.tensor(rng.uniform(0, 2, (4, 8)).astype(np.float32),
+                        device=dev)
+    before = dict(lsh_hash_cuda.by_path)
+    full = lsh_hash_cuda(x, proj, bias, 2.0)
+    probe = lsh_hash_cuda(x[:3584].contiguous(), proj, bias, 2.0)
+    assert torch.equal(probe, full[:3584])
+    assert lsh_hash_cuda.by_path["stream"] == before["stream"] + 1
+    assert lsh_hash_cuda.by_path["probe"] == before["probe"] + 1
 
 
 @pytest.mark.cuda
@@ -276,8 +305,10 @@ def _equal_nan(a, b):
     ((), 1, 300, 7), ((), 130, 257, 100),     # the JAX test's ragged shapes
     ((), 64, 2000, 128),                      # full tiles, several panels
     ((), 240, 1, 128), ((), 560, 1, 256),     # a LID column
-    ((), 5, 33, 700),                         # d too wide: 16-row tiles
-    ((3,), 48, 1, 16)])                       # a batch of columns
+    ((), 5, 33, 700),                         # d wide: 32-row tiles
+    ((), 7, 9, 1792),                         # the widest: 16-row tiles
+    ((3,), 48, 1, 16),                        # a batch of columns
+    ((3,), 65, 257, 128), ((), 1000, 63, 256), ((), 1, 1, 7)])
 def test_affinity_bitwise(dev, lead, m, n, d):
     rng = np.random.default_rng(m * n + d)
     q = torch.tensor(rng.normal(size=(*lead, m, d)).astype(np.float32),
@@ -290,9 +321,11 @@ def test_affinity_bitwise(dev, lead, m, n, d):
 
 
 @pytest.mark.cuda
-def test_affinity_nan_rows(dev):
+@pytest.mark.parametrize("route", ["general", "symmetric"])
+def test_affinity_nan_rows(dev, route):
     """NaN in a row of q or c comes out where the plain version puts it:
     the clamp at 0 lets NaN through (torch.clamp_min), as fmaxf would not.
+    On the symmetric route (q is c) a NaN row poisons its row and column.
     """
     rng = np.random.default_rng(5)
     q = torch.tensor(rng.normal(size=(70, 40)).astype(np.float32),
@@ -301,24 +334,42 @@ def test_affinity_nan_rows(dev):
                      device=dev)
     q[3, 7] = float("nan")
     c[11] = float("nan")
+    if route == "symmetric":
+        c[70, 3] = float("nan")
+        q = c
+    before = ops.path_counts()["affinity"][route]
     got, want = _both(lambda b: ops.affinity(q, c, 0.5, backend=b))
-    assert bool(torch.isnan(got[3]).all()) and bool(
-        torch.isnan(got[:, 11]).all())
+    assert ops.path_counts()["affinity"][route] == before + 1
+    assert bool(torch.isnan(got[3 if route == "general" else 70]).all())
+    assert bool(torch.isnan(got[:, 11]).all())
     assert _equal_nan(got, want)
 
 
 @pytest.mark.cuda
-def test_affinity_matrix_symmetric(dev):
-    """affinity_matrix is bitwise symmetric with a zero diagonal, through
-    the kernel and through the plain version, and the two are equal."""
-    rng = np.random.default_rng(6)
-    v = torch.tensor(rng.normal(size=(333, 24)).astype(np.float32) * 3,
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 257, 333, 1000])
+@pytest.mark.parametrize("d", [7, 24, 128, 256])
+def test_affinity_matrix_symmetric(dev, lead, n, d):
+    """affinity_matrix (the symmetric route: q and c one tensor) is bitwise
+    symmetric with a zero diagonal, through the kernel and through the
+    plain version, and the two are equal; the same rows passed as two
+    tensors (the general route) give the same bits."""
+    rng = np.random.default_rng(n * 10 + d + len(lead))
+    v = torch.tensor(rng.normal(size=(*lead, n, d)).astype(np.float32) * 3,
                      device=dev)
-    got, want = _both(lambda b: affinity_matrix(v, 0.2, backend=b))
+    k = 0.2 * 24 / d
+    before = ops.path_counts()["affinity"]
+    got, want = _both(lambda b: affinity_matrix(v, k, backend=b))
     for a in (got, want):
-        assert torch.equal(a, a.T)
-        assert bool((torch.diagonal(a) == 0).all())
+        assert torch.equal(a, a.transpose(-1, -2))
+        assert bool((torch.diagonal(a, dim1=-2, dim2=-1) == 0).all())
     assert torch.equal(got, want)
+    two = ops.affinity(v, v.clone(), k)
+    two.diagonal(dim1=-2, dim2=-1).zero_()
+    assert torch.equal(two, got)
+    after = ops.path_counts()["affinity"]
+    assert after["symmetric"] == before["symmetric"] + 1
+    assert after["general"] == before["general"] + 1
 
 
 @pytest.mark.cuda
