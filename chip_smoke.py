@@ -46,6 +46,32 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    `run_palid._serve_bench` (ClusterServer + open-loop traffic at 2,000
    requests/s), whose labels must equal per-query assignment and whose
    `assign` launches must be > 0 (printed by kernel);
+5b. online updates on phase 4's fit (`OnlineClustering` on the card, from
+   launch counts at 0, epochs in a temporary directory removed at the
+   end): (a) epoch 0 with the seconds of construction, verify and save and
+   the snapshot's bytes, and the ROI refresh of every cluster (one
+   single-lane call each); (b) inserts of 1, 8 and 64 jittered rows of
+   labeled points, each committed and rolled back to epoch 0, with the
+   seconds of routing, ROI refresh, warm LID and in all
+   (`OnlineClustering.insert_seconds`), of the commit and of the next
+   refresh; every row routed, verify clean, only clusters whose ball a
+   row hit moved, and no more re-convergences than such clusters; (c) the 8-row insert and a
+   support-member delete through the kernels and through backend="ref"
+   on the card: the state arrays bit-equal; (d) 5 far noise points
+   (`serving_mix`'s, inserted first: every dataset point lies in ~2,040
+   of the 2,048 balls) deleted and re-inserted, bit-identical, then
+   commit, rollback(0) and forward again, bit-identical, with the
+   rollback's seconds; (e) two planted
+   blobs of 80 rows buffered and flushed (a fit at the resident k): new
+   clusters form, earlier labels unchanged, and the flush itself launches
+   `lsh_hash`, `roi_filter`, `affinity_matvec` and `lid_sweep`; (f) `LiveServing` on a 64-slot
+   `ClusterServer`: publish (timed), probe, commit_and_publish,
+   rollback_and_publish(0), probe again: the same label, versions [1, 2],
+   2 swaps, 1 rollback; the phase's launches are read here; (g)
+   `run_palid --online --quick` on the card prints bit-identical=True
+   (its own toy fit's launches are not the phase's); (h) `lid_sweep`,
+   `affinity_matvec`, `lsh_hash`, `roi_filter` and `assign` launches of
+   (a)-(f) > 0, added to the kernel table's;
 6. the full-matrix path (estimate_k, affinity_matrix through the affinity
    kernel, IID / DS peeling, the paper's baselines): (a) the affinity
    kernel's two routes bit-equal to its plain version: the symmetric
@@ -127,6 +153,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import statistics
@@ -894,6 +921,333 @@ def check_serving(dev, res, points, mix, sup):
     print(f"[serve] launches of the serving path: {counts}; assign by "
           f"kernel: {ops.path_counts()['assign']}")
     need(counts["assign"] > 0, "the serving path never launched assign")
+    return counts
+
+
+# ------------------------------------------------------ online updates ----
+# the online path's state arrays, its kernels, its deltas (rows) and the
+# epochs it must keep: the baseline and the five commits of 5b
+ONLINE_ARRAYS = ("points", "alive", "labels", "sup_idx", "sup_w", "sup_v",
+                 "densities", "live")
+ONLINE_KERNELS = ("lid_sweep", "affinity_matvec", "lsh_hash", "roi_filter",
+                  "assign")
+ONLINE_DELTAS = (1, 8, 64)
+ONLINE_KEEP = 6
+BLOB_ROWS = 80
+
+
+def online_state(oc) -> dict:
+    return {name: getattr(oc, name).copy() for name in ONLINE_ARRAYS}
+
+
+def state_diff(oc, want: dict) -> list[str]:
+    """The state arrays of `oc` that are not bitwise `want`'s."""
+    return [name for name in ONLINE_ARRAYS
+            if not np.array_equal(getattr(oc, name), want[name])]
+
+
+def rows_differ(now, was) -> np.ndarray:
+    """(clusters,) bool: the rows of `now` (cut to `was`'s clusters) whose
+    bytes differ from `was`'s."""
+    c = was.shape[0]
+    return (np.ascontiguousarray(now[:c]).view(np.uint8).reshape(c, -1)
+            != np.ascontiguousarray(was).view(np.uint8).reshape(c, -1)).any(1)
+
+
+def routing_hits(oc, rows) -> np.ndarray:
+    """(m, clusters) bool: the online router's ball test (`OnlineClustering.
+    _route_and_update`) on the cached balls (after `timed_refresh`, those
+    the next insert routes on); dead clusters hit nothing."""
+    from repro_torch.core.civs import _ROUTE_EPS
+    dist = np.sqrt(((rows.astype(np.float64)[:, None]
+                     - oc._roi_center[None]) ** 2).sum(-1))
+    rad = oc._roi_radius[None]
+    return (dist <= rad + _ROUTE_EPS * (1.0 + rad)) & oc.live[None]
+
+
+def timed_refresh(oc, what: str) -> float:
+    """Seconds of one ROI refresh of every dirty cluster (all live ones
+    after construction and after a rollback: one single-lane call each)."""
+    n_dirty = len(oc._roi_dirty)
+    t0 = time.perf_counter()
+    oc._refresh_rois()
+    secs = time.perf_counter() - t0
+    print(f"[online] ROI refresh of {n_dirty} clusters {what} (one "
+          f"single-lane estimate_roi call each): {secs:.4f}s")
+    return secs
+
+
+def jittered(points, labeled, m: int, rng) -> np.ndarray:
+    src = rng.choice(labeled, size=m, replace=False)
+    return (points[src] + 0.01 * rng.standard_normal(
+        (m, points.shape[1]))).astype(np.float32)
+
+
+def far_rows(d: int, count: int, seed: int = 13) -> np.ndarray:
+    """`serving_mix`'s far noise: uniform in [-60, 60] + 300 per coordinate,
+    outside the data's box and so outside every ball."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-60, 60, size=(count, d)) + 300.0).astype(np.float32)
+
+
+def planted_blobs(d: int, k: float, seed: int = 11) -> np.ndarray:
+    """Two blobs of 80 rows around +-(300, ..., 300), far outside the data
+    ([-60, 60] per coordinate) and so outside every ball, tight at the
+    resident k (k times a typical pairwise distance ~0.02)."""
+    rng = np.random.default_rng(seed)
+    sigma = 0.02 / (k * math.sqrt(2.0 * d))
+    return np.concatenate([
+        s * 300.0 + sigma * rng.standard_normal((BLOB_ROWS, d))
+        for s in (1.0, -1.0)]).astype(np.float32)
+
+
+def check_online(dev, res, points, cfg) -> dict:
+    """Phase 5b: online updates on phase 4's fit, from launch counts at 0
+    (a)-(h) as the module docstring lists them. Returns the launches."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import save_checkpoint
+    from repro_torch.core.online import OnlineClustering
+    from repro_torch.kernels import ops
+    from repro_torch.launch import run_palid
+    from repro_torch.serve import ClusterServer, LiveServing
+    n = points.shape[0]
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="alid_online_") as tmp:
+        tmp = Path(tmp)
+        # (a) epoch 0
+        t0 = time.perf_counter()
+        oc = OnlineClustering(res, points, cfg, ckpt_dir=str(tmp / "kernel"),
+                              keep=ONLINE_KEEP, auto_flush=False, device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        problems = oc.verify()
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        probe_dir = save_checkpoint(str(tmp / "probe"), 0, oc._to_tree(),
+                                    keep=1)
+        save_s = time.perf_counter() - t0
+        snap_bytes = sum(f.stat().st_size for f in Path(probe_dir).iterdir())
+        size = sum(f.stat().st_size
+                   for f in (tmp / "kernel" / "step_00000000").iterdir())
+        print(f"[online] epoch 0 over {n} points, {oc.n_clusters} clusters "
+              f"x cap {oc.cap}: construction {build_s:.4f}s (copy, verify, "
+              f"save), verify {verify_s:.4f}s, save {save_s:.4f}s, snapshot "
+              f"{size} bytes on disk (the probe save {snap_bytes})")
+        need(problems == [] and oc.epochs() == [0], "online: epoch 0")
+        base = online_state(oc)
+        timed_refresh(oc, "after construction")
+
+        # (b) inserts of 1, 8 and 64 jittered rows of labeled points
+        labeled = np.flatnonzero(base["labels"] >= 0)
+        rng = np.random.default_rng(5)
+        deltas = {}
+        for m in ONLINE_DELTAS:
+            if oc.epoch_id != 0:
+                t0 = time.perf_counter()
+                oc.rollback(0)
+                print(f"[online] rollback to epoch 0 (untimed for the "
+                      f"insert): {time.perf_counter() - t0:.4f}s")
+                need(state_diff(oc, base) == [], "online: rollback(0)")
+                timed_refresh(oc, "after the rollback")
+            rows = deltas[m] = jittered(points, labeled, m, rng)
+            before = online_state(oc)
+            stats0 = oc.stats.snapshot()
+            # the balls are fresh, so the insert routes on these
+            hit = routing_hits(oc, rows).any(0)
+            ids = oc.insert(rows)
+            secs = dict(oc.insert_seconds)
+            # the balls this insert moved, refreshed by the next routing
+            secs["next_refresh"] = timed_refresh(
+                oc, f"that the {m}-row insert moved")
+            t0 = time.perf_counter()
+            problems = oc.verify()
+            verify_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ep = oc.commit({"delta": m})
+            commit_s = time.perf_counter() - t0
+            stats = oc.stats.snapshot()
+            moved = {key: stats[key] - stats0[key] for key in stats}
+            changed = np.zeros(hit.shape[0], bool)
+            for name in ("sup_idx", "sup_w", "sup_v", "densities", "live"):
+                changed |= rows_differ(getattr(oc, name), before[name])
+            strays = int((changed & ~hit).sum())
+            print(f"[online] insert of {m} jittered rows: total "
+                  f"{secs['total']:.4f}s = id allocation {secs['alloc']:.4f}"
+                  f" + ROI refresh {secs['refresh']:.4f} + routing "
+                  f"{secs['routing']:.4f} + warm LID (the loop over the hit "
+                  f"clusters) {secs['reconverge']:.4f} (+ the refresh of the "
+                  f"balls it moved, at the next routing: "
+                  f"{secs['next_refresh']:.4f}); verify {verify_s:.4f}s, "
+                  f"commit (verify + save) {commit_s:.4f}s -> epoch {ep.id}; "
+                  f"balls of {int(hit.sum())} clusters hit, "
+                  f"{moved['reconverges']} re-converged "
+                  f"({moved['noop_reconverges']} no-op), {int(changed.sum())}"
+                  f" moved; {int((~hit).sum())} clusters no row hit, of "
+                  f"which {strays} moved; stats moved {moved}; "
+                  f"{oc.stats.report()}")
+            need(moved["routed"] == m, f"online: {m} rows routed "
+                 f"{moved['routed']}")
+            need(problems == [], f"online: verify after {m} rows: "
+                 f"{problems[:3]}")
+            need(strays == 0, f"online: {strays} clusters whose ball no row "
+                 f"hit moved ({m} rows)")
+            need(moved["reconverges"] <= int(hit.sum()), f"online: "
+                 f"{moved['reconverges']} re-convergences for "
+                 f"{int(hit.sum())} hit balls ({m} rows)")
+            need(len(ids) == m, "online: insert ids")
+
+        # (c) the kernels against the plain versions: the same 8-row insert
+        # and one support-member delete, backend="ref" on the card
+        oc.rollback(0)
+        ref_cfg = cfg._replace(spec=cfg.spec._replace(backend="ref"))
+        plain = OnlineClustering(res, points, ref_cfg,
+                                 ckpt_dir=str(tmp / "ref"), keep=1,
+                                 auto_flush=False, device=dev)
+        dense = int(np.argmax(base["densities"]))
+        victim = int(base["sup_idx"][dense][base["sup_w"][dense] > 0][1])
+        moved = []
+        for o in (oc, plain):
+            stats0 = o.stats.snapshot()
+            o.insert(deltas[8])
+            o.delete([victim])
+            moved.append({key: value - stats0[key]
+                          for key, value in o.stats.snapshot().items()})
+        diff = state_diff(oc, online_state(plain))
+        same_stats = moved[0] == moved[1]
+        print(f"[online] 8-row insert + delete of support member {victim} "
+              f"(cluster {dense}), kernels vs backend='ref' on the card: "
+              f"arrays differing: {diff or 'none'}; stats moved alike: "
+              f"{same_stats} {moved[0]}")
+        need(diff == [] and same_stats, f"online: kernel and plain states "
+             f"differ in {diff}")
+        del plain
+
+        # (d) round trips: far noise out and back in, then rollback(0) and
+        # forward again
+        # (d) points outside every ball: at full width every dataset point
+        # lies in ~2,040 of the 2,048 balls (k is noise-scale), so the 5
+        # far noise rows are the serving mix's, inserted first
+        stats0 = oc.stats.snapshot()
+        far = oc.insert(far_rows(points.shape[1], 5))
+        need(oc.stats.snapshot()["buffered"] - stats0["buffered"] == 5,
+             "online: the far noise rows were not buffered")
+        rows = oc.points[far].copy()
+        before = online_state(oc)
+        outliers = list(oc.outliers)
+        oc.delete(far)
+        t0 = time.perf_counter()
+        back = oc.insert(rows)
+        insert_s = time.perf_counter() - t0
+        diff = state_diff(oc, before)
+        print(f"[online] delete + re-insert of 5 far noise points (outside "
+              f"every ball): the insert {insert_s:.4f}s; ids recycled "
+              f"{np.array_equal(back, far)}, outlier buffer restored "
+              f"{oc.outliers == outliers}, arrays differing: "
+              f"{diff or 'none'}")
+        need(np.array_equal(back, far) and diff == []
+             and oc.outliers == outliers, "online: delete -> insert round "
+             "trip")
+        oc.delete(far)          # out of the flush's buffer in (e)
+        ep = oc.commit({"round_trip": True})
+        mutated = online_state(oc)
+        t0 = time.perf_counter()
+        oc.rollback(0)
+        rollback_s = time.perf_counter() - t0
+        back_diff = state_diff(oc, base)
+        t0 = time.perf_counter()
+        oc.rollback(ep.id)
+        forward_s = time.perf_counter() - t0
+        fwd_diff = state_diff(oc, mutated)
+        print(f"[online] commit -> epoch {ep.id}; rollback(0) {rollback_s:.4f}"
+              f"s, arrays differing from epoch 0: {back_diff or 'none'}; "
+              f"rollback({ep.id}) {forward_s:.4f}s, differing: "
+              f"{fwd_diff or 'none'}; retained {oc.epochs()}")
+        need(back_diff == [] and fwd_diff == [], "online: rollback round "
+             "trip")
+
+        # (e) a flush of two planted blobs far from every ball
+        blobs = planted_blobs(points.shape[1], oc.k)
+        pre = oc.labels.copy()
+        c0 = oc.densities.shape[0]
+        stats0 = oc.stats.snapshot()
+        ids = oc.insert(blobs)
+        buffered = oc.stats.snapshot()["buffered"] - stats0["buffered"]
+        pre_counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        new = oc.flush_outliers()
+        flush_s = time.perf_counter() - t0
+        flush_launches = {name: count - pre_counts[name] for name, count
+                          in ops.launch_counts().items()
+                          if name in ONLINE_KERNELS[:4]}
+        claimed = int((oc.labels[ids] >= c0).sum())
+        # every id but the blobs' (which may recycle freed ids)
+        others = np.setdiff1d(np.arange(pre.shape[0]), ids)
+        kept = np.array_equal(oc.labels[others], pre[others])
+        problems = oc.verify()
+        print(f"[online] 2 planted blobs of {BLOB_ROWS} rows: buffered "
+              f"{buffered}, flush_outliers (a fit at the resident k) "
+              f"{flush_s:.4f}s: {new} new clusters, {claimed} rows claimed, "
+              f"earlier labels unchanged: {kept}, verify: "
+              f"{problems[:3] or 'ok'}; the flush's launches "
+              f"{flush_launches}")
+        need(buffered == 2 * BLOB_ROWS, "online: the blobs were not buffered")
+        for name, count in flush_launches.items():
+            need(count > 0, f"online: the flush's fit never launched {name}")
+        need(new >= 1, "online: the flush formed no cluster")
+        need(kept and problems == [],
+             "online: the flush changed earlier labels or broke verify")
+
+        # (f) LiveServing on a 64-slot ClusterServer
+        oc.rollback(0)
+        probe = points[labeled[0]]
+        with ClusterServer(batch_slots=64, queue_limit=256, policy="block",
+                           device=dev) as server:
+            live = LiveServing(server, oc, name="online")
+            t0 = time.perf_counter()
+            live.publish()
+            publish_s = time.perf_counter() - t0
+            lab_pre = live.submit(probe).result(timeout=600)
+            oc.insert(deltas[8])
+            t0 = time.perf_counter()
+            ep, _ = live.commit_and_publish({"delta": 8})
+            cp_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eid, _ = live.rollback_and_publish(0)
+            rp_s = time.perf_counter() - t0
+            lab_post = live.submit(probe).result(timeout=600)
+            info = live.info()
+            st = server.stats.snapshot()
+        versions = [r["version"] for r in info]
+        print(f"[online] LiveServing: publish of {oc.n_clusters} clusters "
+              f"{publish_s:.4f}s, commit_and_publish {cp_s:.4f}s (epoch "
+              f"{ep.id}), rollback_and_publish(0) {rp_s:.4f}s; probe label "
+              f"{lab_pre} before, {lab_post} after; versions {versions}, "
+              f"version_swaps {st['version_swaps']}, rollbacks "
+              f"{st['rollbacks']}")
+        need(lab_pre == lab_post, "online: the probe's label changed")
+        need(eid == 0 and versions == [1, 2] and st["version_swaps"] == 2
+             and st["rollbacks"] == 1, "online: LiveServing versions/stats")
+        # the phase's launches: (a)-(f), before the CLI's own toy fit
+        counts = ops.launch_counts()
+        paths = ops.path_counts()
+
+        # (g) the CLI
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run_palid.main(["--online", "--quick"])
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("[palid]")]
+        for ln in lines:
+            print(f"[online] cli: {ln}")
+        need(any(ln.startswith("[palid] online") and "bit-identical=True"
+                 in ln for ln in lines), "online: run_palid --online")
+    # (h) the phase's launches, as read after (f)
+    print(f"[online] launches of the online path, (a)-(f): "
+          f"{ {name: counts[name] for name in ONLINE_KERNELS} }; by route: "
+          f"{ {name: by for name, by in paths.items() if name in ONLINE_KERNELS} }")
+    for name in ONLINE_KERNELS:
+        need(counts[name] > 0, f"online: kernel {name} was never launched")
     return counts
 
 
@@ -2105,6 +2459,7 @@ def _leaves(tree):
 
 def main() -> int:
     from repro_torch.kernels import _build
+    from repro_torch.launch import full_width
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2136,6 +2491,9 @@ def main() -> int:
     sup = check_assign(dev, stats, res, mix)
     counts["assign"] = check_serving(dev, res, spec.points, mix,
                                      sup)["assign"]
+    online = check_online(dev, res, spec.points, full_width.config(lshp))
+    for name in ONLINE_KERNELS:
+        counts[name] += online[name]
     del res, sup, mix, spec
     torch.cuda.empty_cache()
 

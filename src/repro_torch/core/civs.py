@@ -25,6 +25,14 @@ from repro_torch.kernels import ops
 from repro_torch.lsh.pstable import LSHParams, LSHTables, query_batch
 
 
+# Conservative slack on a ball-intersection routing test (the online
+# router's, `core.online`): centres and radii are f32, so a point exactly on
+# a ball's boundary must not be lost to rounding. Applied RELATIVE to the
+# ball's scale (f32 rounding is relative): over-admitting costs one extra
+# re-convergence, under-admitting breaks exactness.
+_ROUTE_EPS = 1e-4
+
+
 class CIVSResult(NamedTuple):
     state: LIDState
     infective_found: torch.Tensor  # (B,) bool: some psi vertex is infective

@@ -1,18 +1,20 @@
 """PALID launcher on the port: dominant-cluster detection over synthetic
-SIFT-like blobs on the replicated engine (paper Sec. 5.3), and with
+SIFT-like blobs on the replicated engine (paper Sec. 5.3); with
 --serve-bench the continuous-batching assignment server over the result,
-driven by open-loop traffic. It prints the lines the JAX package's
-`python -m repro.launch.run_palid` prints.
+driven by open-loop traffic; with --online the online-update round trip
+(insert, commit, rollback, re-serve) over `LiveServing`. It prints the
+lines the JAX package's `python -m repro.launch.run_palid` prints.
 
   # on the card
   PYTHONPATH=src python -m repro_torch.launch.run_palid --serve-bench
+  PYTHONPATH=src python -m repro_torch.launch.run_palid --online --quick
   # the small preset on the CPU, through the plain versions
   PYTHONPATH=src python -m repro_torch.launch.run_palid --quick \\
-      --device cpu --serve-bench
+      --device cpu --serve-bench --online
 
 The JAX CLI's flags that need a part not ported yet (other engines, data
-sources, bf16 storage, online updates, fault injection, checkpoints, the
-contract checker) raise NotImplementedError naming their ROADMAP item; the
+sources, bf16 storage, fault injection, fit checkpoints, the contract
+checker) raise NotImplementedError naming their ROADMAP item; the
 streamed engine's tuning flags (--chunk-size, --cache-bytes,
 --prefetch-depth, --scratch-dir, --profile, --checkpoint-every) are not
 accepted.
@@ -21,16 +23,18 @@ accepted.
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
 
 from repro_torch.core.alid import ALIDConfig, EngineSpec
 from repro_torch.core.engine import fit
+from repro_torch.core.online import OnlineClustering
 from repro_torch.core.source import as_source
 from repro_torch.data import auto_lsh_params, make_blobs_with_noise
 from repro_torch.random import PRNGKey
-from repro_torch.serve import ClusterServer, run_open_loop
+from repro_torch.serve import ClusterServer, LiveServing, run_open_loop
 from repro_torch.utils import avg_f1_score
 
 SERVE_SLOTS = 64
@@ -50,7 +54,6 @@ def _unported_flags(args) -> list[str]:
         (args.dtype != "float32", f"--dtype {args.dtype} (ROADMAP queue "
          "item 'bf16 storage in the four kernels')"),
         (bool(args.source), "--source, make_source (ROADMAP A11)"),
-        (args.online, "--online, online updates (ROADMAP A12)"),
         (bool(args.inject_faults), "--inject-faults, fault injection "
          "(ROADMAP A11)"),
         (bool(args.checkpoint_dir), "--checkpoint-dir, fit checkpoints "
@@ -89,6 +92,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="support capacity override (0 = auto)")
     ap.add_argument("--seeds-per-round", type=int, default=32)
     ap.add_argument("--rounds", type=int, default=64)
+    ap.add_argument("--online", action="store_true",
+                    help="after the fit, drive the online-update round trip:"
+                         " insert a jittered delta, commit, roll back and "
+                         "re-serve through LiveServing; the post-rollback "
+                         "labels must be bit-identical to the pre-insert "
+                         "ones")
     # the JAX CLI's flags whose parts are not ported yet: refused in main
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "replicated", "sharded", "mesh",
@@ -98,7 +107,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--source", default="")
-    ap.add_argument("--online", action="store_true")
     ap.add_argument("--inject-faults", default="", metavar="SPEC")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--resume", action="store_true")
@@ -137,6 +145,8 @@ def main(argv=None) -> None:
           f"AVG-F={avg_f1_score(spec.labels, res.labels):.3f}")
     if args.serve_bench:
         _serve_bench(res, spec.points, args.serve_rate, device=args.device)
+    if args.online:
+        _online_demo(res, spec.points, cfg, device=args.device)
 
 
 def serve_queries(source) -> np.ndarray:
@@ -171,6 +181,55 @@ def _serve_bench(res, source, rate_hz: float, device="cuda"):
           f"p99={out['latency_ms_p99']:.2f}ms "
           f"tput={out['throughput_rps']:.0f}rps occupancy={occ:.2f}")
     return dict(out, occupancy=occ, stats=stats, queries=queries)
+
+
+def _online_demo(res, source, cfg, device="cuda") -> None:
+    """Insert → commit → rollback → re-serve round trip over the live
+    serving stack: the rollback must restore the pre-insert label array
+    BIT-IDENTICALLY from the checkpoint snapshot, with the tenant
+    hot-swapping versions while submits keep flowing. The epochs go to a
+    temporary directory, removed at the end."""
+    src = as_source(source)
+    pts = np.asarray(src.sample(np.arange(src.n)), np.float32)
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="alid_epochs_") as ckpt, \
+            ClusterServer(batch_slots=32, queue_limit=256, policy="block",
+                          device=device) as server:
+        oc = OnlineClustering(res, pts, cfg, ckpt_dir=ckpt, device=device)
+        pre_labels = oc.labels.copy()
+        base_epoch = oc.epoch_id
+        live = LiveServing(server, oc, name="palid")
+        live.publish()
+        probe = pts[0]
+        # the first batch builds the kernels where they are not built yet
+        lab_pre = live.submit(probe).result(timeout=600)
+        # delta: jittered copies of labeled points, which land inside
+        # existing outer ROI balls and exercise the warm-start path
+        labeled = np.flatnonzero(pre_labels >= 0)
+        take = (labeled[rng.choice(labeled.size, size=min(8, labeled.size),
+                                   replace=False)]
+                if labeled.size else np.arange(min(8, len(pts))))
+        delta = pts[take] + 0.01 * rng.standard_normal(
+            (take.size, pts.shape[1])).astype(np.float32)
+        ids = oc.insert(delta)
+        ep, _ = live.commit_and_publish({"delta": int(ids.size)})
+        eid, _ = live.rollback_and_publish(base_epoch)
+        lab_post = live.submit(probe).result(timeout=30)
+        if not np.array_equal(oc.labels, pre_labels):
+            raise RuntimeError("post-rollback labels differ from the "
+                               "pre-insert snapshot")
+        if lab_post != lab_pre:
+            raise RuntimeError(f"the probe served {lab_post} after the "
+                               f"rollback, {lab_pre} before")
+        info = server.tenant_info()["palid"]
+        s = server.stats.snapshot()
+    o = oc.stats.snapshot()
+    print(f"[palid] online insert={ids.size} routed={o['routed']} "
+          f"buffered={o['buffered']} commit=epoch{ep.id} "
+          f"rollback=epoch{eid} bit-identical=True "
+          f"versions={[r['version'] for r in info]} "
+          f"active_epoch={[r['epoch'] for r in info if r['active']][0]} "
+          f"swaps={s['version_swaps']} rollbacks={s['rollbacks']}")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ outputs must be bit-equal. `lsh_hash` sums
 in its own order: its keys may differ only where z / seg_len lies within
 1e-4 of an integer (`kernels.lsh_hash.key_flips`), and on these inputs at
 most one pair in 10,000 may. Small shapes with ragged tails;
-chip_smoke.py checks the main path's shapes.
+chip_smoke.py checks the main path's shapes. The online path (one-lane
+re-convergences) runs through the kernels and the plain versions to
+bit-equal states.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed: `PYTHONPATH=src python -m pytest -q -m cuda
@@ -919,3 +921,92 @@ def test_sea_is_bitwise_across_runs(dev):
     runs = [sea.sea_detect(spec.points, k, device=dev) for _ in range(2)]
     assert np.array_equal(runs[0].labels, runs[1].labels)
     assert np.array_equal(runs[0].densities, runs[1].densities)
+
+
+def _online_pair(dev, tmp_path):
+    """tests/test_online.py's fixture fitted on the card, and two
+    OnlineClusterings over it there: the kernels' ("auto") and the plain
+    versions' ("ref")."""
+    from repro_torch.core.alid import ALIDConfig
+    from repro_torch.core.engine import fit
+    from repro_torch.core.online import OnlineClustering
+    from repro_torch.data import auto_lsh_params, make_blobs_with_noise
+    from repro_torch.random import PRNGKey
+    spec = make_blobs_with_noise(n_clusters=3, cluster_size=40, n_noise=80,
+                                 d=16, seed=7, overlap_pairs=0)
+    cfg = ALIDConfig(a_cap=56, delta=64,
+                     lsh=auto_lsh_params(spec.points, probe=128),
+                     seeds_per_round=16, max_rounds=24, exhaustive=True)
+    base = fit(spec.points, cfg, PRNGKey(0), device=dev)
+    assert base.n_clusters > 0
+    return [OnlineClustering(
+        base, spec.points,
+        cfg._replace(spec=cfg.spec._replace(backend=backend)),
+        ckpt_dir=str(tmp_path / backend), auto_flush=False, device=dev)
+        for backend in ("auto", "ref")]
+
+
+@pytest.mark.cuda
+def test_online_kernel_path_equals_plain(dev, tmp_path):
+    """An insert of jittered members and a support-member delete through
+    the kernels (affinity_matvec and lid_sweep, one lane a call) leave the
+    state bit-equal to the plain versions' on the card."""
+    kern, plain = _online_pair(dev, tmp_path)
+    target = int(np.argmax(kern.densities))
+    members = kern.sup_idx[target][kern.sup_w[target] > 0]
+    rng = np.random.default_rng(0)
+    delta = (kern.points[members[:8]]
+             + 0.01 * rng.standard_normal((8, kern.d))).astype(np.float32)
+    before = ops.launch_counts()
+    for oc in (kern, plain):
+        oc.insert(delta)
+        oc.delete([int(members[1])])
+    after = ops.launch_counts()
+    assert after["lid_sweep"] > before["lid_sweep"]
+    assert after["affinity_matvec"] > before["affinity_matvec"]
+    assert kern.stats.absorbed > 0
+    assert kern.stats.snapshot() == plain.stats.snapshot()
+    for name in ("points", "alive", "labels", "sup_idx", "sup_w", "sup_v",
+                 "densities", "live"):
+        assert np.array_equal(getattr(kern, name), getattr(plain, name)), \
+            name
+    assert kern.verify() == []
+
+
+@pytest.mark.cuda
+def test_online_noop_guard_through_the_kernel(dev, tmp_path):
+    """One lane of the lid_sweep kernel (a cluster of 8 blocks): a stored
+    support with a far candidate takes no step and returns x bit for bit,
+    so a far insert changes no stored bit; a delete then re-insert of
+    points outside every ball restores the state bitwise."""
+    from repro_torch.core.online import _warm_lid
+    kern, _ = _online_pair(dev, tmp_path)
+    cfg = kern.cfg
+    c = int(np.argmax(kern.densities))
+    idx, w, v = (kern.sup_idx[c].copy(), kern.sup_w[c].copy(),
+                 kern.sup_v[c].copy())
+    slot = int(np.flatnonzero(idx < 0)[0])
+    idx[slot], v[slot] = 10_000, 200.0
+    before = ops.launch_counts()["lid_sweep"]
+    x, _, _ = _warm_lid(*(torch.tensor(a, device=dev)
+                          for a in (idx, idx >= 0, v, w)), kern.k,
+                        cfg.t_lid, cfg.tol, cfg.p, cfg.support_eps, "auto",
+                        cfg.sweep_steps, cfg.refresh_every)
+    assert ops.launch_counts()["lid_sweep"] == before + 1
+    assert np.array_equal(x.cpu().numpy(), w)
+
+    snap = {k: getattr(kern, k).copy() for k in
+            ("labels", "sup_idx", "sup_w", "sup_v", "densities", "live")}
+    kern.insert(np.full((2, kern.d), 200.0, np.float32))
+    kern._refresh_rois()
+    live = np.flatnonzero(kern.live)
+    ids = np.flatnonzero((kern.labels < 0) & kern.alive)
+    dist = np.sqrt(((kern.points[ids].astype(np.float64)[:, None]
+                     - kern._roi_center[live][None]) ** 2).sum(-1))
+    far = ids[(dist > kern._roi_radius[live][None] * 1.05 + 0.5).all(1)][:5]
+    assert far.size == 5
+    rows = kern.points[far].copy()
+    kern.delete(far)
+    assert np.array_equal(kern.insert(rows), far)
+    for name, arr in snap.items():
+        assert np.array_equal(getattr(kern, name)[:len(arr)], arr), name

@@ -241,7 +241,7 @@ def test_run_palid_quick_serve_bench_prints_the_jax_lines(capsys,
     (["--engine", "sharded"], "A10"), (["--engine", "streamed"], "A11"),
     (["--engine", "mesh"], "A13"), (["--devices", "4"], "A13"),
     (["--shards", "8"], "A10"), (["--dtype", "bfloat16"], "bf16"),
-    (["--source", "memmap:x.npy"], "A11"), (["--online"], "A12"),
+    (["--source", "memmap:x.npy"], "A11"),
     (["--inject-faults", "transient:0.1"], "A11"),
     (["--checkpoint-dir", "ckpt"], "A11"), (["--resume"], "A11"),
     (["--check"], "A15")])
