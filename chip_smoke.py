@@ -28,9 +28,48 @@ first use), then runs, in order, failing with a non-zero exit on any error:
 3. end-to-end parity: one fit through the kernels and one through the plain
    versions, both on the card, at n = 20,000 x 128: equal canonical labels
    and round counts, densities within tolerance;
+3b. the out-of-core engines at n = 20,000 x 128 (200 blobs of 40, an LSH
+   segment of one median NN distance, so that probe 128 covers every
+   bucket; the largest bucket is checked): the sharded engine (8 shards)
+   and the streamed engine (8 shards) in three pipeline configurations
+   (synchronous: no scratch, no cache, no reader; the default: scratch,
+   LRU, reader 2 ahead; reader 7 ahead), each through the kernels and
+   through backend="ref" on the card, against the replicated fit of the
+   same backend: equal canonical labels and rounds, densities within
+   rtol 1e-6; every streamed run took no fallback (`PipelineStats`: no
+   retry, corruption, tier fallback or reader death, and with the reader
+   on, every shard came from the reader, none inline);
 4. the full-width fit, SIFT1M's shape (1,000,000 x 128 f32) in the paper's
    size-limited regime, with every fit kernel's launch count, which must
    be > 0;
+4b. the same fit on the sharded engine (8 shards, the 512 MB store on the
+   card): every point once in the shards, every shard ball covers its
+   members (f64, the routing test's slack), `global_bucket_sizes` equal
+   to the replicated engine's bucket sizes, the four fit kernels launched;
+   wall time, peak device memory, clusters, AVG-F and the agreement with
+   phase 4's labels printed (not gated: probe 16 is below the largest
+   bucket at this width);
+4c. the same fit on the streamed engine from the points written as .npy
+   in a temporary directory and read through MemmapSource (8 shards,
+   scratch beside it, a 1 GiB LRU, the reader 2 bundles ahead): the
+   streamed store equal to 4b's (order, global indices, validity, the
+   per-shard sorted keys and permutations, bucket sizes), the four fit
+   kernels launched, the fit's peak device memory below phase 4's, no
+   fallback taken (as in 3b); wall time and the `PipelineStats` report
+   printed;
+4d. fault tolerance: the streamed fit of 3b under FaultySource transient
+   faults (rate 0.1), forced scratch corruption (`PipelineFaults`) and a
+   killed reader, each bit-identical to 3b's clean run (labels, rounds,
+   densities) with its counter in `PipelineStats` > 0 and no other
+   fallback; crash at round 3 and resume, bit-identical, on the streamed
+   engine at n = 20,000 (the resumed run taking no fallback) and on the
+   replicated engine at full width against phase 4's labels; `run_palid
+   --quick` on the card with `--engine sharded --shards 4`, `--engine
+   streamed --shards 4 --inject-faults transient:0.1` (fault-parity=True),
+   `--checkpoint-dir` and then `--resume`; the launches of 4b, 4c, 4d's
+   runs at n = 20,000 and 4d's full-width crash and resume, each read on
+   its own, are added to the kernel table's (run_palid's toy fits are
+   not);
 5. serving at full width on phase 4's Clustering (2,048 clusters x 240
    supports x 128): the assign kernels against their plain version on 256
    queries of the serving mix (dataset rows, jittered rows, far noise; the
@@ -678,20 +717,26 @@ def full_data():
 
 
 def full_fit(dev, spec, lshp):
-    from repro_torch.core.engine import fit
+    from repro_torch.core.engine import fit, make_engine
     from repro_torch.kernels import ops
     from repro_torch.launch import full_width
     from repro_torch.random import PRNGKey
     from repro_torch.utils import avg_f1_score
     n = spec.points.shape[0]
     cfg = full_width.config(lshp)
+    engine = make_engine(cfg.spec, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = fit(spec.points, cfg, PRNGKey(0), device=dev)
+    res = fit(spec.points, cfg, PRNGKey(0), engine=engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    bsizes = engine.bucket_sizes.cpu().numpy()
+    engine.close()
+    del engine
     counts = ops.launch_counts()
     routes = {name: paths for name, paths in ops.path_counts().items()
               if name in FIT_KERNELS}
@@ -703,14 +748,419 @@ def full_fit(dev, spec, lshp):
           f"clusters={res.n_clusters} members={members} "
           f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f} (reported, "
           "not gated) max_memory_allocated="
-          f"{torch.cuda.max_memory_allocated()} launches={counts} "
-          f"routes={routes}")
+          f"{torch.cuda.max_memory_allocated()} (the fit's own: {peak}) "
+          f"launches={counts} routes={routes}")
     need(res.n_clusters > 0, "the full-width fit found no cluster")
     need(np.isfinite(res.densities).all()
          and res.labels.shape == (n,), "full-width fit output")
     for name in FIT_KERNELS:
         need(counts[name] > 0, f"kernel {name} was never launched by the fit")
-    return res, counts
+    return res, counts, dict(peak=peak, bucket_sizes=bsizes)
+
+
+# ------------------------------------------------ the out-of-core engines ----
+# phase 3b's data: run_palid's rule at n = 20,000 with 200 blobs of 40, and
+# an LSH segment of one median NN distance (auto_lsh_params' seg_scale 1),
+# so that probe 128 covers every bucket and every engine is exact
+PARITY_ENGINE_DATA = dict(n_clusters=200, cluster_size=40, n_noise=12_000,
+                          d=128, seed=0)
+PARITY_PROBE = 128
+# the out-of-core engines of 3b, 4b-4d: 8 shards; phase 3b's three pipeline
+# configurations of the streamed engine
+N_SHARDS = 8
+STREAM_CONFIGS = {
+    "sync": dict(prefetch_depth=0, cache_bytes=0, scratch_dir=None),
+    "default": dict(),                   # scratch, LRU, depth 2
+    "depth7": dict(prefetch_depth=7),
+}
+# 4c: the LRU holds all 8 of the full-width store's bundles (the
+# --cache-bytes knob), the reader runs 2 bundles ahead
+STREAM_CACHE_BYTES = 1 << 30
+STREAM_DEPTH = 2
+
+
+def engine_parity_data():
+    """Phase 3b's points and config; the largest bucket must fit the
+    probe."""
+    from repro_torch.core.alid import ALIDConfig
+    from repro_torch.data import auto_lsh_params, make_blobs_with_noise
+    from repro_torch.lsh.pstable import build_lsh
+    from repro_torch.random import PRNGKey
+    spec = make_blobs_with_noise(**PARITY_ENGINE_DATA)
+    lshp = auto_lsh_params(spec.points, probe=PARITY_PROBE, seg_scale=1.0)
+    tables = build_lsh(torch.as_tensor(spec.points, device=DEVICE), lshp,
+                       PRNGKey(0), backend="ref")
+    largest = max(int(torch.unique(t, return_counts=True)[1].max())
+                  for t in tables.sorted_keys)
+    print(f"[parity] engines' data {spec.points.shape}: {lshp}, the largest "
+          f"bucket {largest} <= probe {PARITY_PROBE}")
+    need(largest <= PARITY_PROBE, "phase 3b: a bucket exceeds the probe")
+    cfg = ALIDConfig(a_cap=PARITY_ENGINE_DATA["cluster_size"] + 32,
+                     delta=128, lsh=lshp, seeds_per_round=32, max_rounds=64)
+    return spec, cfg
+
+
+def same_fit(a, b) -> tuple[bool, str]:
+    """Equal canonical labels and rounds, densities within rtol 1e-6."""
+    from repro_torch.utils import canonical_labels
+    labels = np.array_equal(canonical_labels(a.labels),
+                            canonical_labels(b.labels))
+    dens = (a.n_clusters == b.n_clusters and np.allclose(
+        np.sort(a.densities), np.sort(b.densities), rtol=1e-6, atol=0))
+    ok = labels and a.n_rounds == b.n_rounds and dens
+    return ok, (f"labels_equal={labels} rounds {a.n_rounds}/{b.n_rounds} "
+                f"clusters {a.n_clusters}/{b.n_clusters} "
+                f"densities_rtol_1e-6={dens}")
+
+
+def need_clean(engine, what: str) -> None:
+    """A streamed fit took no fallback: no retry, corruption, tier
+    fallback, reader death or abandoned reader, and with the reader on,
+    the reader produced every shard (none fetched inline)."""
+    depth = engine.spec.prefetch_depth
+    fell = engine.stats.fallbacks(prefetched=depth > 0)
+    snap = engine.stats.snapshot()
+    print(f"[pipeline] {what}: shards {snap['shards_streamed']}, by the "
+          f"reader {snap['shards_prefetched']} (depth {depth}), "
+          f"fallbacks {fell}")
+    need(not fell, f"{what}: the pipeline fell back: {fell}")
+    need(snap["shards_streamed"] > 0, f"{what}: no shard streamed")
+
+
+def check_engine_parity(dev, spec, cfg) -> dict:
+    """Phase 3b: the sharded engine and the streamed engine in three
+    pipeline configurations against the replicated fit, through the
+    kernels and through backend="ref", at n = 20,000 x 128; every
+    streamed run takes no fallback. Returns the kernel path's streamed
+    default fit (4d's clean run)."""
+    import tempfile
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.random import PRNGKey
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="alid_parity_") as tmp:
+        for backend in ("auto", "ref"):
+            runs = [("replicated", EngineSpec(backend=backend)),
+                    ("sharded", EngineSpec(engine="sharded",
+                                           n_shards=N_SHARDS,
+                                           backend=backend))]
+            runs += [(f"streamed-{name}", EngineSpec(
+                engine="streamed", n_shards=N_SHARDS, backend=backend,
+                **{"scratch_dir": tmp, **kw}))
+                for name, kw in STREAM_CONFIGS.items()]
+            base = None
+            for name, espec in runs:
+                engine = make_engine(espec, device=dev)
+                t0 = time.perf_counter()
+                res = fit(spec.points, cfg._replace(spec=espec), PRNGKey(0),
+                          engine=engine)
+                torch.cuda.synchronize()
+                if espec.engine == "streamed":
+                    need_clean(engine, f"phase 3b {name} ({backend})")
+                engine.close()
+                line = (f"[parity] {name} backend={backend} "
+                        f"{time.perf_counter() - t0:.2f}s rounds="
+                        f"{res.n_rounds} clusters={res.n_clusters}")
+                if base is None:
+                    base = res
+                    need(res.n_clusters > 0, "phase 3b found no cluster")
+                    print(line)
+                else:
+                    ok, why = same_fit(res, base)
+                    print(f"{line} against replicated: {why}")
+                    need(ok, f"phase 3b: {name} ({backend}) differs from "
+                         "the replicated fit")
+                out[(name, backend)] = res
+    ok, why = same_fit(out[("replicated", "auto")], out[("replicated", "ref")])
+    print(f"[parity] engines' data, kernel vs plain replicated: {why}")
+    need(ok, "phase 3b: kernel and plain replicated fits differ")
+    return out[("streamed-default", "auto")]
+
+
+def store_summary(gidx, valid, sorted_keys, perm, bsizes) -> dict:
+    """A store's integer leaves as host int64 arrays."""
+    def host(a):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return a.astype(np.int64)
+    return dict(global_idx=host(gidx), valid=host(valid),
+                sorted_keys=host(sorted_keys), perm=host(perm),
+                bucket_sizes=host(bsizes))
+
+
+def agreement(a, b) -> float:
+    """The share of points with equal canonical labels."""
+    from repro_torch.utils import canonical_labels
+    return float(np.mean(canonical_labels(a) == canonical_labels(b)))
+
+
+def full_fit_sharded(dev, spec, lshp, rep, rep_info) -> tuple:
+    """Phase 4b: the sharded engine at full width (8 shards, the store on
+    the card). Returns (its store's integer leaves, launches)."""
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.civs import _ROUTE_EPS
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.core.store import global_bucket_sizes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width
+    from repro_torch.random import PRNGKey
+    from repro_torch.utils import avg_f1_score
+    n = spec.points.shape[0]
+    cfg = full_width.config(lshp)._replace(
+        spec=EngineSpec(engine="sharded", n_shards=N_SHARDS))
+    engine = make_engine(cfg.spec, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(spec.points, cfg, PRNGKey(0), engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    store = engine.store
+    members = torch.sort(store.global_idx[store.valid]).values
+    partition = bool(torch.equal(members, torch.arange(n, device=dev)))
+    # the balls in f64 against the routing test's own slack
+    dist = torch.sqrt(((store.shards.double()
+                        - store.centers.double()[:, None]) ** 2).sum(-1))
+    radii = store.radii.double()[:, None]
+    covered = bool(((dist <= radii + _ROUTE_EPS * (1.0 + radii))
+                    | ~store.valid).all())
+    bsizes = global_bucket_sizes(store).cpu().numpy()
+    same_b = np.array_equal(bsizes, rep_info["bucket_sizes"])
+    summary = store_summary(store.global_idx, store.valid,
+                            store.tables.sorted_keys, store.tables.perm,
+                            bsizes)
+    engine.close()
+    del engine, store, dist
+    torch.cuda.empty_cache()
+    print(f"[sharded] full width {n}x128, {N_SHARDS} shards, "
+          f"max_rounds={cfg.max_rounds} (not cut): wall={wall:.2f}s "
+          f"rounds={res.n_rounds} clusters={res.n_clusters} "
+          f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f} peak device "
+          f"memory of the fit {peak} (replicated {rep_info['peak']}); "
+          f"launches={counts}")
+    print(f"[sharded] every point once in the shards: {partition}; every "
+          f"ball covers its members: {covered}; global_bucket_sizes == the "
+          f"replicated engine's bucket_sizes: {same_b}; agreement with "
+          f"phase 4's labels {agreement(res.labels, rep.labels):.6f}, "
+          f"clusters {res.n_clusters}/{rep.n_clusters} (not gated: probe "
+          f"{lshp.probe} is below the largest bucket at this width)")
+    need(partition, "4b: the shards are not a partition of the points")
+    need(covered, "4b: a shard ball misses one of its members")
+    need(same_b, "4b: global bucket sizes differ from the replicated ones")
+    need(res.n_clusters > 0 and np.isfinite(res.densities).all(),
+         "4b: sharded fit output")
+    for name in FIT_KERNELS:
+        need(counts[name] > 0, f"4b: kernel {name} was never launched")
+    return summary, counts, res
+
+
+def full_fit_streamed(dev, spec, lshp, rep_info, sharded) -> tuple:
+    """Phase 4c: the streamed engine at full width from a .npy on disk
+    through MemmapSource (8 shards, scratch beside it, a 1 GiB LRU, the
+    reader 2 bundles ahead). Returns (launches, result)."""
+    import tempfile
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.core.source import MemmapSource
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width
+    from repro_torch.random import PRNGKey
+    from repro_torch.utils import avg_f1_score
+    n = spec.points.shape[0]
+    with tempfile.TemporaryDirectory(prefix="alid_stream_") as tmp:
+        path = Path(tmp) / "points.npy"
+        np.save(path, spec.points)
+        cfg = full_width.config(lshp)._replace(spec=EngineSpec(
+            engine="streamed", n_shards=N_SHARDS, scratch_dir=tmp,
+            cache_bytes=STREAM_CACHE_BYTES, prefetch_depth=STREAM_DEPTH))
+        engine = make_engine(cfg.spec, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(MemmapSource(path), cfg, PRNGKey(0), engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = ops.launch_counts()
+        st = engine._store
+        got = store_summary(st.global_idx, st.valid, st.sorted_keys,
+                            st.perm, st.bucket_sizes)
+        same_order = np.array_equal(
+            st.order.astype(np.int64), sharded["global_idx"].reshape(-1)[:n])
+        stats = engine.stats.snapshot()
+        report = engine.stats.report()
+        need_clean(engine, "4c")
+        engine.close()
+    diff = [k for k in got if not np.array_equal(got[k], sharded[k])]
+    print(f"[streamed] full width {n}x128 from a .npy (MemmapSource), "
+          f"{N_SHARDS} shards, scratch beside it, cache_bytes="
+          f"{STREAM_CACHE_BYTES}, prefetch_depth={STREAM_DEPTH}, "
+          f"max_rounds={cfg.max_rounds} (not cut): wall={wall:.2f}s "
+          f"rounds={res.n_rounds} clusters={res.n_clusters} "
+          f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f}; peak device "
+          f"memory of the fit {peak} (replicated {rep_info['peak']}); "
+          f"launches={counts}")
+    print(f"[streamed] {report}")
+    print(f"[streamed] stats {json.dumps(stats)}")
+    print(f"[streamed] store equal to 4b's: order {same_order}, differing "
+          f"leaves {diff}; agreement with 4b's labels "
+          f"(not gated) {agreement(res.labels, sharded['labels']):.6f}")
+    need(same_order and not diff, "4c: the streamed store differs from "
+         "the sharded one")
+    need(peak < rep_info["peak"], "4c: the streamed fit's device peak is "
+         "not below the replicated fit's")
+    need(res.n_clusters > 0 and np.isfinite(res.densities).all(),
+         "4c: streamed fit output")
+    for name in FIT_KERNELS:
+        need(counts[name] > 0, f"4c: kernel {name} was never launched")
+    return counts, res
+
+
+def check_fault_tolerance(dev, spec, cfg, clean, full_spec, full_lshp,
+                          rep) -> dict:
+    """Phase 4d: the streamed fit at n = 20,000 under transient source
+    faults, forced scratch corruption and a killed reader, each
+    bit-identical to the clean run with its counter > 0; crash at round 3
+    and resume on the streamed engine, and on the replicated engine at
+    full width against phase 4's labels; run_palid's sharded, faulty
+    streamed and checkpoint / resume runs. Returns the launches of the
+    runs at n = 20,000 and those of the full-width crash and resume, each
+    read on its own (run_palid's toy fits are in neither)."""
+    import tempfile
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.core.resilience import (FaultySource, PipelineFaults,
+                                             ResilientSource, RetryPolicy)
+    from repro_torch.core.source import InMemorySource
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width, run_palid
+    from repro_torch.random import PRNGKey
+    fast = RetryPolicy(base_delay=0.001, max_delay=0.05)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="alid_faults_") as tmp:
+        stream = EngineSpec(engine="streamed", n_shards=N_SHARDS,
+                            scratch_dir=tmp)
+        arms = {
+            "transient": (stream, None, 0.1),
+            "corrupt": (stream._replace(cache_bytes=0),
+                        dict(corrupt_rate=0.3, seed=2), 0.0),
+            "kill-reader": (stream._replace(cache_bytes=0),
+                            dict(kill_reader_at=3), 0.0),
+        }
+        counter = {"transient": "read_retries", "corrupt": "tier_fallbacks",
+                   "kill-reader": "reader_deaths"}
+        # the fallbacks each arm may take: its own, and no other
+        allowed = {"transient": {"read_retries"},
+                   "corrupt": {"corruptions", "tier_fallbacks"},
+                   "kill-reader": {"reader_deaths", "shards_inline"}}
+        for name, (espec, faults, rate) in arms.items():
+            engine = make_engine(espec, device=dev)
+            if faults is not None:
+                engine.faults = PipelineFaults(**faults)
+            faulty = FaultySource(InMemorySource(spec.points), rate=rate,
+                                  seed=1)
+            src = ResilientSource(faulty, fast)
+            t0 = time.perf_counter()
+            res = fit(src, cfg._replace(spec=espec), PRNGKey(0),
+                      engine=engine, retry_policy=fast)
+            wall = time.perf_counter() - t0
+            stats = engine.stats.snapshot()
+            fell = engine.stats.fallbacks(prefetched=espec.prefetch_depth > 0)
+            engine.close()
+            same = (np.array_equal(res.labels, clean.labels)
+                    and res.n_rounds == clean.n_rounds
+                    and np.array_equal(res.densities, clean.densities))
+            print(f"[faults] {name}: {wall:.2f}s bit-identical={same} "
+                  f"injected={faulty.injected} source_retries={src.retries} "
+                  f"{counter[name]}={stats[counter[name]]} fallbacks={fell}")
+            need(same, f"4d: the {name} fit differs from the clean run")
+            need(stats[counter[name]] > 0, f"4d: {counter[name]} is 0")
+            need(set(fell) <= allowed[name], f"4d: the {name} fit took "
+                 f"fallbacks other than its own: {fell}")
+
+        ckpt = str(Path(tmp) / "stream_ckpt")
+        scfg = cfg._replace(spec=stream)
+        try:
+            fit(spec.points, scfg, PRNGKey(0), checkpoint_dir=ckpt,
+                crash_at_round=3, device=dev)
+            need(False, "4d: the injected crash did not happen")
+        except RuntimeError as exc:
+            need("injected crash at round 3" in str(exc), f"4d: {exc}")
+        engine = make_engine(stream, device=dev)
+        res = fit(spec.points, scfg, PRNGKey(0), checkpoint_dir=ckpt,
+                  resume=True, engine=engine)
+        need_clean(engine, "4d streamed resume")
+        engine.close()
+        same = (np.array_equal(res.labels, clean.labels)
+                and res.n_rounds == clean.n_rounds
+                and np.array_equal(res.densities, clean.densities))
+        print(f"[faults] streamed crash at round 3, then resume: "
+              f"bit-identical={same}")
+        need(same, "4d: the resumed streamed fit differs")
+        counts = ops.launch_counts()
+        print(f"[faults] launches of 4d at n = {spec.points.shape[0]}: "
+              f"{counts}")
+        for name in FIT_KERNELS:
+            need(counts[name] > 0, f"4d: kernel {name} was never launched")
+
+        ops.reset_launch_counts()
+
+        ckpt = str(Path(tmp) / "full_ckpt")
+        fcfg = full_width.config(full_lshp)
+        t0 = time.perf_counter()
+        try:
+            fit(full_spec.points, fcfg, PRNGKey(0), checkpoint_dir=ckpt,
+                crash_at_round=3, device=dev)
+            need(False, "4d: the injected crash did not happen")
+        except RuntimeError as exc:
+            need("injected crash at round 3" in str(exc), f"4d: {exc}")
+        # no checkpoint after the resume point: saving every round of a
+        # full-width fit would write up to 0.25 GB of supports a round
+        res = fit(full_spec.points, fcfg, PRNGKey(0), checkpoint_dir=ckpt,
+                  resume=True, checkpoint_every=fcfg.max_rounds + 1,
+                  device=dev)
+        same = (np.array_equal(res.labels, rep.labels)
+                and res.n_rounds == rep.n_rounds
+                and np.array_equal(res.densities, rep.densities))
+        print(f"[faults] replicated full width, crash at round 3 then "
+              f"resume: {time.perf_counter() - t0:.2f}s, bit-identical to "
+              f"phase 4: {same}")
+        need(same, "4d: the resumed full-width fit differs from phase 4")
+        resume_counts = ops.launch_counts()
+        print(f"[faults] launches of 4d's full-width crash and resume: "
+              f"{resume_counts}")
+        for name in FIT_KERNELS:
+            need(resume_counts[name] > 0,
+                 f"4d: kernel {name} was never launched at full width")
+
+        cli_ckpt = str(Path(tmp) / "cli_ckpt")
+        for flags in (["--engine", "sharded", "--shards", "4"],
+                      ["--engine", "streamed", "--shards", "4",
+                       "--inject-faults", "transient:0.1"],
+                      ["--checkpoint-dir", cli_ckpt],
+                      ["--checkpoint-dir", cli_ckpt, "--resume"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                run_palid.main(["--quick", *flags])
+            lines = [ln for ln in out.getvalue().splitlines()
+                     if ln.startswith("[palid]")]
+            for ln in lines:
+                print(f"[faults] cli {' '.join(flags)}: {ln}")
+            need(any(ln.startswith("[palid] n=") for ln in lines),
+                 f"4d: run_palid {flags}")
+            if "--inject-faults" in flags:
+                need(any("fault-parity=True" in ln for ln in lines),
+                     "4d: run_palid --inject-faults lost fault parity")
+    return counts, resume_counts
 
 
 # ------------------------------------------------------------- serving ----
@@ -2486,7 +2936,28 @@ def main() -> int:
     check_affinity_matvec(dev, stats)
     check_lid_sweep(dev, stats)
     check_parity_fit(dev)
-    res, counts = full_fit(dev, spec, lshp)
+    pspec, pcfg = engine_parity_data()
+    clean = check_engine_parity(dev, pspec, pcfg)
+    res, counts, rep_info = full_fit(dev, spec, lshp)
+    sharded, ooc_counts, shd = full_fit_sharded(dev, spec, lshp, res,
+                                                rep_info)
+    sharded["labels"] = shd.labels
+    del shd
+    stm_counts, _ = full_fit_streamed(dev, spec, lshp, rep_info, sharded)
+    del sharded
+    fault_counts, resume_counts = check_fault_tolerance(
+        dev, pspec, pcfg, clean, spec, lshp, res)
+    del pspec, clean
+    torch.cuda.empty_cache()
+    print(f"[ooc] launches of the fit kernels: replicated "
+          f"{ {k: counts[k] for k in FIT_KERNELS} }, + sharded "
+          f"{ {k: ooc_counts[k] for k in FIT_KERNELS} }, + streamed "
+          f"{ {k: stm_counts[k] for k in FIT_KERNELS} }, + faults at "
+          f"n = 20,000 { {k: fault_counts[k] for k in FIT_KERNELS} }, + "
+          f"full-width resume { {k: resume_counts[k] for k in FIT_KERNELS} }")
+    for name in FIT_KERNELS:
+        counts[name] += ooc_counts[name] + stm_counts[name] \
+            + fault_counts[name] + resume_counts[name]
     mix = serving_mix(spec.points, BULK_ROWS)
     sup = check_assign(dev, stats, res, mix)
     counts["assign"] = check_serving(dev, res, spec.points, mix,

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.core.alid import Clustering, resolve_device
 from repro_torch.core.lid import LIDState
-from repro_torch.lsh.pstable import LSHTables
+from repro_torch.core.store import ShardedStore
+from repro_torch.lsh.pstable import LSHTables, ShardedLSHTables
 
 
 def lsh_tables_from_numpy(proj, bias, sorted_keys, perm,
@@ -32,6 +33,29 @@ def lsh_tables_from_numpy(proj, bias, sorted_keys, perm,
             device=device),
         perm=torch.as_tensor(np.asarray(perm).astype(np.int64),
                              device=device))
+
+
+def sharded_store_from_numpy(shards, valid, global_idx, shard_of, slot_of,
+                             centers, radii, proj, bias, sorted_keys, perm,
+                             device="cuda") -> ShardedStore:
+    """The leaves of a JAX `ShardedStore` (its `tables` flattened into
+    proj, bias, sorted_keys (S, L, cap) uint32 and perm (S, L, cap) int32)
+    -> the port's ShardedStore (indices int64, keys int64 holding uint32)."""
+    device = resolve_device(device)
+
+    def on(a, dtype):
+        return torch.as_tensor(np.asarray(a).astype(dtype), device=device)
+
+    return ShardedStore(
+        shards=on(shards, np.float32), valid=on(valid, bool),
+        global_idx=on(global_idx, np.int64), shard_of=on(shard_of, np.int64),
+        slot_of=on(slot_of, np.int64), centers=on(centers, np.float32),
+        radii=on(radii, np.float32),
+        tables=ShardedLSHTables(
+            proj=on(proj, np.float32), bias=on(bias, np.float32),
+            sorted_keys=on(np.asarray(sorted_keys).astype(np.uint32),
+                           np.int64),
+            perm=on(perm, np.int64)))
 
 
 def lid_state_from_numpy(beta_idx, beta_mask, v_beta, x, ax, n_iters,

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core.civs import civs_update, top_k
-from repro_torch.core.lid import (density, init_state, lid_solve, put_lanes,
-                                  take_lanes)
+from repro_torch.core.lid import (density, init_state_from, lid_solve,
+                                  put_lanes, take_lanes)
+from repro_torch.core.pipeline import DEFAULT_CACHE_BYTES
 from repro_torch.core.roi import estimate_roi
 from repro_torch.core.source import (InMemorySource, is_data_source,
                                      iter_source_chunks)
@@ -43,17 +44,38 @@ def resolve_device(device) -> torch.device:
 class EngineSpec(NamedTuple):
     """Declarative engine selection, folded into ALIDConfig.
 
-    engine:  "replicated": the full dataset and the monolithic LSH tables
-             on one device. The sharded, mesh and streamed engines of the
-             JAX package are not ported yet (ROADMAP A10, A11, A13).
-    backend: kernel backend for every hot-path op: "auto" (the CUDA kernels
-             for tensors on the card, the plain versions on the CPU), "ref"
-             (the plain PyTorch versions anywhere) or "kernel". See
-             `repro_torch.kernels.ops.resolve_backend`.
-    dtype:   point storage dtype; "float32" only (bf16 storage is ROADMAP
-             queue item "bf16 storage in the four kernels").
+    engine:   "replicated": the full dataset and the monolithic LSH tables
+              on one device; "sharded": the out-of-core ShardedStore on the
+              device, CIVS probes one shard at a time; "streamed": a
+              host-resident StreamedStore fed by a DataSource, the CIVS
+              shard loop on the host uploading one routed shard at a time,
+              so peak device memory is O(shard + cap). The mesh engine of
+              the JAX package is not ported yet (ROADMAP A13).
+    n_shards: store shard count (sharded: at least 1; streamed: 0 = 8).
+    chunk_size: host chunk rows of the streamed store's build (0 = 32,768).
+    cache_bytes: host LRU budget for streamed shard bundles
+              (`core.pipeline.ShardBundleCache`); <= 0 disables the cache.
+    prefetch_depth: slot-ring depth of the streamed engine's shard reader
+              thread: the read and upload of shard s+1 overlap the compute
+              of shard s, and peak device memory grows to (depth + 1)
+              shards. 0 = the synchronous two-slot path (no reader).
+    scratch_dir: where the streamed store persists its reordered shard
+              payloads at build ("" = the system temp dir), so steady-state
+              shard reads are sequential slabs; None re-gathers shards from
+              the source. The engine's close() unlinks the file.
+    backend:  kernel backend for every hot-path op: "auto" (the CUDA kernels
+              for tensors on the card, the plain versions on the CPU), "ref"
+              (the plain PyTorch versions anywhere) or "kernel". See
+              `repro_torch.kernels.ops.resolve_backend`.
+    dtype:    point storage dtype; "float32" only (bf16 storage is ROADMAP
+              queue item "bf16 storage in the four kernels").
     """
     engine: str = "replicated"
+    n_shards: int = 0
+    chunk_size: int = 0
+    cache_bytes: int = DEFAULT_CACHE_BYTES
+    prefetch_depth: int = 2
+    scratch_dir: Optional[str] = ""
     backend: str = "auto"
     dtype: str = "float32"
 
@@ -243,17 +265,24 @@ class Clustering(NamedTuple):
             return cls.from_dict({k: z[k] for k in z.files})
 
 
-def alid_from_seed(points: torch.Tensor, active: torch.Tensor,
-                   tables: LSHTables, seed_idx: torch.Tensor, k: float,
+def alid_from_seed(points, active: torch.Tensor, tables: LSHTables | None,
+                   seed_idx: torch.Tensor, k: float,
                    cfg: ALIDConfig) -> SeedResult:
     """Alg. 2: one complete ALID run from each seed of seed_idx:(B,).
 
-    The lanes follow the JAX package's vmap of a while loop: an outer
-    iteration runs on every lane with ~done & c <= C, and a lane that has
-    stopped keeps its state."""
-    state = init_state(points, seed_idx, cfg.cap)
+    `points` is the replicated (n, d) tensor with its monolithic `tables`,
+    or a shard substrate (`tables=None`), a ShardedStore or the streamed
+    engine: its `seed_rows` gives the seeds' rows and CIVS probes its
+    shards (`civs.retrieve_shards`). The lanes follow the JAX package's
+    vmap of a while loop: an outer iteration runs on every lane with
+    ~done & c <= C, and a lane that has stopped keeps its state."""
+    if isinstance(points, torch.Tensor):
+        rows = points[seed_idx.long()]
+    else:
+        rows = points.seed_rows(seed_idx)
+    state = init_state_from(rows, seed_idx, cfg.cap)
+    dev = rows.device
     bsz = seed_idx.shape[0]
-    dev = points.device
     c = torch.ones(bsz, dtype=torch.int32, device=dev)
     done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     overflow = torch.zeros(bsz, dtype=torch.bool, device=dev)

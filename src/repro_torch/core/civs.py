@@ -1,4 +1,4 @@
-"""Candidate Infective Vertex Search, paper Sec. 4.3, replicated engine.
+"""Candidate Infective Vertex Search, paper Sec. 4.3.
 
 Queries LSH from EVERY support point of x_hat (several locality-sensitive
 regions jointly cover the ROI, Fig. 4b), filters the candidates to the ROI
@@ -11,25 +11,46 @@ the first `a_cap` slots (heaviest first; an overflow beyond a_cap drops the
 lightest members and raises `overflow`), psi occupies the trailing `delta`
 slots. Dedup is sort-based. `jax.lax.top_k` ranks ties toward the lower
 index and `jnp.argsort` is stable, so both become stable sorts here.
+
+Two retrieval substrates sit behind the one `civs_update` signature:
+
+  * replicated: `points`/`tables` are the full dataset + monolithic LSH;
+  * sharded: `points` is a `core.store.ShardedStore` (`tables=None`), or
+    the streamed engine (`engine.StreamedEngine`), which uploads one
+    routed shard at a time. Both go through `retrieve_shards`: the shards
+    whose bounding ball can meet a lane's ROI ball are probed one after
+    another, and each chunk is folded into a running top-delta buffer
+    (`top_k` over [buffer ++ chunk]) by `retrieve_chunk`, with an explicit
+    carry (`init_retrieval_carry` / `finalize_retrieval`): one function,
+    so the streamed engine is exact by construction. One global probe
+    budget (`pstable.shard_bucket_windows`) keeps the sample of an
+    oversized bucket at min(bucket, probe), the replicated engine's.
+
+The lanes run eagerly: a chunk step runs only on the lanes whose ROI
+ball meets the shard, and a lane that does not meet it keeps its carry
+(the JAX package's lax.cond under vmap, a select).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.lid import LIDState
+from repro_torch.core.lid import LIDState, put_lanes, take_lanes
 from repro_torch.core.roi import ROI
 from repro_torch.kernels import ops
-from repro_torch.lsh.pstable import LSHParams, LSHTables, query_batch
+from repro_torch.lsh.pstable import (LSHParams, LSHTables, hash_queries,
+                                     probe_tables_window, query_batch)
 
 
-# Conservative slack on a ball-intersection routing test (the online
-# router's, `core.online`): centres and radii are f32, so a point exactly on
-# a ball's boundary must not be lost to rounding. Applied RELATIVE to the
-# ball's scale (f32 rounding is relative): over-admitting costs one extra
-# re-convergence, under-admitting breaks exactness.
+# Conservative slack on a ball-intersection routing test (the shard
+# routing here and in the streamed engine, and the online router's,
+# `core.online`): centres and radii are rounded, so a point exactly on a
+# ball's boundary must not be lost to rounding. Applied RELATIVE to the
+# ball's scale (rounding is relative): over-admitting costs one extra
+# probe or re-convergence, under-admitting breaks exactness.
 _ROUTE_EPS = 1e-4
 
 
@@ -130,8 +151,175 @@ def _retrieve_replicated(roi: ROI, points, active, tables: LSHTables,
     return psi_idx.to(torch.int32), psi_valid, psi_v, n_candidates
 
 
-def civs_update(state: LIDState, roi: ROI, points: torch.Tensor,
-                active: torch.Tensor, tables: LSHTables,
+# --------------------------------------------------- the shared chunk step --
+def init_retrieval_carry(bsz: int, delta: int, d: int, device="cpu"):
+    """Empty running top-delta candidate state of `bsz` lanes: (best_neg
+    (B, delta), best_idx (B, delta), best_v (B, delta, d), n_candidates
+    (B,)). Fold shards in with `retrieve_chunk`; read the result off with
+    `finalize_retrieval`."""
+    return (torch.full((bsz, delta), float("-inf"), device=device),
+            torch.full((bsz, delta), -1, dtype=torch.int64, device=device),
+            torch.zeros((bsz, delta, d), device=device),
+            torch.zeros((bsz,), dtype=torch.int64, device=device))
+
+
+def retrieve_chunk(carry, pts_s, sk, pm, gmap, keys, starts, lo, hi,
+                   roi_center, roi_radius, active, sup_idx, sup_slot_mask,
+                   probe: int, p: float, backend: str = "auto"):
+    """CIVS steps 2-4 for ONE shard, folded into the lanes' running
+    top-delta carry: THE chunk step of the sharded and streamed engines
+    (`retrieve_shards`), run on each shard they route.
+
+    pts_s (cap_s, d) / sk, pm (L, cap_s) / gmap (cap_s,): one shard's
+    points, sorted-key tables and slot -> global map. keys/starts/lo/hi
+    (B, L, a_cap): the lanes' hashed support queries and this shard's
+    slice of the global probe windows. roi_center (B, d), roi_radius (B,),
+    sup_idx / sup_slot_mask (B, a_cap). Carry as in `init_retrieval_carry`.
+    """
+    best_neg, best_idx, best_v, n_cand = carry
+    n = active.shape[0]
+    shard_cap = pts_s.shape[0]
+    bsz, n_tables, a_cap = keys.shape
+    delta = best_neg.shape[1]
+
+    def flat(t):                           # (B, L, a_cap) -> (L, B*a_cap)
+        return t.permute(1, 0, 2).reshape(n_tables, bsz * a_cap)
+
+    local = probe_tables_window(sk, pm, flat(keys), flat(starts), flat(lo),
+                                flat(hi), probe).reshape(bsz, a_cap, -1)
+    local = torch.where(sup_slot_mask[..., None], local, -1)
+    flat_slots = local.reshape(bsz, -1)          # (B, a_cap * L * probe)
+    # keep the hits only, in their order (a stable partition), padded with
+    # -1 to the lanes' most: a miss can neither win the top-delta merge
+    # nor count, and the dedup sort below orders the hits by global index
+    # whatever their positions, so the merge is the full list's
+    hit = flat_slots >= 0
+    width = int(hit.sum(1).max())
+    if width == 0:
+        return carry
+    order = torch.sort((~hit).to(torch.uint8), dim=1, stable=True).indices
+    flat_slots = torch.gather(flat_slots, 1, order[:, :width])
+    safe_slot = torch.clamp(flat_slots, 0, shard_cap - 1)
+    gidx = torch.where(flat_slots >= 0, gmap[safe_slot], -1)
+    vc = pts_s[safe_slot]
+
+    safe_g = torch.clamp(gidx, 0, n - 1)
+    valid = (gidx >= 0) & active[safe_g]
+    member = ((safe_g[:, :, None] == sup_idx[:, None, :].long())
+              & sup_slot_mask[:, None, :]).any(-1)
+    valid &= ~member
+    # fused ROI filter: distance to D, the radius + validity mask and the
+    # -dist top-delta scores in one pass (neg is -inf exactly on ~valid)
+    _, valid, neg0 = ops.roi_filter(vc, roi_center, roi_radius, valid, p,
+                                    backend=backend)
+
+    # within-chunk dedup (a point can surface from several tables); the
+    # stable sort also fixes the order of exact-tie distances
+    dkeys = torch.where(valid, safe_g, n)
+    sg, order = torch.sort(dkeys, dim=-1, stable=True)
+    uniq = torch.ones_like(valid)
+    uniq[:, 1:] = sg[:, 1:] != sg[:, :-1]
+    cvalid = uniq & (sg < n)
+    n_cand = n_cand + cvalid.sum(-1)
+
+    neg = torch.where(uniq, torch.gather(neg0, 1, order), float("-inf"))
+    cand_idx = torch.where(cvalid, sg, -1)
+    # streaming top-delta merge: buffer ++ chunk -> top_k. The candidate
+    # rows ride along in the carry, so psi needs no gather at the end; only
+    # the delta winning rows are gathered (from the carry or this chunk)
+    best_neg, pos = top_k(torch.cat([best_neg, neg], dim=1), delta)
+    best_idx = torch.gather(torch.cat([best_idx, cand_idx], dim=1), 1, pos)
+    from_chunk = pos >= delta
+    row = torch.gather(order, 1, torch.clamp_min(pos - delta, 0))
+    d = vc.shape[-1]
+    chunk_v = torch.gather(vc, 1, row[..., None].expand(-1, -1, d))
+    carry_v = torch.gather(best_v, 1, torch.clamp_max(pos, delta - 1)
+                           [..., None].expand(-1, -1, d))
+    best_v = torch.where(from_chunk[..., None], chunk_v, carry_v)
+    return best_neg, best_idx, best_v, n_cand
+
+
+def finalize_retrieval(carry):
+    """(psi_idx, psi_valid, psi_v, n_candidates) off a finished carry."""
+    best_neg, best_idx, best_v, n_candidates = carry
+    psi_valid = best_neg > float("-inf")
+    psi_idx = torch.where(psi_valid, best_idx, -1)
+    psi_v = torch.where(psi_valid[..., None], best_v, 0.0)
+    return psi_idx.to(torch.int32), psi_valid, psi_v, n_candidates
+
+
+def retrieve_lanes(carry, lanes: torch.Tensor, pts_s, sk, pm, gmap, keys,
+                   starts, lo, hi, roi: ROI, active, sup_idx, sup_slot_mask,
+                   probe: int, p: float, backend: str = "auto"):
+    """`retrieve_chunk` on the lanes `lanes` only (those whose ROI ball
+    meets the shard); every other lane keeps its carry. keys, starts, lo,
+    hi and the support arguments are the full batch's."""
+    new = retrieve_chunk(
+        take_lanes(carry, lanes), pts_s, sk, pm, gmap, keys[lanes],
+        starts[lanes], lo[lanes], hi[lanes], roi.center[lanes],
+        roi.radius[lanes], active, sup_idx[lanes], sup_slot_mask[lanes],
+        probe=probe, p=p, backend=backend)
+    return put_lanes(carry, lanes, new)
+
+
+def route_shards(roi: ROI, centers: np.ndarray, radii: np.ndarray,
+                 p: float) -> np.ndarray:
+    """(B, S) host bool: lane b's ROI ball can meet shard s's bounding ball,
+    in f64 with `_ROUTE_EPS` of slack. Exact by the triangle inequality: a
+    shard whose ball the ROI ball misses holds no point inside the ROI.
+    Every shard for p != 2 (the radii are Euclidean)."""
+    b = roi.radius.shape[0]
+    if p != 2.0:
+        return np.ones((b, centers.shape[0]), bool)
+    cen = roi.center.double().cpu().numpy()                  # (B, d)
+    rad = roi.radius.double().cpu().numpy()                  # (B,)
+    dist = np.sqrt(((cen[:, None, :] - centers[None]) ** 2).sum(-1))
+    reach = rad[:, None] + radii[None]
+    return dist <= reach + _ROUTE_EPS * (1.0 + reach)
+
+
+def retrieve_shards(roi: ROI, substrate, active, lsh_params: LSHParams,
+                    sup_idx, sup_v, sup_slot_mask, delta: int, p: float,
+                    backend: str = "auto"):
+    """Steps 2-4 out of core: fold the routed shards into a running
+    top-delta carry. `substrate` is a `core.store.ShardedStore` or the
+    streamed engine; either gives its LSH projections (`proj`, `bias`),
+    its shard balls in f64 (`balls()`), the global probe windows of the
+    routed shards (`windows`: carved over ALL shards on the sharded
+    engine, over the routed ones on the streamed engine, as the JAX
+    package carves them) and the routed shards' tensors in routed order
+    (`stream`). A shard is probed only for the lanes whose ROI ball can
+    meet its ball, and skipped when no lane meets it; the other lanes keep
+    their carry."""
+    bsz, a_cap, d = sup_v.shape
+    dev = sup_v.device
+    n_tables = lsh_params.n_tables
+    keys, salts = hash_queries(sup_v.reshape(bsz * a_cap, d), substrate.proj,
+                               substrate.bias, lsh_params.seg_len,
+                               backend)                  # (L, B*a_cap)
+    touch = route_shards(roi, *substrate.balls(), p)
+    routed = np.flatnonzero(touch.any(axis=0))
+    carry = init_retrieval_carry(bsz, delta, d, dev)
+    if routed.size == 0:
+        return finalize_retrieval(carry)
+    starts, lo, hi = substrate.windows(keys, salts, routed, lsh_params.probe)
+
+    def lanes_of(t):                   # (..., L, B*a_cap) -> (..., B, L, a_cap)
+        t = t.reshape(*t.shape[:-2], n_tables, bsz, a_cap)
+        return t.transpose(-3, -2)
+
+    keys, starts, lo, hi = (lanes_of(t) for t in (keys, starts, lo, hi))
+    for pos, s, (pts_s, sk, pm, gmap) in substrate.stream(routed):
+        lanes = torch.as_tensor(np.flatnonzero(touch[:, s]), device=dev)
+        carry = retrieve_lanes(
+            carry, lanes, pts_s, sk, pm, gmap, keys, starts[pos], lo[pos],
+            hi[pos], roi, active, sup_idx, sup_slot_mask,
+            probe=lsh_params.probe, p=p, backend=backend)
+    return finalize_retrieval(carry)
+
+
+def civs_update(state: LIDState, roi: ROI, points,
+                active: torch.Tensor, tables: LSHTables | None,
                 lsh_params: LSHParams, k: float, a_cap: int, delta: int,
                 tol: float = 1e-5, support_eps: float = 1e-6, p: float = 2.0,
                 backend: str = "auto") -> CIVSResult:
@@ -141,9 +329,14 @@ def civs_update(state: LIDState, roi: ROI, points: torch.Tensor,
                          f"delta = {cap}")
     sup_idx, sup_v, sup_x, sup_slot_mask, overflow = compact_support(
         state, a_cap, support_eps)
-    psi_idx, psi_valid, psi_v, n_candidates = _retrieve_replicated(
-        roi, points, active, tables, lsh_params, sup_idx, sup_v,
-        sup_slot_mask, delta, p, backend)
+    if isinstance(points, torch.Tensor):
+        psi_idx, psi_valid, psi_v, n_candidates = _retrieve_replicated(
+            roi, points, active, tables, lsh_params, sup_idx, sup_v,
+            sup_slot_mask, delta, p, backend)
+    else:                    # a ShardedStore or the streamed engine
+        psi_idx, psi_valid, psi_v, n_candidates = retrieve_shards(
+            roi, points, active, lsh_params, sup_idx, sup_v, sup_slot_mask,
+            delta, p, backend)
     return rebuild_support(state, sup_idx, sup_v, sup_x, sup_slot_mask,
                            psi_idx, psi_valid, psi_v, k, a_cap, tol, p,
                            n_candidates, overflow, backend)

@@ -34,9 +34,13 @@ class LIDState(NamedTuple):
     converged: torch.Tensor  # (B,) bool
 
 
+def _rebuild(tup, items):
+    return type(tup)(*items) if hasattr(tup, "_fields") else tuple(items)
+
+
 def take_lanes(tup, lanes: torch.Tensor):
-    """The lanes `lanes` of a NamedTuple of batched tensors."""
-    return type(tup)(*(t[lanes] for t in tup))
+    """The lanes `lanes` of a (Named)tuple of batched tensors."""
+    return _rebuild(tup, (t[lanes] for t in tup))
 
 
 def put_lanes(tup, lanes: torch.Tensor, sub):
@@ -46,7 +50,7 @@ def put_lanes(tup, lanes: torch.Tensor, sub):
         full = full.clone()
         full[lanes] = part
         out.append(full)
-    return type(tup)(*out)
+    return _rebuild(tup, out)
 
 
 def init_state_from(v_seed: torch.Tensor, seed_idx: torch.Tensor,

@@ -1,37 +1,43 @@
 """PALID launcher on the port: dominant-cluster detection over synthetic
-SIFT-like blobs on the replicated engine (paper Sec. 5.3); with
---serve-bench the continuous-batching assignment server over the result,
-driven by open-loop traffic; with --online the online-update round trip
-(insert, commit, rollback, re-serve) over `LiveServing`. It prints the
-lines the JAX package's `python -m repro.launch.run_palid` prints.
+SIFT-like blobs (paper Sec. 5.3), or over a real dataset through the
+DataSource API (--source), on the replicated, sharded or streamed engine;
+with --serve-bench the continuous-batching assignment server over the
+result, driven by open-loop traffic; with --online the online-update round
+trip (insert, commit, rollback, re-serve) over `LiveServing`; with
+--inject-faults the fit again under injected faults, whose labels must be
+bit-identical to the clean run's. It prints the lines the JAX package's
+`python -m repro.launch.run_palid` prints.
 
   # on the card
   PYTHONPATH=src python -m repro_torch.launch.run_palid --serve-bench
-  PYTHONPATH=src python -m repro_torch.launch.run_palid --online --quick
+  PYTHONPATH=src python -m repro_torch.launch.run_palid \\
+      --source memmap:descriptors.npy --engine streamed --shards 16
   # the small preset on the CPU, through the plain versions
   PYTHONPATH=src python -m repro_torch.launch.run_palid --quick \\
-      --device cpu --serve-bench --online
+      --device cpu --engine streamed --shards 4 --profile \\
+      --inject-faults transient:0.1,corrupt:0.05,kill-reader:3
 
-The JAX CLI's flags that need a part not ported yet (other engines, data
-sources, bf16 storage, fault injection, fit checkpoints, the contract
-checker) raise NotImplementedError naming their ROADMAP item; the
-streamed engine's tuning flags (--chunk-size, --cache-bytes,
---prefetch-depth, --scratch-dir, --profile, --checkpoint-every) are not
-accepted.
+The JAX CLI's flags that need a part not ported yet (the mesh engine, bf16
+storage, the contract checker) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 import time
 
 import numpy as np
 
 from repro_torch.core.alid import ALIDConfig, EngineSpec
-from repro_torch.core.engine import fit
+from repro_torch.core.engine import fit, make_engine
 from repro_torch.core.online import OnlineClustering
-from repro_torch.core.source import as_source
+from repro_torch.core.resilience import (FaultySource, PipelineFaults,
+                                         RetryPolicy)
+from repro_torch.core.source import (as_source, make_source,
+                                     strided_sample_indices)
 from repro_torch.data import auto_lsh_params, make_blobs_with_noise
 from repro_torch.random import PRNGKey
 from repro_torch.serve import ClusterServer, LiveServing, run_open_loop
@@ -39,29 +45,48 @@ from repro_torch.utils import avg_f1_score
 
 SERVE_SLOTS = 64
 SERVE_QUERIES = 1024
-_ENGINE_ITEMS = {"sharded": "A10", "streamed": "A11", "mesh": "A13"}
 
 
 def _unported_flags(args) -> list[str]:
     """The given flags of the JAX CLI whose parts are not ported yet, each
     with its ROADMAP item."""
     checks = [
-        (args.engine in _ENGINE_ITEMS, f"--engine {args.engine} (ROADMAP "
-         f"{_ENGINE_ITEMS.get(args.engine)})"),
+        (args.engine == "mesh", "--engine mesh (ROADMAP A13)"),
         (args.devices > 1, "--devices > 1, the mesh engine (ROADMAP A13)"),
-        (args.shards > 0, "--shards, the sharded and streamed engines "
-         "(ROADMAP A10, A11)"),
         (args.dtype != "float32", f"--dtype {args.dtype} (ROADMAP queue "
          "item 'bf16 storage in the four kernels')"),
-        (bool(args.source), "--source, make_source (ROADMAP A11)"),
-        (bool(args.inject_faults), "--inject-faults, fault injection "
-         "(ROADMAP A11)"),
-        (bool(args.checkpoint_dir), "--checkpoint-dir, fit checkpoints "
-         "(ROADMAP A11)"),
-        (args.resume, "--resume, fit checkpoints (ROADMAP A11)"),
         (args.check, "--check, the contract checker (ROADMAP A15)"),
     ]
     return [what for given, what in checks if given]
+
+
+def engine_spec(engine: str, shards: int, chunk_size: int = 0,
+                cache_bytes: int = EngineSpec._field_defaults["cache_bytes"],
+                prefetch_depth: int = (
+                    EngineSpec._field_defaults["prefetch_depth"]),
+                scratch_dir: str = "", backend: str = "auto",
+                dtype: str = "float32") -> EngineSpec:
+    """Resolve --engine (+ --shards) into an EngineSpec: "auto" is the
+    sharded engine when --shards is given, else the replicated one. The
+    pipeline knobs matter for engine="streamed" only: `cache_bytes` bounds
+    the host LRU of shard bundles, `prefetch_depth` sizes the reader's slot
+    ring (0 = synchronous), `scratch_dir` places the build-time scratch
+    memmap ("" = system temp dir, "none" disables persistence)."""
+    scratch = None if scratch_dir == "none" else scratch_dir
+    if engine == "auto":
+        engine = "sharded" if shards > 0 else "replicated"
+    if engine == "streamed":
+        # 0 lets StreamedEngine apply its own default (8 shards)
+        return EngineSpec(engine="streamed", n_shards=shards,
+                          chunk_size=chunk_size, cache_bytes=cache_bytes,
+                          prefetch_depth=prefetch_depth, scratch_dir=scratch,
+                          backend=backend, dtype=dtype)
+    if engine == "sharded":
+        return EngineSpec(engine="sharded", n_shards=max(1, shards),
+                          chunk_size=chunk_size, backend=backend,
+                          dtype=dtype)
+    return EngineSpec(engine=engine, chunk_size=chunk_size, backend=backend,
+                      dtype=dtype)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,18 +123,63 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "re-serve through LiveServing; the post-rollback "
                          "labels must be bit-identical to the pre-insert "
                          "ones")
-    # the JAX CLI's flags whose parts are not ported yet: refused in main
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "replicated", "sharded", "mesh",
-                             "streamed"])
+                             "streamed"],
+                    help="EngineSpec.engine; 'auto' = 'sharded' with "
+                         "--shards, else 'replicated' ('mesh' is not "
+                         "ported: ROADMAP A13)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="ShardedStore / StreamedStore shard count (0 = "
+                         "the replicated engine under --engine auto)")
+    ap.add_argument("--source", default="",
+                    help="ingest a dataset instead of the synthetic blobs: "
+                         "'memmap:path.npy' (out of core) or 'npy:path.npy'"
+                         " (in host memory); --n/--d/--clusters are ignored")
+    ap.add_argument("--chunk-size", type=int, default=0,
+                    help="host chunk rows of the streamed store's build "
+                         "(0 = default)")
+    ap.add_argument("--cache-bytes", type=int,
+                    default=EngineSpec._field_defaults["cache_bytes"],
+                    help="streamed engine: host LRU budget of shard bundles "
+                         "in bytes (<= 0 disables the cache)")
+    ap.add_argument("--prefetch-depth", type=int,
+                    default=EngineSpec._field_defaults["prefetch_depth"],
+                    help="streamed engine: slot-ring depth of the shard "
+                         "reader (0 = synchronous, no reader thread)")
+    ap.add_argument("--scratch-dir", default="",
+                    help="streamed engine: directory of the build-time "
+                         "scratch memmap ('' = system temp dir, 'none' = "
+                         "no persistence)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print the pipeline stage report (read / put / "
+                         "compute / wait seconds, cache and prefetch hits) "
+                         "after the fit")
+    ap.add_argument("--inject-faults", default="", metavar="SPEC",
+                    help="re-run the fit under injected faults and check "
+                         "its labels against the clean run's. SPEC is "
+                         "comma-separated name:value pairs: 'transient:0.1'"
+                         " (seeded transient read-error rate), 'corrupt:"
+                         "0.05' (scratch-slab corruption rate per fetch; "
+                         "streamed engine with scratch), 'kill-reader:3' "
+                         "(kill the prefetch reader at the k-th bundle; "
+                         "streamed with prefetch). Prints "
+                         "'fault-parity=True'")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="persist round-level fit state here every "
+                         "--checkpoint-every rounds; with --inject-faults "
+                         "also a crash-at-round-2 + resume arm, printing "
+                         "'resume-parity=True'")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="rounds between fit checkpoints (default 1)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the fit from the latest intact checkpoint "
+                         "in --checkpoint-dir (bit-identical to the "
+                         "uninterrupted run)")
+    # the JAX CLI's flags whose parts are not ported yet: refused in main
     ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--source", default="")
-    ap.add_argument("--inject-faults", default="", metavar="SPEC")
-    ap.add_argument("--checkpoint-dir", default="")
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--check", action="store_true")
     return ap.parse_args(argv)
 
@@ -119,34 +189,132 @@ def main(argv=None) -> None:
     refused = _unported_flags(args)
     if refused:
         raise NotImplementedError(f"{refused[0]} is not ported yet")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
     if args.quick:
         args.n, args.d, args.clusters = 600, 8, 4
         args.rounds = min(args.rounds, 8)
         args.seeds_per_round = min(args.seeds_per_round, 8)
 
-    cluster_size = max(4, int(args.n * 0.4) // args.clusters)
-    noise = args.n - args.clusters * cluster_size
-    spec = make_blobs_with_noise(args.clusters, cluster_size, noise,
-                                 d=args.d, seed=0)
-    cfg = ALIDConfig(a_cap=args.a_cap or max(64, cluster_size + 32),
-                     delta=128, lsh=auto_lsh_params(spec.points),
+    spec = None
+    if args.source:
+        source = make_source(args.source)
+        # calibrate the LSH scale on a strided subsample, never the file
+        lshp = auto_lsh_params(
+            source.sample(strided_sample_indices(source.n, 512)))
+        a_cap = args.a_cap or 128
+        n, d = source.n, source.dim
+    else:
+        cluster_size = max(4, int(args.n * 0.4) // args.clusters)
+        noise = args.n - args.clusters * cluster_size
+        spec = make_blobs_with_noise(args.clusters, cluster_size, noise,
+                                     d=args.d, seed=0)
+        source = spec.points
+        lshp = auto_lsh_params(spec.points)
+        a_cap = args.a_cap or max(64, cluster_size + 32)
+        n, d = spec.points.shape
+
+    cfg = ALIDConfig(a_cap=a_cap, delta=128, lsh=lshp,
                      seeds_per_round=args.seeds_per_round,
                      max_rounds=args.rounds,
-                     spec=EngineSpec(backend=args.backend))
-    n, d = spec.points.shape
-    t0 = time.time()
-    res = fit(spec.points, cfg, PRNGKey(0), device=args.device)
-    dt = time.time() - t0
-    n_members = int((res.labels >= 0).sum())
-    print(f"[palid] n={n} d={d} engine={cfg.spec.engine} "
-          f"backend={cfg.spec.backend} dtype={cfg.spec.dtype} "
-          f"devices=1 shards=0 time={dt:.2f}s clusters={res.n_clusters} "
-          f"members={n_members} "
-          f"AVG-F={avg_f1_score(spec.labels, res.labels):.3f}")
+                     spec=engine_spec(args.engine, args.shards,
+                                      args.chunk_size, args.cache_bytes,
+                                      args.prefetch_depth, args.scratch_dir,
+                                      args.backend, args.dtype))
+    # the engine is made here, so that --profile can read its stage
+    # counters after the fit; closing it is then ours
+    engine = make_engine(cfg.spec, device=args.device)
+    try:
+        t0 = time.time()
+        res = fit(source, cfg, PRNGKey(0), engine=engine,
+                  checkpoint_dir=args.checkpoint_dir or None,
+                  checkpoint_every=args.checkpoint_every,
+                  resume=args.resume)
+        dt = time.time() - t0
+        n_members = int((res.labels >= 0).sum())
+        line = (f"[palid] n={n} d={d} engine={cfg.spec.engine} "
+                f"backend={cfg.spec.backend} dtype={cfg.spec.dtype} "
+                f"devices=1 shards={args.shards} time={dt:.2f}s "
+                f"clusters={res.n_clusters} members={n_members}")
+        if spec is not None:
+            line += f" AVG-F={avg_f1_score(spec.labels, res.labels):.3f}"
+        print(line)
+        if args.profile:
+            stats = getattr(engine, "stats", None)
+            print(f"[palid] {stats.report()}" if stats is not None else
+                  f"[palid] --profile: engine {cfg.spec.engine!r} has no "
+                  "pipeline stats (streamed only)")
+    finally:
+        engine.close()
     if args.serve_bench:
-        _serve_bench(res, spec.points, args.serve_rate, device=args.device)
+        _serve_bench(res, source, args.serve_rate, device=args.device)
     if args.online:
-        _online_demo(res, spec.points, cfg, device=args.device)
+        _online_demo(res, source, cfg, device=args.device)
+    if args.inject_faults:
+        _chaos_demo(res, source, cfg, args)
+
+
+def _parse_faults(spec: str) -> dict:
+    out = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, value = part.partition(":")
+        if name not in ("transient", "corrupt", "kill-reader"):
+            raise SystemExit(
+                f"--inject-faults: unknown fault {name!r} (expected "
+                "transient|corrupt|kill-reader)")
+        out[name] = float(value) if value else 0.0
+    return out
+
+
+def _chaos_demo(clean, source, cfg, args) -> dict:
+    """Re-run the finished fit under injected faults; its labels must be
+    BIT-IDENTICAL to the clean result's. With --checkpoint-dir, also crash
+    at round 2 and resume. Prints one line with 'fault-parity=' (and
+    'resume-parity='); returns what it printed as a dict."""
+    faults = _parse_faults(args.inject_faults)
+    fast = RetryPolicy(base_delay=0.001, max_delay=0.05)
+    faulty = FaultySource(as_source(source),
+                          rate=faults.get("transient", 0.0), seed=1)
+    engine = make_engine(cfg.spec, device=args.device)
+    if faults.get("corrupt", 0.0) > 0.0 or "kill-reader" in faults:
+        engine.faults = PipelineFaults(
+            corrupt_rate=faults.get("corrupt", 0.0),
+            kill_reader_at=int(faults.get("kill-reader", -1.0)), seed=2)
+    try:
+        res = fit(faulty, cfg, PRNGKey(0), engine=engine, retry_policy=fast)
+        stats = getattr(engine, "stats", None)
+        corruptions = int(stats.corruptions) if stats is not None else 0
+        deaths = int(stats.reader_deaths) if stats is not None else 0
+    finally:
+        engine.close()
+    out = dict(injected=faulty.injected, corruptions=corruptions,
+               reader_deaths=deaths,
+               fault_parity=bool(np.array_equal(clean.labels, res.labels)
+                                 and res.n_rounds == clean.n_rounds))
+    resume_txt = ""
+    if args.checkpoint_dir:
+        ckpt = os.path.join(args.checkpoint_dir, "chaos")
+        try:
+            fit(source, cfg, PRNGKey(0), checkpoint_dir=ckpt,
+                checkpoint_every=args.checkpoint_every, crash_at_round=2,
+                device=args.device)
+        except RuntimeError as exc:
+            if "injected crash" not in str(exc):
+                raise
+        resumed = fit(source, cfg, PRNGKey(0), checkpoint_dir=ckpt,
+                      resume=True, device=args.device)
+        out["resume_parity"] = bool(
+            np.array_equal(clean.labels, resumed.labels)
+            and resumed.n_rounds == clean.n_rounds)
+        resume_txt = f" resume-parity={out['resume_parity']}"
+    print(f"[palid] chaos faults={args.inject_faults!r} "
+          f"injected={out['injected']} corruptions={corruptions} "
+          f"reader_deaths={deaths} retries_ok=True "
+          f"fault-parity={out['fault_parity']}{resume_txt}")
+    return out
 
 
 def serve_queries(source) -> np.ndarray:

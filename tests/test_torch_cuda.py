@@ -1010,3 +1010,128 @@ def test_online_noop_guard_through_the_kernel(dev, tmp_path):
     assert np.array_equal(kern.insert(rows), far)
     for name, arr in snap.items():
         assert np.array_equal(getattr(kern, name)[:len(arr)], arr), name
+
+
+# ------------------------------------------- the streamed engine's pipeline --
+def _big_store(tmp_path, n=120_000, d=64, shards=8):
+    from repro_torch import random as trandom
+    from repro_torch.core.source import InMemorySource
+    from repro_torch.core.store import build_store_streamed
+    from repro_torch.lsh.pstable import LSHParams
+    pts = np.random.default_rng(5).normal(0, 10, (n, d)).astype(np.float32)
+    return build_store_streamed(InMemorySource(pts),
+                                LSHParams(seg_len=40.0),
+                                trandom.PRNGKey(1), n_shards=shards,
+                                scratch_dir=str(tmp_path), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 7])
+def test_pipeline_uploads_equal_source_bytes(dev, tmp_path, depth):
+    """Stream/event ordering: over many passes in shuffled routed orders,
+    with device work queued behind every bundle, each bundle read on the
+    compute stream equals the host bundle's bytes (points, keys, perm and
+    global map), at ring depths 1, 2 and 7."""
+    from repro_torch.core.pipeline import ShardPipeline
+    store = _big_store(tmp_path)
+    try:
+        pipe = ShardPipeline(store, cache_bytes=0, prefetch_depth=depth,
+                             device=dev)
+        want = [tuple(torch.as_tensor(a.astype(np.float32 if a.dtype ==
+                                                np.float32 else np.int64),
+                                      device=dev)
+                      for a in pipe.fetch_bundle(s))
+                for s in range(store.n_shards)]
+        rng = np.random.default_rng(depth)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        seen = 0
+        for _ in range(12):
+            routed = rng.permutation(store.n_shards)[:rng.integers(3, 9)]
+            for _, s, bundle in pipe.stream(routed):
+                # queued work between the copy and the check, so that a
+                # missing wait would read a bundle still in flight
+                busy = bundle[0] @ bundle[0].T[:, :512]
+                bad += int(busy.shape[0] != bundle[0].shape[0])
+                for got, ref in zip(bundle, want[s]):
+                    bad += (~torch.eq(got, ref)).sum()
+                seen += 1
+        torch.cuda.synchronize()
+        assert seen > 12 * 3 and int(bad) == 0
+    finally:
+        store.scratch.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 2, 7])
+def test_pipeline_device_peak_within_depth_plus_one(dev, tmp_path, depth):
+    """The streamed shards hold at most (depth + 1) bundles on the card
+    (two in the synchronous path), plus a margin of one bundle for the
+    uint32 / int32 -> int64 conversions of an upload in flight."""
+    from repro_torch.core.pipeline import ShardPipeline
+    store = _big_store(tmp_path)
+    try:
+        pipe = ShardPipeline(store, cache_bytes=1 << 32,
+                             prefetch_depth=depth, device=dev)
+        one = sum(t.numel() * t.element_size() for t in next(
+            iter(pipe.stream([0])))[2])
+        pipe.release()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(4):
+            for _, s, bundle in pipe.stream(range(store.n_shards)):
+                (bundle[0] * 2.0).sum()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        assert peak <= (max(depth, 1) + 1 + 1) * one + (8 << 20), \
+            (peak, one, depth)
+    finally:
+        store.scratch.close()
+
+
+@pytest.mark.cuda
+def test_sharded_and_streamed_fits_equal_replicated_on_card(dev, tmp_path):
+    """Through the kernels on the card, with probe covering every bucket,
+    the sharded and streamed engines (every pipeline configuration) give
+    the replicated engine's clustering: canonical labels and round counts
+    equal, densities within rtol 1e-6; no streamed run takes a pipeline
+    fallback. (Label numbers follow the winning seed rows among density
+    near-ties, which the order of a support's slots can move by an
+    ulp.)"""
+    from repro_torch import random as trandom
+    from repro_torch.core.alid import ALIDConfig, EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.data import auto_lsh_params, make_blobs_with_noise
+    from repro_torch.lsh.pstable import build_lsh
+    from repro_torch.utils import canonical_labels
+    spec = make_blobs_with_noise(8, 40, 1_200, d=32, seed=2)
+    lshp = auto_lsh_params(spec.points, probe=128, seg_scale=1.0)
+    tables = build_lsh(torch.as_tensor(spec.points, device=dev), lshp,
+                       trandom.PRNGKey(0))
+    assert max(int(torch.unique(t, return_counts=True)[1].max())
+               for t in tables.sorted_keys) <= lshp.probe
+    cfg = ALIDConfig(a_cap=72, delta=96, lsh=lshp, seeds_per_round=16,
+                     max_rounds=16)
+    want = fit(spec.points, cfg, trandom.PRNGKey(0), device=dev)
+    assert want.n_clusters > 0
+    for espec in (EngineSpec(engine="sharded", n_shards=6),
+                  EngineSpec(engine="streamed", n_shards=6, cache_bytes=0,
+                             prefetch_depth=0, scratch_dir=None),
+                  EngineSpec(engine="streamed", n_shards=6,
+                             scratch_dir=str(tmp_path)),
+                  EngineSpec(engine="streamed", n_shards=6, prefetch_depth=7,
+                             cache_bytes=0, scratch_dir=str(tmp_path))):
+        engine = make_engine(espec, device=dev)
+        try:
+            got = fit(spec.points, cfg._replace(spec=espec),
+                      trandom.PRNGKey(0), engine=engine)
+            if espec.engine == "streamed":
+                assert engine.stats.fallbacks(
+                    prefetched=espec.prefetch_depth > 0) == {}
+        finally:
+            engine.close()
+        np.testing.assert_array_equal(canonical_labels(got.labels),
+                                      canonical_labels(want.labels))
+        assert got.n_rounds == want.n_rounds
+        np.testing.assert_allclose(np.sort(got.densities),
+                                   np.sort(want.densities), rtol=1e-6)
