@@ -33,10 +33,12 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    bucket; the largest bucket is checked): the sharded engine (8 shards)
    and the streamed engine (8 shards) in three pipeline configurations
    (synchronous: no scratch, no cache, no reader; the default: scratch,
-   LRU, reader 2 ahead; reader 7 ahead), each through the kernels and
-   through backend="ref" on the card, against the replicated fit of the
-   same backend: equal canonical labels and rounds, densities within
-   rtol 1e-6; every streamed run took no fallback (`PipelineStats`: no
+   LRU, reader 2 ahead; reader 7 ahead), each through the kernels,
+   against the replicated fit through the kernels: equal canonical labels
+   and rounds, densities within rtol 1e-6; the replicated fit through
+   backend="ref" on the card against it too (the out-of-core engines
+   through backend="ref" are the CPU tests', the same code bit for bit);
+   every streamed run took no fallback (`PipelineStats`: no
    retry, corruption, tier fallback or reader death, and with the reader
    on, every shard came from the reader, none inline);
 4. the full-width fit, SIFT1M's shape (1,000,000 x 128 f32) in the paper's
@@ -49,9 +51,11 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    wall time, peak device memory, clusters, AVG-F and the agreement with
    phase 4's labels printed (not gated: probe 16 is below the largest
    bucket at this width);
-4c. the same fit on the streamed engine from the points written as .npy
-   in a temporary directory and read through MemmapSource (8 shards,
-   scratch beside it, a 1 GiB LRU, the reader 2 bundles ahead): the
+4c. the same fit, cut to 16 of its 64 rounds (printed; the width, the
+   shards and the data are not cut), on the streamed engine from the
+   points written as .npy in a temporary directory and read through
+   MemmapSource (8 shards, scratch beside it, a 1 GiB LRU, the reader 2
+   bundles ahead): the
    streamed store equal to 4b's (order, global indices, validity, the
    per-shard sorted keys and permutations, bucket sizes), the four fit
    kernels launched, the fit's peak device memory below phase 4's, no
@@ -182,6 +186,24 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    device's idle share, time by kernel), embedding_bag and
    flash_attention launches > 0, and each batch's logits within 1e-4 +
    1e-4 |ref| of backend="ref";
+9. the GNNs' forwards (random weights from the port's threefry, the
+   registry's `make_cell` configs, every aggregation, SAGE's mean count
+   and the graph pool through segment_matmul), each from launch counts at
+   0 through the kernel and through backend="ref" on the card: outputs
+   bit-equal, finite, of the cell's shape, segment_matmul launches > 0,
+   wall time and peak device memory printed, and `gnn_loss` of the cell's
+   kind finite: (a) GIN-TU (5 x 64, f32, sum) and GraphSAGE-Reddit (2 x
+   128, f32, mean) at ogb_products, full batch, on one graph from
+   `synth_full_graph_batch` (2,449,408 nodes, 61,859,328 edges, 188 of
+   them pads; the in-degree's maximum, 99.99th percentile and mean
+   printed), each forward profiled (the device's idle share) and its
+   first layer split into the gather h[src], the layout sort, the segment
+   kernel and the MLPs; (b) MeshGraphNet (15 x 128, bf16) and GraphCast
+   (16 x 512, bf16) at full_graph_sm with the registry's edge features;
+   (c) all four at molecule (128 graphs of 30 nodes and 64 edges), pooled
+   per graph; (d) `examples/torch_gnn_cluster.py` on the card, which must
+   find a cluster; phase 9's segment_matmul launches are added to the
+   kernel table's;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -774,9 +796,13 @@ STREAM_CONFIGS = {
     "depth7": dict(prefetch_depth=7),
 }
 # 4c: the LRU holds all 8 of the full-width store's bundles (the
-# --cache-bytes knob), the reader runs 2 bundles ahead
+# --cache-bytes knob), the reader runs 2 bundles ahead; the fit is cut to
+# 16 of full_width's 64 rounds to keep the script inside its time limit
+# (each round reads every shard through the reader: ~2.2 s a round); the
+# store, the width, the shards and the data are not cut
 STREAM_CACHE_BYTES = 1 << 30
 STREAM_DEPTH = 2
+STREAM_ROUNDS = 16
 
 
 def engine_parity_data():
@@ -830,9 +856,10 @@ def need_clean(engine, what: str) -> None:
 def check_engine_parity(dev, spec, cfg) -> dict:
     """Phase 3b: the sharded engine and the streamed engine in three
     pipeline configurations against the replicated fit, through the
-    kernels and through backend="ref", at n = 20,000 x 128; every
-    streamed run takes no fallback. Returns the kernel path's streamed
-    default fit (4d's clean run)."""
+    kernels, at n = 20,000 x 128, and the replicated fit through
+    backend="ref" against the kernels' one; every streamed run takes no
+    fallback. Returns the kernel path's streamed default fit (4d's clean
+    run)."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
@@ -841,14 +868,17 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     out = {}
     with tempfile.TemporaryDirectory(prefix="alid_parity_") as tmp:
         for backend in ("auto", "ref"):
-            runs = [("replicated", EngineSpec(backend=backend)),
-                    ("sharded", EngineSpec(engine="sharded",
-                                           n_shards=N_SHARDS,
-                                           backend=backend))]
-            runs += [(f"streamed-{name}", EngineSpec(
-                engine="streamed", n_shards=N_SHARDS, backend=backend,
-                **{"scratch_dir": tmp, **kw}))
-                for name, kw in STREAM_CONFIGS.items()]
+            runs = [("replicated", EngineSpec(backend=backend))]
+            # the out-of-core engines through backend="ref" are the CPU
+            # tests' (tests/test_torch_engine.py, test_torch_pipeline.py:
+            # the same code, bit for bit); here they run on the kernels
+            if backend == "auto":
+                runs += [("sharded", EngineSpec(engine="sharded",
+                                                n_shards=N_SHARDS))]
+                runs += [(f"streamed-{name}", EngineSpec(
+                    engine="streamed", n_shards=N_SHARDS,
+                    **{"scratch_dir": tmp, **kw}))
+                    for name, kw in STREAM_CONFIGS.items()]
             base = None
             for name, espec in runs:
                 engine = make_engine(espec, device=dev)
@@ -975,9 +1005,10 @@ def full_fit_streamed(dev, spec, lshp, rep_info, sharded) -> tuple:
     with tempfile.TemporaryDirectory(prefix="alid_stream_") as tmp:
         path = Path(tmp) / "points.npy"
         np.save(path, spec.points)
-        cfg = full_width.config(lshp)._replace(spec=EngineSpec(
-            engine="streamed", n_shards=N_SHARDS, scratch_dir=tmp,
-            cache_bytes=STREAM_CACHE_BYTES, prefetch_depth=STREAM_DEPTH))
+        cfg = full_width.config(lshp, STREAM_ROUNDS)._replace(
+            spec=EngineSpec(engine="streamed", n_shards=N_SHARDS,
+                            scratch_dir=tmp, cache_bytes=STREAM_CACHE_BYTES,
+                            prefetch_depth=STREAM_DEPTH))
         engine = make_engine(cfg.spec, device=dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1003,16 +1034,19 @@ def full_fit_streamed(dev, spec, lshp, rep_info, sharded) -> tuple:
     print(f"[streamed] full width {n}x128 from a .npy (MemmapSource), "
           f"{N_SHARDS} shards, scratch beside it, cache_bytes="
           f"{STREAM_CACHE_BYTES}, prefetch_depth={STREAM_DEPTH}, "
-          f"max_rounds={cfg.max_rounds} (not cut): wall={wall:.2f}s "
-          f"rounds={res.n_rounds} clusters={res.n_clusters} "
-          f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f}; peak device "
+          f"max_rounds={cfg.max_rounds} (cut from "
+          f"{full_width.MAX_ROUNDS}; width, shards and data not cut): "
+          f"wall={wall:.2f}s rounds={res.n_rounds} clusters="
+          f"{res.n_clusters} AVG-F="
+          f"{avg_f1_score(spec.labels, res.labels):.4f}; peak device "
           f"memory of the fit {peak} (replicated {rep_info['peak']}); "
           f"launches={counts}")
     print(f"[streamed] {report}")
     print(f"[streamed] stats {json.dumps(stats)}")
     print(f"[streamed] store equal to 4b's: order {same_order}, differing "
-          f"leaves {diff}; agreement with 4b's labels "
-          f"(not gated) {agreement(res.labels, sharded['labels']):.6f}")
+          f"leaves {diff}; agreement with 4b's labels after "
+          f"{cfg.max_rounds} rounds (not gated) "
+          f"{agreement(res.labels, sharded['labels']):.6f}")
     need(same_order and not diff, "4c: the streamed store differs from "
          "the sharded one")
     need(peak < rep_info["peak"], "4c: the streamed fit's device peak is "
@@ -2896,6 +2930,268 @@ def serve_bst(dev):
     return counts
 
 
+# ---------------------------------------------------------------- GNNs ----
+# phase 9: (a) GIN and GraphSAGE at ogb_products, full batch, on one graph;
+# (b) MeshGraphNet and GraphCast at full_graph_sm (at ogb_products their
+# edge state does not fit one card: PERF.md section 4); (c) all four at
+# molecule, pooled per graph
+GNN_OGB_ARCHS = ("gin-tu", "graphsage-reddit")
+GNN_SM_ARCHS = ("meshgraphnet", "graphcast")
+GNN_ARCHS = GNN_OGB_ARCHS + GNN_SM_ARCHS
+GNN_SEED = 0
+# the kernels of a GNN layer by name in a profile: the gather h[src], the
+# segment op's layout (a stable radix sort of the keys, then searchsorted)
+# and the segment kernel; the rest is the MLPs' products and elementwise ops
+GATHER_KERNELS = ("index", "gather")
+SORT_KERNELS = ("radix", "sort", "searchsorted")
+SEGMENT_KERNELS = ("segment_matmul_kernel",)
+
+
+def gnn_graph(dev, shape: str, cfg):
+    """The registry's batch for `shape` on the card, from the port's data
+    functions (seed GNN_SEED), as a GraphBatch and its batch dict."""
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data.graphs import molecule_batch, \
+        synth_full_graph_batch
+    from repro_torch.models.gnn import GraphBatch
+    spec = GNN_SHAPES[shape]
+    if shape == "molecule":
+        batch = molecule_batch(spec["batch"], spec["n_nodes"],
+                               spec["n_edges"], spec["d_feat"], cfg.n_out,
+                               GNN_SEED, 0, device=dev)
+        n_graphs = spec["batch"]
+    else:
+        mse = cfg.kind in ("mgn", "graphcast")
+        batch = synth_full_graph_batch(
+            spec["n_nodes"], spec["n_edges"], spec["d_feat"],
+            "node_mse" if mse else "node_ce", cfg.n_out, GNN_SEED,
+            with_edge_feat=mse, device=dev)
+        n_graphs = 1
+    return GraphBatch(batch["node_feat"], batch["edge_src"],
+                      batch["edge_dst"], batch.get("edge_feat"),
+                      batch.get("graph_ids"), n_graphs), batch
+
+
+def check_specs(cell, batch, what: str) -> None:
+    """The batch holds what the cell's input specs declare, at their
+    shapes and dtypes."""
+    for k, (shape, dtype) in cell.input_specs().items():
+        if k not in batch:
+            continue      # edge features of a molecule: the model's zeros
+        need(tuple(batch[k].shape) == shape and batch[k].dtype == dtype,
+             f"{what}: {k} is {tuple(batch[k].shape)} {batch[k].dtype}, "
+             f"the cell declares {shape} {dtype}")
+
+
+def timed_forward(params, cfg, g, backend: str):
+    """One forward from launch counts at 0: (output, host seconds ending
+    in a synchronise, peak device bytes above the start, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn as gnn_m
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gnn_m.forward(params, cfg, g, backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, torch.cuda.max_memory_allocated() - base,
+            ops.launch_counts()["segment_matmul"])
+
+
+def device_kernels(fn):
+    """fn() under torch.profiler (device activity only): (wall seconds,
+    [(kernel name, device seconds)])."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, [(e.key, e.self_device_time_total / 1e6)
+                  for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+
+
+def split_layer(kernels) -> dict:
+    """A layer's device seconds by part: gather, sort (the layout), the
+    segment kernel, the rest (MLPs, elementwise)."""
+    parts = dict(gather=0.0, sort=0.0, kernel=0.0, rest=0.0)
+    for name, secs in kernels:
+        low = name.lower()
+        if any(k in low for k in SEGMENT_KERNELS):
+            parts["kernel"] += secs
+        elif any(k in low for k in SORT_KERNELS):
+            parts["sort"] += secs
+        elif any(k in low for k in GATHER_KERNELS):
+            parts["gather"] += secs
+        else:
+            parts["rest"] += secs
+    return parts
+
+
+def gnn_case(dev, arch: str, shape: str, g, batch, profiled: bool) -> dict:
+    """One (arch, shape) forward on the card through the kernels and
+    through backend="ref", each from launch counts at 0: bit-equal
+    outputs of the expected shape, finite, segment_matmul launched;
+    `gnn_loss` of the cell's kind; with `profiled`, the forward's idle
+    share and layer 0's time by part. Returns the case's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as gnn_m
+    from repro_torch.models import layers as L
+    from repro_torch.random import PRNGKey
+    from repro_torch.train.steps import gnn_loss
+    cell = get_arch(arch).make_cell(shape)
+    cfg = cell.model_cfg
+    check_specs(cell, batch, f"9 {arch} {shape}")
+    params = gnn_m.init_params(PRNGKey(0), cfg, device=dev)
+    n_par = sum(t.numel() for t in _leaves(params))
+    out, wall, peak, launches = timed_forward(params, cfg, g, "auto")
+    again = timed_forward(params, cfg, g, "auto")
+    want_rows = g.n_graphs if cfg.graph_level else g.node_feat.shape[0]
+    need(out.shape == (want_rows, cfg.n_out)
+         and bool(torch.isfinite(out.float()).all()),
+         f"9 {arch} {shape}: output {tuple(out.shape)} not finite or of "
+         "the wrong shape")
+    need(launches > 0, f"9 {arch} {shape}: segment_matmul never launched")
+    need(torch.equal(again[0], out), f"9 {arch} {shape}: two kernel "
+         "forwards differ")
+    ref, ref_wall, ref_peak, ref_launches = timed_forward(params, cfg, g,
+                                                          "ref")
+    same = torch.equal(out, ref)
+    loss, _ = gnn_loss(params, cfg, batch, cell.loss_kind)
+    need(bool(torch.isfinite(loss)), f"9 {arch} {shape}: loss not finite")
+    print(f"[gnn] {arch} {shape}: {cfg.n_layers} layers, d {cfg.d_hidden}, "
+          f"{str(cfg.dtype).split('.')[-1]}, {cfg.aggregator}, n_out "
+          f"{cfg.n_out}, {n_par} parameters; N={g.node_feat.shape[0]} "
+          f"E={g.edge_src.shape[0]}; forward {wall:.4f}s then "
+          f"{again[1]:.4f}s (host clock ending in a synchronise; the first "
+          f"includes warm-up), peak device memory above its start {peak}; "
+          f"segment_matmul launches {launches}; backend='ref' forward "
+          f"{ref_wall:.4f}s, peak {ref_peak}, launches {ref_launches}; "
+          f"bitwise_equal={same}; {cell.loss_kind} {float(loss):.6f}")
+    need(same, f"9 {arch} {shape}: kernel forward differs from "
+         "backend='ref'")
+    need(ref_launches == 0, f"9 {arch} {shape}: backend='ref' launched")
+    res = dict(launches=launches, ms=again[1] * 1e3, first_ms=wall * 1e3,
+               plain_ms=ref_wall * 1e3, peak=peak)
+    del out, again, ref
+    if profiled:
+        fwall, kernels = device_kernels(
+            lambda: gnn_m.forward(params, cfg, g))
+        busy = sum(t for _, t in kernels)
+        edges = gnn_m.edges_of(g)
+        h0 = L.mlp_apply(params["encoder"], g.node_feat.to(cfg.dtype))
+        lwall, lkernels = device_kernels(
+            lambda: gnn_m.apply_layer(params["layers"][0], cfg, h0, None,
+                                      edges))
+        parts = split_layer(lkernels)
+        top = sorted(lkernels, key=lambda k: -k[1])[:8]
+        # the aggregation's segment kernel (messages h[src], d wide): each
+        # message and key read once, each node's row written once
+        n_rows, n_edges = g.node_feat.shape[0], g.edge_src.shape[0]
+        d, size = h0.shape[1], h0.element_size()
+        b_ms, b_by = bound(n_edges * (size * d + 4) + n_rows * size * d,
+                           n_edges * d)
+        fparts = split_layer(kernels)
+        print(f"[gnn] {arch} {shape} forward profiled (device activity "
+              f"only): wall {fwall:.4f}s, device busy {busy:.4f}s, "
+              f"idle_share={1 - busy / fwall:.4f}; device ms over its "
+              f"{cfg.n_layers} layers, encoder and decoder: gather h[src] "
+              f"{fparts['gather'] * 1e3:.4f}, layout sort "
+              f"{fparts['sort'] * 1e3:.4f}, segment kernel "
+              f"{fparts['kernel'] * 1e3:.4f}, MLPs and elementwise "
+              f"{fparts['rest'] * 1e3:.4f}")
+        print(f"[gnn] {arch} {shape} layer 0 profiled: wall {lwall:.4f}s, "
+              f"device ms: gather h[src] {parts['gather'] * 1e3:.4f}, "
+              f"layout sort {parts['sort'] * 1e3:.4f}, segment kernel "
+              f"{parts['kernel'] * 1e3:.4f}, MLPs and elementwise "
+              f"{parts['rest'] * 1e3:.4f}; the aggregation's bound at d "
+              f"{d}: {b_ms:.4f} ms ({b_by}); top: " + "; ".join(
+                  f"{t * 1e3:.3f} ms {k[:60]}" for k, t in top))
+        res.update(idle_share=1 - busy / fwall, bound_ms=b_ms,
+                   forward_ms={k: v * 1e3 for k, v in fparts.items()},
+                   layer_ms={k: v * 1e3 for k, v in parts.items()})
+        del edges, h0
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_gnns(dev) -> dict:
+    """Phase 9: the four GNNs' forwards on the card. (a) GIN-TU and
+    GraphSAGE-Reddit at ogb_products on one graph, profiled; (b)
+    MeshGraphNet and GraphCast at full_graph_sm; (c) all four at molecule;
+    (d) examples/torch_gnn_cluster.py. Returns the phase's numbers and
+    segment_matmul launches."""
+    import importlib.util
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import GNN_SHAPES, pad_to
+    from repro_torch.kernels import ops
+    out = {"cases": {}, "launches": 0}
+    spec = GNN_SHAPES["ogb_products"]
+    cfg = get_arch(GNN_OGB_ARCHS[0]).make_cell("ogb_products").model_cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, batch = gnn_graph(dev, "ogb_products", cfg)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    n, e = g.node_feat.shape[0], g.edge_src.shape[0]
+    valid = g.edge_src >= 0
+    deg = torch.bincount(g.edge_dst[valid].long(), minlength=n)
+    n_valid = int(valid.sum())
+    top = torch.sort(deg).values
+    print(f"[gnn] ogb_products graph: N={n} E={e} ({e - n_valid} pad "
+          f"edges), built in {build:.2f}s (host draws, sort on the card); "
+          f"in-degree max {int(top[-1])}, 99.99th percentile "
+          f"{int(top[int(0.9999 * (n - 1))])}, mean "
+          f"{n_valid / spec['n_nodes']:.2f} over the {spec['n_nodes']} "
+          f"nodes")
+    need(n == pad_to(spec["n_nodes"]) and e == pad_to(spec["n_edges"])
+         and n_valid == spec["n_edges"], "9a: graph sizes")
+    del valid, deg, top
+    for arch in GNN_OGB_ARCHS:
+        res = gnn_case(dev, arch, "ogb_products", g, batch, profiled=True)
+        out["cases"][f"{arch} ogb_products"] = res
+        out["launches"] += res["launches"]
+    del g, batch
+    torch.cuda.empty_cache()
+    for arch in GNN_SM_ARCHS:
+        cfg = get_arch(arch).make_cell("full_graph_sm").model_cfg
+        g, batch = gnn_graph(dev, "full_graph_sm", cfg)
+        res = gnn_case(dev, arch, "full_graph_sm", g, batch, profiled=False)
+        out["cases"][f"{arch} full_graph_sm"] = res
+        out["launches"] += res["launches"]
+    for arch in GNN_ARCHS:
+        cfg = get_arch(arch).make_cell("molecule").model_cfg
+        g, batch = gnn_graph(dev, "molecule", cfg)
+        res = gnn_case(dev, arch, "molecule", g, batch, profiled=False)
+        out["cases"][f"{arch} molecule"] = res
+        out["launches"] += res["launches"]
+    path = Path(__file__).resolve().parent / "examples" / \
+        "torch_gnn_cluster.py"
+    loader = importlib.util.spec_from_file_location("torch_gnn_cluster",
+                                                    path)
+    example = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(example)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, f = example.main(["--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f"[gnn] examples/torch_gnn_cluster.py on the card: {wall:.2f}s, "
+          f"{res.n_clusters} clusters, AVG-F {f:.3f}; launches {launches}")
+    need(res.n_clusters > 0, "9d: the example found no cluster")
+    need(launches["segment_matmul"] > 0, "9d: the example's SAGE never "
+         "launched segment_matmul")
+    out["launches"] += launches["segment_matmul"]
+    out["example"] = dict(clusters=res.n_clusters, avg_f=f)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2989,6 +3285,17 @@ def main() -> int:
     bst_counts = serve_bst(dev)
     counts["embedding_bag"] = bst_counts["embedding_bag"]
     counts["segment_matmul"] = stats["segment_matmul"].pop("launches")
+    torch.cuda.empty_cache()
+
+    gnn = check_gnns(dev)
+    print(f"[gnn] segment_matmul launches: 8a's one call "
+          f"{counts['segment_matmul']} + phase 9's {gnn['launches']}")
+    counts["segment_matmul"] += gnn["launches"]
+    stats["segment_matmul"]["gnn"] = {
+        k: {key: v[key] for key in ("launches", "ms", "plain_ms",
+                                    "idle_share", "forward_ms", "layer_ms",
+                                    "bound_ms") if key in v}
+        for k, v in gnn["cases"].items()}
     stats["flash_attention"]["bst"]["launches"] = \
         bst_counts["flash_attention"]
 
@@ -3007,7 +3314,7 @@ def main() -> int:
                                        "probe", "one_step_ms",
                                        "converged_ms", "general_ms",
                                        "general_bound_ms",
-                                       "general_bound_by")
+                                       "general_bound_by", "gnn")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,8 +1,8 @@
 """Carry state from the JAX package to the port.
 
 ALID has no weights; its state is the LSH tables, the LID states and the
-fitted `Clustering`; the LMs and BST of the model zoo have their
-parameter trees. Each function here takes the JAX package's objects as
+fitted `Clustering`; the LMs, BST and the GNNs of the model zoo have
+their parameter trees. Each function here takes the JAX package's objects as
 numpy arrays (`np.asarray` of its jax arrays, or its `to_dict()`) and
 returns the port's counterpart, so that tests can hand both packages the
 same tables, states and weights. Like every entry point of the port, each
@@ -105,3 +105,28 @@ def bst_params_from_numpy(tree, device="cuda"):
     """The JAX package's BST parameter tree (tables, `blocks` as a list of
     dicts, the MLP) -> the port's (`models.bst.init_params`'s layout)."""
     return lm_params_from_numpy(tree, device)
+
+
+def gnn_params_from_numpy(tree, device="cuda") -> dict:
+    """The JAX package's GNN parameter tree (its `layers` stacked along a
+    leading axis, as `lax.scan` takes them) -> the port's
+    (`models.gnn.init_params`'s layout: `layers` a list, one dict a
+    layer), leaf for leaf, bf16 through its bits."""
+    def unstack(t, i):
+        if isinstance(t, dict):
+            return {k: unstack(v, i) for k, v in t.items()}
+        return np.asarray(t)[i]
+
+    params = {k: lm_params_from_numpy(v, device) for k, v in tree.items()
+              if k != "layers"}
+    n_layers = len(np.asarray(_first_leaf(tree["layers"])))
+    params["layers"] = [lm_params_from_numpy(unstack(tree["layers"], i),
+                                             device)
+                        for i in range(n_layers)]
+    return params
+
+
+def _first_leaf(t):
+    while isinstance(t, dict):
+        t = next(iter(t.values()))
+    return t

@@ -3,10 +3,10 @@
 Every hot-path module (`core.affinity`, `core.lid`, `core.roi`, `core.civs`,
 `lsh.pstable`, `core.alid.assign_labels` behind predict and serving, the
 full-matrix baselines through `core.affinity`, the LMs' and BST's
-attention in `models.transformer` and `models.bst`, and BST's multi-hot
-lookups) computes distances, affinities, LSH keys, assignments,
-attention, bag sums and segment sums only through these wrappers. Each takes
-`backend`:
+attention in `models.transformer` and `models.bst`, BST's multi-hot
+lookups, and the GNNs' aggregations in `models.gnn`) computes distances,
+affinities, LSH keys, assignments, attention, bag sums and segment sums
+only through these wrappers. Each takes `backend`:
 
   "auto"    the CUDA kernel for tensors on the card, the plain PyTorch
             version (`kernels.ref`) for tensors on the CPU;

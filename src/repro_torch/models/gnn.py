@@ -1,0 +1,210 @@
+"""Message-passing GNNs of the four assigned architectures, ported from the
+JAX package's `models/gnn.py` with the same parameter tree (the layers as
+a list, one dict a layer) and cast points:
+
+  gin-tu            5 layers, d=64, sum aggregator, learnable eps
+  graphsage-reddit  2 layers, d=128, mean aggregator (+ real neighbor sampler)
+  meshgraphnet      15 layers, d=128, edge+node MLPs (2-layer), residual
+  graphcast         encoder-processor(16 x d=512)-decoder, n_vars outputs
+
+Graphs arrive as a GraphBatch of (node_feat, edge_src, edge_dst [,
+edge_feat, graph_ids]); an edge whose source is -1 is padding, wherever it
+sits. Every segment sum, the aggregation of each layer, the mean's count
+and the graph-level pool, goes through `kernels.ops.segment_matmul` (the
+hand-written `csrc/segment_matmul.cu` on the card), keyed by each edge's
+destination where its source is valid and by -1 where it is not: pads and
+destinations outside [0, N) fall into the kernel's overflow bin and are
+never read. The kernel sums in f32 and rounds once, so in bf16 the port's
+aggregate is the better rounded of the two (the JAX model sums in the
+message's dtype, `jax.ops.segment_sum`). Every entry point takes `backend`
+("auto" | "ref" | "kernel") and hands it down to the op.
+
+Forward only: training waits for backward kernels (ROADMAP A16). The JAX
+model's `lax.scan` over stacked layers is a loop here; `remat` is kept in
+the config and has no effect without a backward pass, and the sharding
+constraints (`constrain`) have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch import random as trandom
+from repro_torch.core.alid import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+class GraphBatch(NamedTuple):
+    node_feat: torch.Tensor              # (N, d_in)
+    edge_src: torch.Tensor               # (E,) int32, -1 = pad
+    edge_dst: torch.Tensor               # (E,) int32, -1 = pad
+    edge_feat: Optional[torch.Tensor] = None   # (E, d_edge)
+    graph_ids: Optional[torch.Tensor] = None   # (N,) for batched small graphs
+    n_graphs: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str                   # gin | sage | mgn | graphcast
+    n_layers: int
+    d_hidden: int
+    d_in: int
+    n_out: int
+    aggregator: str = "sum"     # sum | mean
+    mlp_layers: int = 2
+    d_edge_in: int = 4          # raw edge features (mgn/graphcast stub:
+                                # displacement)
+    graph_level: bool = False   # pool to per-graph outputs (molecule shape)
+    remat: bool = True          # the JAX model's per-layer checkpoint; no
+                                # effect in a forward pass
+    dtype: Any = torch.float32
+
+
+def _aggregate(msg, dst, n_nodes, aggregator, valid, backend="auto"):
+    """Messages summed (or averaged) into their destinations: (n_nodes, d)
+    in msg's dtype. An edge counts where `valid` (its source is not a pad)
+    and its destination lies in [0, n_nodes); the others are keyed -1 and
+    skipped by the op, never read. The mean divides by the count of such
+    edges, itself a segment sum over the same keys (f32, exact up to
+    2**24), with isolated nodes divided by 1."""
+    key = torch.where(valid, dst, -1)
+    out = ops.segment_matmul(msg, key, n_nodes, backend=backend)
+    if aggregator == "mean":
+        ones = torch.ones((key.shape[0], 1), dtype=torch.float32,
+                          device=key.device)
+        cnt = ops.segment_matmul(ones, key, n_nodes, backend=backend)
+        out = out / torch.clamp(cnt, min=1.0).to(msg.dtype)
+    return out
+
+
+def sharded_message_pass(h, edge_fn, src, dst, valid, n_nodes, aggregator,
+                         edge_feat=None, backend="auto"):
+    """One round of message passing: edge_fn(h[src], h[dst], edge_feat) ->
+    (messages, new edge state), the messages aggregated into their
+    destinations. `edge_fn=None` sends h[src] and keeps the edge state (GIN
+    and SAGE), and then h[dst] is never gathered: at ogb_products it would
+    be another (E, d) array, 15.8 GB at GIN's width.
+
+    This is the JAX function's branch without a mesh. Its shard_map branch
+    (node features all-gathered once a layer, partial sums
+    psum-scattered) waits for the multi-device engine (ROADMAP A13)."""
+    if edge_fn is None:
+        msg, e_out = h[src], edge_feat
+    else:
+        msg, e_out = edge_fn(h[src], h[dst], edge_feat)
+    return _aggregate(msg, dst, n_nodes, aggregator, valid, backend), e_out
+
+
+def _mlp_sizes(cfg: GNNConfig, d_in: int, d_out: int) -> tuple[int, ...]:
+    return (d_in,) + (cfg.d_hidden,) * (cfg.mlp_layers - 1) + (d_out,)
+
+
+def init_params(rng, cfg: GNNConfig, device="cuda") -> dict:
+    """The JAX package's `init_params(rng, cfg)`, drawn with the port's
+    threefry on `device`: the same keys, the same weights (normal draws
+    within the ulps of `random.normal`); `layers` is a list of the JAX
+    tree's stacked leaves, one dict a layer."""
+    dev = resolve_device(device)
+    d, dt = cfg.d_hidden, cfg.dtype
+    ks = iter(trandom.split(rng, 4 + 4 * cfg.n_layers))
+
+    def mlp(sizes):
+        return L.mlp_init(next(ks), sizes, dt, device=dev)
+
+    p: dict = {"encoder": mlp((cfg.d_in, d, d))}
+    if cfg.kind in ("mgn", "graphcast"):
+        p["edge_encoder"] = mlp((cfg.d_edge_in, d, d))
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {}
+        if cfg.kind == "gin":
+            lp["eps"] = torch.zeros((), dtype=torch.float32, device=dev)
+            lp["mlp"] = mlp(_mlp_sizes(cfg, d, d))
+        elif cfg.kind == "sage":
+            lp["w_self"] = L.he_init(next(ks), (d, d), dt, device=dev)
+            lp["w_nbr"] = L.he_init(next(ks), (d, d), dt, device=dev)
+            lp["b"] = torch.zeros((d,), dtype=dt, device=dev)
+        else:  # mgn / graphcast processor layer
+            lp["edge_mlp"] = mlp(_mlp_sizes(cfg, 3 * d, d))
+            lp["node_mlp"] = mlp(_mlp_sizes(cfg, 2 * d, d))
+        layers.append(lp)
+    p["layers"] = layers
+    p["decoder"] = mlp((d, d, cfg.n_out))
+    return p
+
+
+class Edges(NamedTuple):
+    """A batch's edges as every layer reads them: the gather indices (pads
+    read node 0), the destinations and the validity (source not a pad)."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    valid: torch.Tensor
+
+
+def edges_of(g: GraphBatch) -> Edges:
+    valid = g.edge_src >= 0
+    return Edges(src=torch.where(valid, g.edge_src, 0),
+                 dst=torch.where(valid, g.edge_dst, 0), valid=valid)
+
+
+def apply_layer(lp: dict, cfg: GNNConfig, h: torch.Tensor,
+                e: Optional[torch.Tensor], edges: Edges,
+                backend: str = "auto") -> tuple:
+    """One message-passing layer, the body of the JAX model's scan:
+    (h, e) -> (h, e)."""
+    n = h.shape[0]
+    src, dst, valid = edges
+    if cfg.kind == "gin":
+        agg, _ = sharded_message_pass(h, None, src, dst, valid, n, "sum",
+                                      backend=backend)
+        # jnp promotes the f32 scalar (1 + eps) times a bf16 h to f32, so
+        # a bf16 GIN layer computes its MLP in f32 (torch would keep bf16)
+        x = (1.0 + lp["eps"]) * h.float() + agg
+        h = L.mlp_apply(lp["mlp"], x, act=torch.relu, final_act=True)
+    elif cfg.kind == "sage":
+        agg, _ = sharded_message_pass(h, None, src, dst, valid, n, "mean",
+                                      backend=backend)
+        h = torch.relu(L.dense(h, lp["w_self"]) + L.dense(agg, lp["w_nbr"])
+                       + lp["b"])
+        h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True),
+                            min=1e-6)
+    else:  # mgn / graphcast
+        def edge_fn(hs, hd, ef):
+            e_new = ef + L.mlp_apply(lp["edge_mlp"],
+                                     torch.cat([ef, hs, hd], -1))
+            return e_new, e_new
+        agg, e = sharded_message_pass(h, edge_fn, src, dst, valid, n,
+                                      cfg.aggregator, edge_feat=e,
+                                      backend=backend)
+        h = h + L.mlp_apply(lp["node_mlp"], torch.cat([h, agg], -1))
+    return h, e
+
+
+def forward(params: dict, cfg: GNNConfig, g: GraphBatch,
+            backend: str = "auto") -> torch.Tensor:
+    """Node outputs (N, n_out), or per-graph outputs (n_graphs, n_out) with
+    `cfg.graph_level`, in the model's dtype (f32 for a bf16 GIN, as the
+    JAX promotion has it)."""
+    n = g.node_feat.shape[0]
+    edges = edges_of(g)
+    h = L.mlp_apply(params["encoder"], g.node_feat.to(cfg.dtype))
+    e = None
+    if cfg.kind in ("mgn", "graphcast"):
+        ef = g.edge_feat if g.edge_feat is not None else torch.zeros(
+            (g.edge_src.shape[0], cfg.d_edge_in), dtype=cfg.dtype,
+            device=h.device)
+        e = L.mlp_apply(params["edge_encoder"], ef.to(cfg.dtype))
+    for lp in params["layers"]:
+        h, e = apply_layer(lp, cfg, h, e, edges, backend)
+    out = L.mlp_apply(params["decoder"], h)
+    if cfg.graph_level:
+        gids = g.graph_ids if g.graph_ids is not None else torch.zeros(
+            (n,), dtype=torch.int32, device=out.device)
+        out = ops.segment_matmul(out, gids, g.n_graphs, backend=backend)
+    return out
+

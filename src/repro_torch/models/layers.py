@@ -1,4 +1,4 @@
-"""Building blocks of the LMs and BST, as the JAX package's
+"""Building blocks of the LMs, BST and the GNNs, as the JAX package's
 `models/layers.py` computes them: activations in the model's dtype,
 products accumulated in f32 and rounded once, norms in f32. The
 activations are jax.nn's: `gelu` is its tanh form (jax's default;
@@ -39,7 +39,15 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     product, outside any kernel, as the JAX package leaves it to XLA: f32
     inputs multiply in f32 (callers keep TF32 off), bf16 ones accumulate
     in f32 and round once; a bias is added to the f32 product before that
-    rounding."""
+    rounding.
+
+    With a bias the product runs on f32 copies of x and w, as the JAX
+    package's f32 product plus bias rounds: for a bf16 x that is a copy
+    twice x's size beside it, plus the f32 product. At edge-level widths
+    this dominates the GNNs' memory: MeshGraphNet's edge MLP at
+    ogb_products takes a (61.9M, 3 x 128) bf16 input, 47.5 GB, whose f32
+    copy alone is 95 GB: that cell does not fit one 80 GB card, and
+    `chip_smoke.py` runs MeshGraphNet and GraphCast at full_graph_sm."""
     if b is None:
         return torch.matmul(x, w).to(x.dtype)
     out = torch.matmul(x.float(), w.float()).add_(b)

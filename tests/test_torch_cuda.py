@@ -8,7 +8,8 @@ in its own order: its keys may differ only where z / seg_len lies within
 most one pair in 10,000 may. Small shapes with ragged tails;
 chip_smoke.py checks the main path's shapes. The online path (one-lane
 re-convergences) runs through the kernels and the plain versions to
-bit-equal states.
+bit-equal states, and so do the GNNs' forwards (every aggregation through
+`segment_matmul`).
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed: `PYTHONPATH=src python -m pytest -q -m cuda
@@ -746,6 +747,58 @@ def test_bst_serve_kernel_matches_plain(dev):
     got, want = (make_bst_retrieval_step(cfg, backend=b)(params, user)
                  for b in ("kernel", "ref"))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -------------------------------------------------------------- GNNs ----
+GNN_CASES = [("gin-tu", torch.float32, False),
+             ("graphsage-reddit", torch.float32, False),
+             ("meshgraphnet", torch.bfloat16, False),
+             ("graphcast", torch.float32, False),
+             ("graphsage-reddit", torch.float32, True),
+             ("meshgraphnet", torch.float32, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype,graph_level", GNN_CASES)
+def test_gnn_forward_kernel_equals_plain(dev, arch, dtype, graph_level):
+    """Each GNN's SMOKE_CONFIG forward on the card through the segment
+    kernel and through backend="ref": bit-equal (the segment sum is the
+    only op that differs, and the kernel is bit-equal to its plain
+    version), the kernel launched once a layer (twice for SAGE's mean),
+    and once more for the graph-level pool. A 2,000-node full graph with
+    its -1 pad edges and edge features, or 16 molecules."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import molecule_batch, \
+        synth_full_graph_batch
+    from repro_torch.models import gnn as gnn_m
+    from repro_torch.random import PRNGKey
+    cfg = dataclasses.replace(get_arch(arch).SMOKE_CONFIG, dtype=dtype,
+                              graph_level=graph_level)
+    if graph_level:
+        b = molecule_batch(16, 30, 64, cfg.d_in, cfg.n_out, 0, 1,
+                           device=dev)
+        g = gnn_m.GraphBatch(b["node_feat"], b["edge_src"], b["edge_dst"],
+                             graph_ids=b["graph_ids"], n_graphs=16)
+    else:
+        b = synth_full_graph_batch(2000, 30_000, cfg.d_in, "node_mse",
+                                   cfg.n_out, 3, with_edge_feat=True,
+                                   device=dev)
+        g = gnn_m.GraphBatch(b["node_feat"], b["edge_src"], b["edge_dst"],
+                             b["edge_feat"])
+    params = gnn_m.init_params(PRNGKey(0), cfg, device=dev)
+    before = ops.launch_counts()["segment_matmul"]
+    got = gnn_m.forward(params, cfg, g)
+    per_layer = 2 if cfg.aggregator == "mean" else 1
+    assert ops.launch_counts()["segment_matmul"] == before + \
+        per_layer * cfg.n_layers + int(graph_level)
+    want = gnn_m.forward(params, cfg, g, backend="ref")
+    assert ops.launch_counts()["segment_matmul"] == before + \
+        per_layer * cfg.n_layers + int(graph_level)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, want)
 
 
 # ------------------------------------------------- split decode, BST path ----

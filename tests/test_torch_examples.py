@@ -2,7 +2,10 @@
 twin of `examples/quickstart.py`, with --device cpu --quick finds the
 clusters and AVG-F of the JAX package's replicated fit on the same data
 and config (what `examples/quickstart.py --quick` prints first), and its
-sharded and streamed fits give the replicated fit's labels."""
+sharded and streamed fits give the replicated fit's labels;
+`examples/torch_gnn_cluster.py`, the twin of `examples/gnn_cluster.py`,
+with --device cpu embeds the same graph as the JAX example and finds
+clusters."""
 
 import importlib.util
 import re
@@ -53,3 +56,51 @@ def test_torch_quickstart_runs_on_the_cpu(capsys):
     assert re.search(r"ALID AVG-F = ([0-9.]+)", ours).group(1) == \
         f"{avg_f1_score(data.labels, want.labels):.3f}"
     assert np.isfinite(res.densities).all()
+
+
+def test_torch_gnn_cluster_runs_on_the_cpu(capsys):
+    """`examples/torch_gnn_cluster.py --device cpu`: an untrained SAGE
+    embeds the community graph, within f32 rounding of the JAX example's
+    embedding, and the port's fit finds clusters on it. Its cluster count
+    is printed beside the JAX example's: the embeddings differ in the last
+    bits and the LSH salts fold them (ROADMAP C), so the counts may
+    differ."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_gnn_cluster", EXAMPLES / "torch_gnn_cluster.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res, f = mod.main(["--device", "cpu"])
+    ours = capsys.readouterr().out
+    assert re.search(r"ALID found (\d+) dominant node clusters", ours) \
+        .group(1) == str(res.n_clusters)
+    assert res.n_clusters > 0 and 0.0 < f <= 1.0
+    assert np.isfinite(res.densities).all()
+
+    from repro.models import gnn as jgnn
+    feats, src, dst, comm = mod.community_graph()
+    cfg = jgnn.GNNConfig(name="sage-demo", kind="sage", n_layers=2,
+                         d_hidden=32, d_in=feats.shape[1], n_out=16,
+                         remat=False)
+    jemb = np.asarray(jgnn.forward(
+        jgnn.init_params(jax.random.PRNGKey(0), cfg), cfg,
+        jgnn.GraphBatch(node_feat=feats, edge_src=src, edge_dst=dst)))
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.random import PRNGKey
+    tcfg = tgnn.GNNConfig(name="sage-demo", kind="sage", n_layers=2,
+                          d_hidden=32, d_in=feats.shape[1], n_out=16,
+                          remat=False)
+    temb = tgnn.forward(
+        tgnn.init_params(PRNGKey(0), tcfg, device="cpu"), tcfg,
+        tgnn.GraphBatch(node_feat=torch.tensor(feats),
+                        edge_src=torch.tensor(src),
+                        edge_dst=torch.tensor(dst))).numpy()
+    assert np.abs(temb - jemb).max() <= 1e-5 * np.abs(jemb).max()
+    from repro.data import auto_lsh_params as jax_lsh_params
+    want = jfit(jemb, ALIDConfig(a_cap=96, delta=96,
+                                 lsh=jax_lsh_params(jemb),
+                                 seeds_per_round=16, max_rounds=30),
+                jax.random.PRNGKey(1))
+    print(f"torch_gnn_cluster: {res.n_clusters} clusters, AVG-F {f:.3f}; "
+          f"examples/gnn_cluster.py: {want.n_clusters} clusters, AVG-F "
+          f"{avg_f1_score(comm, want.labels):.3f}")
+    assert want.n_clusters > 0

@@ -15,10 +15,13 @@ from repro_torch.core.engine import fit, make_engine
 from repro_torch.kernels import ops
 from repro_torch.configs import get_arch
 from repro_torch.convert import bst_params_from_numpy, \
-    lid_state_from_numpy, lm_params_from_numpy, lsh_tables_from_numpy
+    gnn_params_from_numpy, lid_state_from_numpy, lm_params_from_numpy, \
+    lsh_tables_from_numpy
+from repro_torch.data import graphs
 from repro_torch.data.recsys import bst_batch
 from repro_torch.launch import full_matrix, run_palid
 from repro_torch.models import bst as bst_m
+from repro_torch.models import gnn as gnn_m
 from repro_torch.launch import serve as lm_serve
 from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.random import PRNGKey
@@ -64,7 +67,9 @@ def test_port_never_imports_jax_or_the_jax_package():
             "kernels/embedding_bag.py", "kernels/segment_matmul.py",
             "models/bst.py", "configs/bst.py", "data/recsys.py",
             "train/steps.py", "checkpoint/manager.py", "core/online.py",
-            "serve/live.py"} <= names
+            "serve/live.py", "models/gnn.py", "data/graphs.py",
+            "configs/gin_tu.py", "configs/graphsage_reddit.py",
+            "configs/meshgraphnet.py", "configs/graphcast.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -86,17 +91,28 @@ def test_entry_points_default_to_the_card():
     baselines (sea_detect, affinity_propagation, kmeans,
     spectral_clustering, mean_shift, full_matrix), LM serving
     (init_params, init_cache, generate, BatchServer, launch.serve), BST
-    (init_params, bst_batch) and the converters of JAX state
-    (lm_params_from_numpy, bst_params_from_numpy, lsh_tables_from_numpy,
-    lid_state_from_numpy) run on CUDA; where there is no card they raise
-    instead of running on the CPU."""
+    (init_params, bst_batch), the GNNs (init_params, synth_graph,
+    molecule_batch, synth_full_graph_batch) and the converters of JAX
+    state (lm_params_from_numpy, bst_params_from_numpy,
+    gnn_params_from_numpy, lsh_tables_from_numpy, lid_state_from_numpy)
+    run on CUDA; where there is no card they raise instead of running on
+    the CPU."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     res = _tiny_clustering()
     lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
     lm_params = init_params(PRNGKey(0), lm, device="cpu")
     bst = get_arch("bst").SMOKE_CONFIG
+    gnn = get_arch("gin-tu").SMOKE_CONFIG
     tree = {"w": np.ones((2, 3), np.float32), "blocks": [{"b": np.zeros(2)}]}
+    gnn_tree = {"w": np.ones((2, 3), np.float32),
+                "layers": {"eps": np.zeros(2, np.float32)}}
     if torch.cuda.is_available():
+        assert gnn_m.init_params(PRNGKey(0), gnn)["decoder"]["w0"].is_cuda
+        assert graphs.synth_graph(9, 20).indices.is_cuda
+        assert graphs.molecule_batch(2, 3, 4, 2, 2, 0, 0)["edge_src"].is_cuda
+        assert graphs.synth_full_graph_batch(
+            9, 20, 2, "node_ce", 2, 0)["node_feat"].is_cuda
+        assert gnn_params_from_numpy(gnn_tree)["layers"][1]["eps"].is_cuda
         assert bst_m.init_params(PRNGKey(0), bst)["mlp"]["w0"].is_cuda
         assert bst_batch(0, batch=2, seq_len=3, item_vocab=9,
                          cat_vocab=4)["seq_items"].is_cuda
@@ -132,6 +148,12 @@ def test_entry_points_default_to_the_card():
              lambda: bst_m.init_params(PRNGKey(0), bst),
              lambda: bst_batch(0, batch=2, seq_len=3, item_vocab=9,
                                cat_vocab=4),
+             lambda: gnn_m.init_params(PRNGKey(0), gnn),
+             lambda: graphs.synth_graph(9, 20),
+             lambda: graphs.molecule_batch(2, 3, 4, 2, 2, 0, 0),
+             lambda: graphs.synth_full_graph_batch(9, 20, 2, "node_ce", 2,
+                                                   0),
+             lambda: gnn_params_from_numpy(gnn_tree),
              lambda: lm_params_from_numpy(tree),
              lambda: bst_params_from_numpy(tree),
              lambda: lsh_tables_from_numpy(np.ones((1, 1, 2)), np.ones((1, 1)),

@@ -211,11 +211,15 @@ def test_moe_and_unported_archs_raise():
                     n_kv_heads=1, head_dim=8, d_ff=8, vocab=8,
                     moe=object())
     assert len(ARCH_IDS) == 10
+    ported = set(ARCHS) | {"bst", "gin-tu", "graphsage-reddit",
+                           "meshgraphnet", "graphcast"}
     for arch in ARCH_IDS:
-        if arch in ARCHS or arch == "bst":
+        if arch in ported:
             assert get_arch(arch).CONFIG.name == arch
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError,
+                               match=r"the MoE layers \(ROADMAP A16\)"):
                 get_arch(arch)
+    assert len(ported) == 8
     with pytest.raises(KeyError):
         get_arch("gpt-5")
