@@ -24,7 +24,16 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    32, 40, 100), d = 256, the in-sweep refresh, cap 560 and the "global"
    route (cap 2,000 x d 256), NaN-poisoned padded slots, and lanes
    converged on entry (unchanged); its one-step, 8-step and converged
-   calls timed;
+   calls timed; then the four fit kernels on bf16 rows (bf16 point
+   storage, ROADMAP B P1) at the main path's shapes: lsh_hash at
+   1,000,000 x 128 (stream route) and 3,584 x 128 (probe route),
+   roi_filter at 32 x 7,168 x 128, affinity_matvec at 32 x 240 x 240 and
+   32 x 240 x 112 (smem route) and at d = 2,048 (global route), lid_sweep
+   at 32 x (240, 128) (smem route) and 2 x (2,000, 256) (global route),
+   each bit-equal to its plain version at bf16 (lsh_hash within the
+   key-flip rule) and to the f32 kernel on the upcast rows (lsh_hash
+   too), timed beside the f32 case, with a bound that reads the rows at 2
+   bytes;
 3. end-to-end parity: one fit through the kernels and one through the plain
    versions, both on the card, at n = 20,000 x 128: equal canonical labels
    and round counts, densities within tolerance;
@@ -40,7 +49,10 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    through backend="ref" are the CPU tests', the same code bit for bit);
    every streamed run took no fallback (`PipelineStats`: no
    retry, corruption, tier fallback or reader death, and with the reader
-   on, every shard came from the reader, none inline);
+   on, every shard came from the reader, none inline); then the same data
+   at bf16 storage: the replicated fit through the kernels and through
+   backend="ref", the sharded engine and the streamed engine (default
+   pipeline), all bit-identical (labels, rounds, densities);
 4. the full-width fit, SIFT1M's shape (1,000,000 x 128 f32) in the paper's
    size-limited regime, with every fit kernel's launch count, which must
    be > 0;
@@ -74,6 +86,18 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    runs at n = 20,000 and 4d's full-width crash and resume, each read on
    its own, are added to the kernel table's (run_palid's toy fits are
    not);
+4e. the full-width fit at bf16 storage (`EngineSpec(dtype="bfloat16")`,
+   phase 4's data and config) on the replicated and the sharded engine,
+   the four fit kernels launched on each, wall time, peak device memory,
+   clusters and AVG-F printed; the replicated bf16 fit bit-identical to
+   the f32 fit of the bf16-rounded rows with k pinned to its k (labels,
+   rounds, densities, support ids and weights: the storage identity);
+   then 5b's short arm on it: an 8-row insert and a support-member delete
+   through the kernels and through backend="ref", state arrays bit-equal,
+   commit, rollback(0) and forward again bit-identical; and `run_palid
+   --quick --dtype bfloat16` on the card; the bf16 runs' launches (3b,
+   4e, the online arm) are added to the kernel table's (each kernel's
+   `bf16` entry holds them and its bf16 times);
 5. serving at full width on phase 4's Clustering (2,048 clusters x 240
    supports x 128): the assign kernels against their plain version on 256
    queries of the serving mix (dataset rows, jittered rows, far noise; the
@@ -271,6 +295,14 @@ PROBE_ROWS = 32 * 112
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The script's elapsed seconds at the end of a phase."""
+    print(f"[time] {what} done at {time.perf_counter() - _START:.1f}s")
 
 
 def need(cond: bool, what: str) -> None:
@@ -684,6 +716,195 @@ def check_lid_sweep(dev, out):
           "iterations)")
 
 
+# ----------------------------------------------- bf16 point storage ----
+def bf16_entry(t: dict, err: float, b: tuple, f32_ms: float,
+               **extra) -> dict:
+    """A kernel's bf16 case for the table: its timings, error and bound
+    beside the f32 case's device time."""
+    return dict(ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+                max_abs_err=err, bound_ms=b[0], bound_by=b[1],
+                f32_ms=f32_ms, **extra)
+
+
+def bf16_line(name: str, t: dict, b: tuple, f32_ms: float) -> str:
+    return (f"[bf16] {name} {time_line(t)} bound_ms={b[0]:.5f} ({b[1]}, "
+            f"rows at 2 bytes) f32 kernel_ms={f32_ms:.4f}")
+
+
+def check_bf16_kernels(dev, out, data):
+    """Phase 2's bf16 cases (ROADMAP B P1): each of the fit's four kernels
+    on bf16 rows at the main path's shapes, against its plain version
+    (bitwise; lsh_hash within the key-flip rule) and against the f32
+    kernel on the upcast rows (bitwise, lsh_hash included), timed beside
+    the f32 case with a bound that reads the rows at 2 bytes."""
+    from repro_torch.core.lid import refresh_ax
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
+    from repro_torch.kernels.affinity_matvec import plan as mv_plan
+    from repro_torch.kernels.lid_sweep import lid_sweep_cuda
+    from repro_torch.kernels.lid_sweep import plan as sweep_plan
+    from repro_torch.kernels.lsh_hash import key_flips, lsh_hash_cuda
+    from repro_torch.kernels.lsh_hash import plan as lsh_plan
+    from repro_torch.kernels.roi_filter import roi_filter_cuda
+    from repro_torch.lsh.pstable import make_projections
+    from repro_torch.random import PRNGKey, split
+
+    def bf16(t):
+        return ops.to_storage(t, "bfloat16")
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(p, q) for p, q in zip(a, b))
+        return torch.equal(a, b)
+
+    # lsh_hash: the store build's 1,000,000 rows (stream) and the probe's
+    # 3,584 (probe), the full-width fit's own points rounded to bf16
+    points, lshp = data
+    xb = bf16(torch.as_tensor(points, device=dev))
+    n, d = xb.shape
+    n_tables, n_proj, seg = lshp.n_tables, lshp.n_projections, lshp.seg_len
+    proj, bias = make_projections(split(PRNGKey(0))[1], lshp, d, dev)
+    lm = n_tables * n_proj
+    for rows in (n, PROBE_ROWS):
+        x = xb[:rows].contiguous()
+        got = lsh_hash_cuda(x, proj, bias, seg)
+        want = ref.lsh_hash_ref(x, proj, bias, seg)
+        up = lsh_hash_cuda(x.float(), proj, bias, seg)
+        torch.cuda.synchronize()
+        n_flip, near = key_flips(x.float(), proj, bias, seg, got, want)
+        route = lsh_plan(rows, d, n_tables, n_proj).route
+        print(f"[bf16] lsh_hash n={rows} d={d} plan={route}: flips against "
+              f"the plain version {n_flip}, near an integer {near}; equal "
+              f"to the f32 kernel on the upcast rows {torch.equal(got, up)}")
+        need(torch.equal(got, up), f"lsh_hash bf16 differs from the f32 "
+             f"kernel on the upcast rows ({route})")
+        need(near and n_flip <= max(1.0, 1e-5 * rows * n_tables),
+             f"lsh_hash bf16: {n_flip} flips outside the rule ({route})")
+        t = timings(lambda: lsh_hash_cuda(x, proj, bias, seg),
+                    lambda: ref.lsh_hash_ref(x, proj, bias, seg))
+        b = bound(2 * rows * d + 4 * (lm * d + lm + rows * n_tables),
+                  2 * rows * lm * d)
+        f32_ms = (out["lsh_hash"]["ms"] if rows == n
+                  else out["lsh_hash"]["probe"]["ms"])
+        entry = bf16_entry(t, n_flip / float(rows * n_tables), b, f32_ms,
+                           plan=route)
+        if rows == n:
+            out["lsh_hash"]["bf16"] = entry
+        else:
+            out["lsh_hash"]["bf16"]["probe"] = entry
+        print(bf16_line(f"lsh_hash n={rows}", t, b, f32_ms))
+    del xb, got, want, up
+
+    # roi_filter: check_roi_filter's inputs, the candidates rounded
+    bsz, per_seed, d = 32, 112 * 4 * 16, 128
+    g = torch.Generator(device="cpu").manual_seed(2)
+    vc = bf16(torch.randn((bsz, per_seed, d), generator=g).to(dev))
+    center = torch.randn((bsz, d), generator=g).to(dev)
+    radius = torch.full((bsz,), 0.98 * np.sqrt(2 * d), device=dev)
+    valid = (torch.rand((bsz, per_seed), generator=g) < 0.7).to(dev)
+    got = roi_filter_cuda(vc, center, radius, valid)
+    want = ref.roi_filter_ref(vc, center, radius, valid)
+    up = roi_filter_cuda(vc.float(), center, radius, valid)
+    err = float((got[0] - want[0]).abs().max())
+    print(f"[bf16] roi_filter B={bsz} C={per_seed} d={d}: bitwise equal to "
+          f"the plain version {same(got, want)}, to the f32 kernel on the "
+          f"upcast rows {same(got, up)}")
+    need(same(got, want) and same(got, up), "roi_filter bf16 differs")
+    t = timings(lambda: roi_filter_cuda(vc, center, radius, valid),
+                lambda: ref.roi_filter_ref(vc, center, radius, valid))
+    rows = bsz * per_seed
+    b = bound(2 * rows * d + 4 * bsz * (d + 1) + rows * (1 + 9),
+              3 * rows * d)
+    out["roi_filter"]["bf16"] = bf16_entry(t, err, b, out["roi_filter"]["ms"])
+    print(bf16_line("roi_filter", t, b, out["roi_filter"]["ms"]))
+    del vc, got, want, up
+
+    # affinity_matvec: the fit's two shapes (smem route), then d = 2,048
+    # read in place (the global route)
+    bsz, cap, a_cap, d = 32, 240, 112, 128
+    k = k_for(d)
+    st = live_states(bsz, cap, d, dev, seed=3)
+    v = bf16(st.v_beta)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    w = torch.rand((bsz, cap), generator=g).to(dev)
+    shapes = {}
+    gb = torch.Generator(device="cpu").manual_seed(2048)
+    wide = bf16(torch.randn((4, cap, 2048), generator=gb).to(dev))
+    wide_i = torch.arange(cap, dtype=torch.int32, device=dev).repeat(4, 1)
+    for n_c, q, qi, wc in ((cap, v, st.beta_idx, w),
+                           (a_cap, v, st.beta_idx, w),
+                           (37, wide, wide_i, w[:4])):
+        c, ci, wcc = (t_[:, :n_c].contiguous() for t_ in (q, qi, wc))
+        pl = mv_plan(q.shape[1], n_c, q.shape[2])
+        got = affinity_matvec_cuda(q, qi, c, ci, wcc, k)
+        want = ref.affinity_matvec_ref(q, qi, c, ci, wcc, k)
+        up = affinity_matvec_cuda(q.float(), qi, c.float(), ci, wcc, k)
+        print(f"[bf16] affinity_matvec B={q.shape[0]} ({q.shape[1]},"
+              f"{q.shape[2]}) x ({n_c},{q.shape[2]}) plan={pl.route}: "
+              f"bitwise equal to the plain version {same(got, want)}, to "
+              f"the f32 kernel on the upcast rows {same(got, up)}")
+        need(same(got, want) and same(got, up), f"affinity_matvec bf16 "
+             f"differs ({pl.route}, n={n_c})")
+        if q is wide:
+            continue
+        t = timings(lambda: affinity_matvec_cuda(q, qi, c, ci, wcc, k),
+                    lambda: ref.affinity_matvec_ref(q, qi, c, ci, wcc, k))
+        b = bound(bsz * (2 * (cap + n_c) * d + 4 * (2 * cap + 2 * n_c)),
+                  bsz * (2 * cap * n_c * d + 2 * (cap + n_c) * d
+                         + 8 * cap * n_c))
+        f32 = out["affinity_matvec"]["shapes"][f"32x{cap}x{n_c}"]["ms"]
+        shapes[n_c] = bf16_entry(t, float((got - want).abs().max()), b, f32)
+        print(bf16_line(f"affinity_matvec n={n_c}", t, b, f32))
+    out["affinity_matvec"]["bf16"] = dict(
+        shapes[cap], shapes={f"32x{cap}x{n}": e for n, e in shapes.items()})
+    del wide
+
+    # lid_sweep: the fit's 32 x (240, 128) (smem route, clusters of 4)
+    # and rows read in place (cap 2,000 x d 256, global route)
+    timed = None
+    routes = set()
+    for bsz, cap, d, steps in ((32, 240, 128, 8), (2, 2000, 256, 4)):
+        k = k_for(d)
+        st = live_states(bsz, cap, d, dev, seed=cap + d)
+        st = refresh_ax(st._replace(v_beta=bf16(st.v_beta)), k,
+                        backend="ref")
+        kw = dict(n_steps=steps, max_iters=256, tol=1e-5)
+        got, want = _sweep_pair(st, k, **kw)
+        up = lid_sweep_cuda(st.v_beta.float(), *_sweep_args(st, k)[1:],
+                            **kw)
+        pl = sweep_plan(bsz, cap, d)
+        routes.add(pl.route)
+        print(f"[bf16] lid_sweep B={bsz} cap={cap} d={d} plan={pl.route} "
+              f"cluster={pl.cluster}: bitwise equal to the plain version "
+              f"{same(got, want)}, to the f32 kernel on the upcast rows "
+              f"{same(got, up)}, iters={int(got[2].sum())}")
+        need(int(want[2].min()) > 1, "lid_sweep bf16: no iteration")
+        need(same(got, want) and same(got, up), f"lid_sweep bf16 differs "
+             f"({pl.route})")
+        if timed is None:
+            err = max(float((got[0] - want[0]).abs().max()),
+                      float((got[1] - want[1]).abs().max()))
+            timed = (st, k, kw, got, err)
+    need(routes == {"smem", "global"}, f"lid_sweep bf16 routes {routes}")
+    st, k, kw, got, err = timed
+    args = _sweep_args(st, k)
+    t = timings(lambda: lid_sweep_cuda(*args, **kw),
+                lambda: ref.lid_sweep_ref(*args, kw["n_steps"],
+                                          kw["max_iters"], kw["tol"]),
+                plain_in_graph=False)
+    bsz, cap, d = st.v_beta.shape
+    steps = float((got[2] - st.n_iters).sum())
+    b = bound(2 * bsz * cap * d + 4 * bsz * (4 * cap + 2 * cap) + 8 * bsz,
+              steps * (2 * cap * d + 16 * cap) + bsz * 2 * cap * d)
+    out["lid_sweep"]["bf16"] = bf16_entry(t, err, b, out["lid_sweep"]["ms"])
+    print(bf16_line("lid_sweep 8 steps", t, b, out["lid_sweep"]["ms"]))
+
+
+def _sweep_args(st, k) -> tuple:
+    return (st.v_beta, st.beta_idx, st.beta_mask, st.x, st.ax, st.n_iters,
+            st.converged, k)
+
+
 # ---------------------------------------------------------------- fits ----
 def cli_blobs(n: int, d: int, clusters: int = 20):
     """`run_palid`'s synthetic data rule: 40% of the points in `clusters`
@@ -908,6 +1129,64 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     return out[("streamed-default", "auto")]
 
 
+def bitwise_fit(a, b) -> tuple[bool, str]:
+    """Labels, rounds and densities equal bit for bit."""
+    labels = np.array_equal(a.labels, b.labels)
+    dens = (a.densities.shape == b.densities.shape and np.array_equal(
+        a.densities.view(np.uint32), b.densities.view(np.uint32)))
+    ok = labels and a.n_rounds == b.n_rounds and dens
+    return ok, (f"labels_bitwise={labels} rounds {a.n_rounds}/{b.n_rounds} "
+                f"clusters {a.n_clusters}/{b.n_clusters} "
+                f"densities_bitwise={dens}")
+
+
+def check_engine_parity_bf16(dev, spec, cfg) -> dict:
+    """Phase 3b at bf16 storage: the replicated fit through the kernels,
+    through backend="ref", the sharded engine (8 shards) and the streamed
+    engine in its default pipeline configuration, at n = 20,000 x 128:
+    bit-identical labels, rounds and densities (the contract of the JAX
+    package's test_bf16_engine_parity_interpret). Returns the kernels'
+    launches."""
+    import tempfile
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.kernels import ops
+    from repro_torch.random import PRNGKey
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="alid_bf16_") as tmp:
+        runs = (("replicated", EngineSpec(dtype="bfloat16")),
+                ("replicated-ref", EngineSpec(dtype="bfloat16",
+                                              backend="ref")),
+                ("sharded", EngineSpec(engine="sharded", n_shards=N_SHARDS,
+                                       dtype="bfloat16")),
+                ("streamed-default", EngineSpec(
+                    engine="streamed", n_shards=N_SHARDS, scratch_dir=tmp,
+                    dtype="bfloat16")))
+        base = None
+        for name, espec in runs:
+            engine = make_engine(espec, device=dev)
+            t0 = time.perf_counter()
+            res = fit(spec.points, cfg._replace(spec=espec), PRNGKey(0),
+                      engine=engine)
+            torch.cuda.synchronize()
+            if espec.engine == "streamed":
+                need_clean(engine, f"phase 3b {name} (bf16)")
+            engine.close()
+            line = (f"[parity-bf16] {name} {time.perf_counter() - t0:.2f}s "
+                    f"rounds={res.n_rounds} clusters={res.n_clusters}")
+            if base is None:
+                base = res
+                need(res.n_clusters > 0, "phase 3b bf16 found no cluster")
+                print(line)
+                continue
+            ok, why = bitwise_fit(res, base)
+            print(f"{line} against the replicated kernel fit: {why}")
+            need(ok, f"phase 3b bf16: {name} is not bit-identical to the "
+                 "replicated kernel fit")
+    return ops.launch_counts()
+
+
 def store_summary(gidx, valid, sorted_keys, perm, bsizes) -> dict:
     """A store's integer leaves as host int64 arrays."""
     def host(a):
@@ -960,6 +1239,7 @@ def full_fit_sharded(dev, spec, lshp, rep, rep_info) -> tuple:
                     | ~store.valid).all())
     bsizes = global_bucket_sizes(store).cpu().numpy()
     same_b = np.array_equal(bsizes, rep_info["bucket_sizes"])
+    rep_info["sharded_peak"] = peak
     summary = store_summary(store.global_idx, store.valid,
                             store.tables.sorted_keys, store.tables.perm,
                             bsizes)
@@ -1198,6 +1478,162 @@ def check_fault_tolerance(dev, spec, cfg, clean, full_spec, full_lshp,
 
 
 # ------------------------------------------------------------- serving ----
+def full_fit_bf16(dev, spec, lshp, rep, rep_info) -> tuple:
+    """Phase 4e: the full-width fit at bf16 storage on the replicated and
+    the sharded engine (the four fit kernels launched on each; wall time,
+    peak device memory, clusters and AVG-F printed), and the storage
+    identity: the replicated bf16 fit equals, bit for bit, the f32 fit of
+    the bf16-rounded rows with k pinned to the bf16 fit's k (labels,
+    rounds, densities, support ids and weights). Returns (the replicated
+    bf16 fit, its config, the phase's launches)."""
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width
+    from repro_torch.random import PRNGKey
+    from repro_torch.utils import avg_f1_score
+    n = spec.points.shape[0]
+    launches = dict.fromkeys(FIT_KERNELS, 0)
+    fits = {}
+    for name, espec in (("replicated", EngineSpec(dtype="bfloat16")),
+                        ("sharded", EngineSpec(engine="sharded",
+                                               n_shards=N_SHARDS,
+                                               dtype="bfloat16"))):
+        cfg = full_width.config(lshp)._replace(spec=espec)
+        engine = make_engine(espec, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(spec.points, cfg, PRNGKey(0), engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        engine.close()
+        del engine
+        counts = ops.launch_counts()
+        f32_peak = (rep_info["peak"] if name == "replicated"
+                    else rep_info.get("sharded_peak"))
+        print(f"[bf16-fit] {name} full width {n}x128 dtype=bfloat16, "
+              f"max_rounds={cfg.max_rounds} (not cut): wall={wall:.2f}s "
+              f"k={res.k:.6g} rounds={res.n_rounds} clusters="
+              f"{res.n_clusters} members={int((res.labels >= 0).sum())} "
+              f"AVG-F={avg_f1_score(spec.labels, res.labels):.4f} peak "
+              f"device memory of the fit {peak} (f32: {f32_peak}); "
+              f"launches={ {k: counts[k] for k in FIT_KERNELS} }")
+        need(res.n_clusters > 0 and np.isfinite(res.densities).all()
+             and res.labels.shape == (n,), f"4e: {name} bf16 fit output")
+        for k in FIT_KERNELS:
+            need(counts[k] > 0, f"4e: kernel {k} was never launched by the "
+                 f"{name} bf16 fit")
+            launches[k] += counts[k]
+        fits[name] = (res, cfg)
+        torch.cuda.empty_cache()
+    res16, cfg16 = fits["replicated"]
+    # the storage identity, on the card with no JAX
+    rounded = ops.to_storage(torch.as_tensor(spec.points, device=dev),
+                             "bfloat16").float().cpu().numpy()
+    cfg32 = full_width.config(lshp)._replace(k=res16.k)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    want = fit(rounded, cfg32, PRNGKey(0), device=dev)
+    counts = ops.launch_counts()
+    for k in FIT_KERNELS:
+        launches[k] += counts[k]
+    ok, why = bitwise_fit(res16, want)
+    sup = (np.array_equal(res16.support_idx, want.support_idx)
+           and np.array_equal(res16.support_w.view(np.uint32),
+                              want.support_w.view(np.uint32)))
+    print(f"[bf16-fit] replicated bf16 fit against the f32 fit of the "
+          f"bf16-rounded rows at k={res16.k:.9g} pinned "
+          f"({time.perf_counter() - t0:.2f}s): {why} "
+          f"supports_bitwise={sup}; against phase 4's f32 fit: agreement "
+          f"{agreement(res16.labels, rep.labels):.6f}, clusters "
+          f"{res16.n_clusters}/{rep.n_clusters}, k {res16.k:.9g}/"
+          f"{rep.k:.9g}")
+    need(ok and sup, "4e: the bf16 fit is not the f32 fit of the rounded "
+         "rows at its k")
+    del rounded, want, fits
+    torch.cuda.empty_cache()
+    return res16, cfg16, launches
+
+
+def check_online_bf16(dev, res, points, cfg) -> dict:
+    """5b's short arm at bf16 on 4e's fit: an 8-row insert and a
+    support-member delete through the kernels and through backend="ref"
+    on the card, the state arrays bit-equal; then commit, rollback(0) and
+    forward again, bit-identical; `lid_sweep` and `affinity_matvec` (the
+    warm LIDs and ROI refreshes) launched. Returns the launches."""
+    import tempfile
+
+    from repro_torch.core.online import OnlineClustering
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="alid_online_bf16_") as tmp:
+        t0 = time.perf_counter()
+        oc = OnlineClustering(res, points, cfg, ckpt_dir=f"{tmp}/kernel",
+                              keep=3, auto_flush=False, device=dev)
+        ref_cfg = cfg._replace(spec=cfg.spec._replace(backend="ref"))
+        plain = OnlineClustering(res, points, ref_cfg, ckpt_dir=f"{tmp}/ref",
+                                 keep=1, auto_flush=False, device=dev)
+        build_s = time.perf_counter() - t0
+        base = online_state(oc)
+        labeled = np.flatnonzero(base["labels"] >= 0)
+        rows = jittered(points, labeled, 8, np.random.default_rng(5))
+        dense = int(np.argmax(base["densities"]))
+        victim = int(base["sup_idx"][dense][base["sup_w"][dense] > 0][1])
+        moved = []
+        t0 = time.perf_counter()
+        for o in (oc, plain):
+            stats0 = o.stats.snapshot()
+            o.insert(rows)
+            o.delete([victim])
+            moved.append({key: value - stats0[key]
+                          for key, value in o.stats.snapshot().items()})
+        diff = state_diff(oc, online_state(plain))
+        print(f"[online-bf16] {oc.n_clusters} clusters, dtype "
+              f"{cfg.spec.dtype}: construction of both {build_s:.2f}s; "
+              f"8-row insert + delete of support member {victim}, kernels "
+              f"vs backend='ref' on the card ({time.perf_counter() - t0:.2f}"
+              f"s): arrays differing: {diff or 'none'}; stats moved alike: "
+              f"{moved[0] == moved[1]} {moved[0]}")
+        need(moved[0]["routed"] == 8 and moved[0]["reconverges"] > 0,
+             "online bf16: the insert was not routed and re-converged")
+        need(diff == [] and moved[0] == moved[1], f"online bf16: kernel "
+             f"and plain states differ in {diff}")
+        del plain
+        ep = oc.commit({"bf16": True})
+        mutated = online_state(oc)
+        oc.rollback(0)
+        back_diff = state_diff(oc, base)
+        oc.rollback(ep.id)
+        fwd_diff = state_diff(oc, mutated)
+        print(f"[online-bf16] commit -> epoch {ep.id}; rollback(0) "
+              f"differing from epoch 0: {back_diff or 'none'}; "
+              f"rollback({ep.id}) differing: {fwd_diff or 'none'}")
+        need(back_diff == [] and fwd_diff == [], "online bf16: rollback "
+             "round trip")
+    counts = ops.launch_counts()
+    # warm LIDs and ROI refreshes: no flush, so no hashing or filtering
+    for k in ("lid_sweep", "affinity_matvec"):
+        need(counts[k] > 0, f"online bf16: kernel {k} was never launched")
+    return counts
+
+
+def check_cli_bf16(dev) -> None:
+    """`run_palid --quick --dtype bfloat16` on the card."""
+    from repro_torch.launch import run_palid
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_palid.main(["--quick", "--dtype", "bfloat16"])
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[palid] n=")]
+    print(f"[cli-bf16] {lines}")
+    need(len(lines) == 1 and "dtype=bfloat16" in lines[0]
+         and "clusters=0 " not in lines[0], "run_palid --dtype bfloat16")
+
+
 def serving_mix(points, n: int, seed: int = 3) -> np.ndarray:
     """benchmarks/serving_latency.py's query mix on this data: dataset rows,
     rows jittered by N(0, 0.05), and far noise (uniform in [-60, 60] + 300),
@@ -3221,6 +3657,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[env] kernel build and load {time.perf_counter() - t0:.2f}s")
+    stamp("the build")
     for line in (_build.BUILD_DIR / "ptxas.txt").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
@@ -3231,9 +3668,13 @@ def main() -> int:
     check_roi_filter(dev, stats)
     check_affinity_matvec(dev, stats)
     check_lid_sweep(dev, stats)
+    check_bf16_kernels(dev, stats, (spec.points, lshp))
+    stamp("phase 2")
     check_parity_fit(dev)
     pspec, pcfg = engine_parity_data()
     clean = check_engine_parity(dev, pspec, pcfg)
+    bf16_counts = check_engine_parity_bf16(dev, pspec, pcfg)
+    stamp("phases 3, 3b")
     res, counts, rep_info = full_fit(dev, spec, lshp)
     sharded, ooc_counts, shd = full_fit_sharded(dev, spec, lshp, res,
                                                 rep_info)
@@ -3241,10 +3682,28 @@ def main() -> int:
     del shd
     stm_counts, _ = full_fit_streamed(dev, spec, lshp, rep_info, sharded)
     del sharded
+    stamp("phases 4-4c")
     fault_counts, resume_counts = check_fault_tolerance(
         dev, pspec, pcfg, clean, spec, lshp, res)
     del pspec, clean
     torch.cuda.empty_cache()
+    stamp("phase 4d")
+    res16, cfg16, fit16_counts = full_fit_bf16(dev, spec, lshp, res,
+                                               rep_info)
+    online16 = check_online_bf16(dev, res16, spec.points, cfg16)
+    check_cli_bf16(dev)
+    del res16
+    torch.cuda.empty_cache()
+    stamp("phase 4e")
+    print(f"[bf16] launches of the fit kernels at bf16 storage: 3b "
+          f"{ {k: bf16_counts[k] for k in FIT_KERNELS} }, + 4e "
+          f"{fit16_counts}, + the online arm "
+          f"{ {k: online16[k] for k in FIT_KERNELS} }")
+    for name in FIT_KERNELS:
+        stats[name]["bf16"]["launches"] = (bf16_counts[name]
+                                           + fit16_counts[name]
+                                           + online16[name])
+        counts[name] += stats[name]["bf16"]["launches"]
     print(f"[ooc] launches of the fit kernels: replicated "
           f"{ {k: counts[k] for k in FIT_KERNELS} }, + sharded "
           f"{ {k: ooc_counts[k] for k in FIT_KERNELS} }, + streamed "
@@ -3263,6 +3722,7 @@ def main() -> int:
         counts[name] += online[name]
     del res, sup, mix, spec
     torch.cuda.empty_cache()
+    stamp("phases 5, 5b")
 
     check_affinity(dev, stats)
     check_lid_unfused(dev)
@@ -3270,6 +3730,7 @@ def main() -> int:
     counts["affinity"] = full_matrix_run(dev)["affinity"]
     check_baselines(dev)
     torch.cuda.empty_cache()
+    stamp("phase 6")
 
     check_flash_attention(dev, stats)
     cfg, params, prompts, gen, mix_served, lm_counts = serve_lm(dev)
@@ -3278,6 +3739,7 @@ def main() -> int:
     teacher_force_all(dev, cfg, params, prompts, gen, mix_served)
     del params, gen, mix_served
     torch.cuda.empty_cache()
+    stamp("phase 7")
 
     check_embedding_bag(dev, stats)
     check_segment_matmul(dev, stats)
@@ -3286,8 +3748,10 @@ def main() -> int:
     counts["embedding_bag"] = bst_counts["embedding_bag"]
     counts["segment_matmul"] = stats["segment_matmul"].pop("launches")
     torch.cuda.empty_cache()
+    stamp("phase 8")
 
     gnn = check_gnns(dev)
+    stamp("phase 9")
     print(f"[gnn] segment_matmul launches: 8a's one call "
           f"{counts['segment_matmul']} + phase 9's {gnn['launches']}")
     counts["segment_matmul"] += gnn["launches"]
@@ -3314,7 +3778,7 @@ def main() -> int:
                                        "probe", "one_step_ms",
                                        "converged_ms", "general_ms",
                                        "general_bound_ms",
-                                       "general_bound_by", "gnn")
+                                       "general_bound_by", "gnn", "bf16")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

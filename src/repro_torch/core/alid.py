@@ -67,8 +67,14 @@ class EngineSpec(NamedTuple):
               for tensors on the card, the plain versions on the CPU), "ref"
               (the plain PyTorch versions anywhere) or "kernel". See
               `repro_torch.kernels.ops.resolve_backend`.
-    dtype:    point storage dtype; "float32" only (bf16 storage is ROADMAP
-              queue item "bf16 storage in the four kernels").
+    dtype:    point STORAGE dtype, "float32" or "bfloat16" (`kernels.ops.
+              DTYPES`): the points, the store shards and the LID support
+              blocks are rounded to it once, after k is estimated from the
+              unrounded source and before hashing, which halves their
+              device memory at bf16; every distance / affinity contraction
+              and the LID state (x, Ax, pi) stay f32, each kernel widening
+              the rows it reads. The supports a fit exports are f32 rows of
+              the source, as in the JAX package.
     """
     engine: str = "replicated"
     n_shards: int = 0

@@ -94,7 +94,8 @@ def rebuild_support(state: LIDState, sup_idx, sup_v, sup_x, sup_slot_mask,
     beta_idx = torch.cat([sup_idx, psi_idx], dim=1).to(torch.int32)
     beta_mask = torch.cat([sup_slot_mask, psi_valid], dim=1)
     v_beta = torch.cat([sup_v, psi_v], dim=1)
-    x = torch.cat([sup_x, torch.zeros_like(psi_v[..., 0])], dim=1)
+    x = torch.cat([sup_x, torch.zeros_like(psi_valid, dtype=sup_x.dtype)],
+                  dim=1)
 
     ax = ops.affinity_matvec(v_beta, beta_idx, sup_v, sup_idx, sup_x, k, p,
                              backend=backend)
@@ -152,14 +153,15 @@ def _retrieve_replicated(roi: ROI, points, active, tables: LSHTables,
 
 
 # --------------------------------------------------- the shared chunk step --
-def init_retrieval_carry(bsz: int, delta: int, d: int, device="cpu"):
+def init_retrieval_carry(bsz: int, delta: int, d: int, device="cpu",
+                         dtype=torch.float32):
     """Empty running top-delta candidate state of `bsz` lanes: (best_neg
-    (B, delta), best_idx (B, delta), best_v (B, delta, d), n_candidates
-    (B,)). Fold shards in with `retrieve_chunk`; read the result off with
-    `finalize_retrieval`."""
+    (B, delta), best_idx (B, delta), best_v (B, delta, d) in the point
+    storage `dtype`, n_candidates (B,)). Fold shards in with
+    `retrieve_chunk`; read the result off with `finalize_retrieval`."""
     return (torch.full((bsz, delta), float("-inf"), device=device),
             torch.full((bsz, delta), -1, dtype=torch.int64, device=device),
-            torch.zeros((bsz, delta, d), device=device),
+            torch.zeros((bsz, delta, d), dtype=dtype, device=device),
             torch.zeros((bsz,), dtype=torch.int64, device=device))
 
 
@@ -299,7 +301,7 @@ def retrieve_shards(roi: ROI, substrate, active, lsh_params: LSHParams,
                                backend)                  # (L, B*a_cap)
     touch = route_shards(roi, *substrate.balls(), p)
     routed = np.flatnonzero(touch.any(axis=0))
-    carry = init_retrieval_carry(bsz, delta, d, dev)
+    carry = init_retrieval_carry(bsz, delta, d, dev, sup_v.dtype)
     if routed.size == 0:
         return finalize_retrieval(carry)
     starts, lo, hi = substrate.windows(keys, salts, routed, lsh_params.probe)

@@ -120,13 +120,16 @@ class _EngineBase:
 
     def build_source(self, source: DataSource, cfg: ALIDConfig,
                      rng: torch.Tensor) -> None:
-        """Sample k from the source, then materialize it on the device and
-        build (the replicated and sharded engines are device-resident; the
-        streamed engine overrides this)."""
+        """Sample k from the UNROUNDED source, then materialize it on the
+        device in the storage dtype (rounded block by block on the way, so
+        a bf16 store never holds an f32 copy on the device) and build (the
+        replicated and sharded engines are device-resident; the streamed
+        engine overrides this)."""
         self._setup_k(source, cfg)
-        self.build(torch.as_tensor(source.get_chunk(0, source.n),
-                                   dtype=torch.float32, device=self.device),
-                   cfg, rng)
+        self.build(ops.to_storage(
+            torch.as_tensor(source.get_chunk(0, source.n),
+                            dtype=torch.float32),
+            cfg.spec.dtype, self.device), cfg, rng)
 
     @property
     def bucket_sizes(self) -> torch.Tensor:
@@ -156,8 +159,10 @@ class ReplicatedEngine(_EngineBase):
 
     def build(self, points: torch.Tensor, cfg: ALIDConfig,
               rng: torch.Tensor) -> None:
-        self.points = points
-        self.tables = build_lsh(points, cfg.lsh, rng, cfg.backend)
+        # rounded to the storage dtype BEFORE hashing (k was estimated from
+        # the unrounded source, identically on every engine)
+        self.points = ops.to_storage(points, cfg.spec.dtype)
+        self.tables = build_lsh(self.points, cfg.lsh, rng, cfg.backend)
         self._bsizes = bucket_sizes(self.tables)
 
     def run_round(self, active: torch.Tensor, seeds: torch.Tensor,
@@ -282,17 +287,22 @@ class StreamedEngine(_EngineBase):
 
     # -- the retrieval substrate (`civs.retrieve_shards`) ------------------
     def seed_rows(self, seeds) -> torch.Tensor:
+        """The seeds' rows from the source, rounded to storage on the
+        device (the source holds the unrounded points)."""
         seeds_np = torch.as_tensor(seeds).cpu().numpy()
         for i, (prep_np, fut) in enumerate(self._prepared):
             if np.array_equal(prep_np, seeds_np):
                 # older entries go too: rounds only move forward
                 self._prepared = self._prepared[i + 1:]
                 self.stats.add("seed_prefetch_hits")
-                return Uploader.ready(*fut.result())[0]
+                return ops.to_storage(Uploader.ready(*fut.result())[0],
+                                      self._store.dtype)
         # an invalidated speculation, or the first round
         self.stats.add("seed_prefetch_misses")
-        return torch.as_tensor(self._store.source.sample(seeds_np),
-                               dtype=torch.float32, device=self.device)
+        return ops.to_storage(
+            torch.as_tensor(self._store.source.sample(seeds_np),
+                            dtype=torch.float32, device=self.device),
+            self._store.dtype)
 
     @property
     def proj(self) -> torch.Tensor:
@@ -320,10 +330,12 @@ class StreamedEngine(_EngineBase):
 
     def stream(self, routed: np.ndarray):
         """The routed shards through the pipeline, in routed order; the
-        time the caller spends on a shard counts as `compute_s`."""
-        for item in self._pipeline.stream(routed):
+        time the caller spends on a shard counts as `compute_s`. A shard's
+        slab holds storage-rounded f32 values (`store._round_to_storage`)
+        and is cast to the storage dtype on the device, exactly."""
+        for pos, s, (pts, *rest) in self._pipeline.stream(routed):
             t0 = time.perf_counter()
-            yield item
+            yield pos, s, (ops.to_storage(pts, self._store.dtype), *rest)
             self.stats.add("compute_s", time.perf_counter() - t0)
 
 
@@ -344,10 +356,7 @@ def make_engine(spec: EngineSpec, device="cuda") -> _EngineBase:
     if spec.engine not in _ENGINES:
         raise ValueError(f"unknown engine {spec.engine!r}; expected one of "
                          f"{sorted(_ENGINES)}")
-    if spec.dtype != "float32":
-        raise NotImplementedError(
-            f"storage dtype {spec.dtype!r} is not ported yet (ROADMAP queue "
-            "item 'bf16 storage in the four kernels'); only 'float32' runs")
+    ops.storage_dtype(spec.dtype)      # validate the knob up front
     return _ENGINES[spec.engine](spec, device)
 
 

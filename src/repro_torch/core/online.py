@@ -63,6 +63,7 @@ from repro_torch.core.engine import fit
 from repro_torch.core.lid import LIDState, density, lid_solve, refresh_ax
 from repro_torch.core.roi import estimate_roi
 from repro_torch.core.source import as_source, is_data_source
+from repro_torch.kernels import ops
 
 __all__ = ["OnlineClustering", "Epoch", "EpochVerifyError", "OnlineStats",
            "EpochTransaction"]
@@ -121,7 +122,8 @@ class OnlineStats:
 # ---------------------------------------------------------- one-lane ops --
 def _warm_lid(beta_idx, beta_mask, v_beta, x, k: float, t_lid: int,
               tol: float, p: float, support_eps: float, backend: str,
-              sweep_steps: int = 8, refresh_every: int = 0):
+              sweep_steps: int = 8, refresh_every: int = 0,
+              dtype: str = "float32"):
     """Warm-started LID re-convergence over one (cap,) support buffer: one
     lane (B = 1) of the batched `refresh_ax` then `lid_solve`.
 
@@ -131,8 +133,12 @@ def _warm_lid(beta_idx, beta_mask, v_beta, x, k: float, t_lid: int,
     beta_mask), then `lid_solve` runs the infection-immunization dynamics:
     an infective candidate (payoff > pi + tol) is invaded (absorbed), an
     over-weighted member is immunized (peeled). A lane that takes no step
-    comes back with x unchanged, bit for bit. Returns (x, ax, density)."""
+    comes back with x unchanged, bit for bit. `dtype` casts the host-f32
+    support rows to the engine's storage dtype (exact for rows already
+    rounded), so the re-convergence runs the fit's mixed-precision path.
+    Returns (x, ax, density)."""
     dev = x.device
+    v_beta = ops.to_storage(v_beta, dtype)
     state = LIDState(beta_idx=beta_idx[None], beta_mask=beta_mask[None],
                      v_beta=v_beta[None], x=x[None],
                      ax=torch.zeros_like(x)[None],
@@ -147,11 +153,15 @@ def _warm_lid(beta_idx, beta_mask, v_beta, x, k: float, t_lid: int,
 
 
 def _roi_of_support(sup_v, sup_idx, sup_w, k: float, r0: float, p: float,
-                    support_eps: float, backend: str):
+                    support_eps: float, backend: str,
+                    dtype: str = "float32"):
     """(center, R_out) of one stored support, the routing ball: one lane of
     `estimate_roi` at c = 1000. theta(c) saturates to 1 for large c, so
     radius == r_out: the OUTER guarantee ball of Prop. 1 (no point beyond it
-    can be infective for this cluster)."""
+    can be infective for this cluster). The host-f32 support rows are cast
+    to the storage dtype first, as `_warm_lid` casts them, so the ball is
+    measured on the rows the kernels read."""
+    sup_v = ops.to_storage(sup_v, dtype)
     c = torch.full((1,), 1000, dtype=torch.int32, device=sup_v.device)
     roi = estimate_roi(sup_v[None], sup_idx[None], (sup_idx >= 0)[None],
                        sup_w[None], k, c, r0=r0, p=p,
@@ -205,11 +215,7 @@ class OnlineClustering:
             raise ValueError("OnlineClustering needs a Clustering with "
                              "stored supports (produced by "
                              "repro_torch.core.engine.fit)")
-        if cfg.spec.dtype != "float32":
-            raise NotImplementedError(
-                f"storage dtype {cfg.spec.dtype!r} is not ported yet (ROADMAP "
-                "queue item 'bf16 storage in the four kernels'); only "
-                "'float32' runs")
+        ops.storage_dtype(cfg.spec.dtype)   # validate the knob up front
         self.device = resolve_device(device)
         if is_data_source(points):
             src = as_source(points)
@@ -432,7 +438,8 @@ class OnlineClustering:
         x_new, _, dens = _warm_lid(
             self._on(idx), self._on(mask), self._on(v), self._on(w), self.k,
             self.cfg.t_lid, self.cfg.tol, self.cfg.p, self.cfg.support_eps,
-            self.cfg.backend, self.cfg.sweep_steps, self.cfg.refresh_every)
+            self.cfg.backend, self.cfg.sweep_steps, self.cfg.refresh_every,
+            dtype=self.cfg.spec.dtype)
         x_new = x_new.cpu().numpy()
         dens = np.float32(dens.item())
 
@@ -570,7 +577,7 @@ class OnlineClustering:
             center, r_out = _roi_of_support(
                 self._on(self.sup_v[c]), self._on(self.sup_idx[c]),
                 self._on(self.sup_w[c]), self.k, self.cfg.r0, self.cfg.p,
-                self.cfg.support_eps, self.cfg.backend)
+                self.cfg.support_eps, self.cfg.backend, self.cfg.spec.dtype)
             self._roi_center[c] = center.cpu().numpy().astype(np.float64)
             self._roi_radius[c] = float(r_out)
         self._roi_dirty.clear()

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core.pipeline import ScratchShards
 from repro_torch.core.source import DataSource, iter_source_chunks
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import pinned_sum
 from repro_torch.lsh.pstable import (PAD_KEY, LSHParams, ShardedLSHTables,
                                      build_lsh_sharded, hash_chunk,
@@ -36,7 +37,7 @@ from repro_torch.lsh.pstable import (PAD_KEY, LSHParams, ShardedLSHTables,
 
 
 class ShardedStore(NamedTuple):
-    shards: torch.Tensor      # (S, cap, d) f32, padded shard points (+0)
+    shards: torch.Tensor      # (S, cap, d) storage dtype, padded (+0)
     valid: torch.Tensor       # (S, cap) bool, False on padding
     global_idx: torch.Tensor  # (S, cap) int64 data index, -1 on padding
     shard_of: torch.Tensor    # (n,) int64 inverse map: point -> shard
@@ -132,7 +133,10 @@ def _build_store_impl(points: torch.Tensor, params: LSHParams,
     slot_of[safe_g] = slot.reshape(-1)
 
     cnt = torch.clamp_min(valid.sum(1), 1)
-    centers = shards.sum(1) / cnt[:, None].float()
+    # centres in f32 even for bf16 shards (a bf16 row-sum accumulator loses
+    # mantissa long before shard_cap rows); the radii are the f32 distances
+    # from it to the STORED (rounded) points, so routing stays exact
+    centers = shards.float().sum(1) / cnt[:, None].float()
     radii = torch.where(valid, ball_distance(shards, centers[:, None, :]),
                         0.0).amax(1)
 
@@ -148,20 +152,12 @@ def build_store(points: torch.Tensor, params: LSHParams, rng: torch.Tensor,
     """Partition `points` + LSH into `n_shards` routing-aware shards on
     `points`' device. Consumes `rng` exactly like `build_lsh`, so a store
     built with the same key is query for query consistent with the
-    monolithic tables. `dtype` is the storage dtype: "float32" only (bf16
-    storage is the ROADMAP queue item "bf16 storage in the four
-    kernels")."""
-    _check_dtype(dtype)
-    points = points.float()
+    monolithic tables. `dtype` is the point STORAGE dtype (`ops.DTYPES`):
+    points are rounded to it here, BEFORE hashing, so LSH keys match a
+    replicated build over the same rounded points bit for bit."""
+    points = ops.to_storage(points, dtype)
     n_shards = max(1, min(int(n_shards), points.shape[0]))
     return _build_store_impl(points, params, rng, n_shards, backend)
-
-
-def _check_dtype(dtype: str) -> None:
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"storage dtype {dtype!r} is not ported yet (ROADMAP queue item "
-            "'bf16 storage in the four kernels'); only 'float32' runs")
 
 
 # ----------------------------------------------------- host-streamed store --
@@ -170,10 +166,16 @@ _DEFAULT_CHUNK = 32768
 
 
 def _round_to_storage(rows: np.ndarray, dtype: str) -> np.ndarray:
-    """Rows rounded to the storage dtype, kept as np.float32: the identity
-    for "float32", the only dtype the port stores."""
-    _check_dtype(dtype)
-    return rows
+    """Round an np.float32 slab to the storage dtype, kept in np.float32.
+
+    numpy has no bf16, so streamed slabs stay np.float32 on the host but
+    hold bf16-ROUNDED values: f32 -> bf16 -> f32 is an exact round trip, so
+    the device-side cast of an uploaded slab recovers the stored bf16 bits,
+    and every engine sees the same rounded points."""
+    if ops.storage_dtype(dtype) == torch.float32:
+        return rows
+    return ops.to_storage(torch.from_numpy(np.ascontiguousarray(
+        rows, np.float32)), dtype).float().numpy()
 
 
 class StreamedStore(NamedTuple):
@@ -267,9 +269,11 @@ def build_store_streamed(source: DataSource, params: LSHParams,
 
     Consumes `rng` exactly like `build_lsh` / `build_store`; the global
     table-0 bucket sizes are re-aggregated from the per-shard tables, equal
-    to the replicated engine's integer for integer.
+    to the replicated engine's integer for integer. `dtype` is the storage
+    dtype: chunks are rounded to it BEFORE hashing (and hashed in it), and
+    the scratch slabs persist the rounded values (`_round_to_storage`).
     """
-    _check_dtype(dtype)
+    ops.storage_dtype(dtype)      # validate the knob up front
     chunk_size = int(chunk_size) or _DEFAULT_CHUNK
     n, d = source.n, source.dim
     n_shards = max(1, min(int(n_shards), n))
@@ -281,9 +285,11 @@ def build_store_streamed(source: DataSource, params: LSHParams,
     scores = np.empty((n,), np.float32)
     keys_full = np.empty((n_tables, n), np.uint32)
     for start, block in iter_source_chunks(source, chunk_size):
-        block32 = _round_to_storage(np.asarray(block, np.float32), dtype)
-        kk, sc = hash_chunk(torch.as_tensor(block32, device=dev), proj, bias,
-                            params.seg_len, backend)
+        block32 = np.asarray(block, np.float32)
+        kk, sc = hash_chunk(ops.to_storage(torch.as_tensor(block32,
+                                                           device=dev),
+                                           dtype),
+                            proj, bias, params.seg_len, backend)
         stop = start + block.shape[0]
         keys_full[:, start:stop] = kk.cpu().numpy().astype(np.uint32)
         scores[start:stop] = sc.cpu().numpy()

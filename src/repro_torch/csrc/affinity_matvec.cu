@@ -35,6 +35,12 @@
 // past the d whose rows fit in shared memory ("global" route) the same
 // schedule, one output row a thread, reads the rows in place from device
 // memory. Ragged d adds zero chunks (common.cuh), which change no bit.
+// q and c may be stored as f32 or bf16 (one dtype for both; w stays f32):
+// the smem route widens bf16 rows to f32 as it stages them, so one
+// instantiation of its register tiles serves both (the staging branches
+// on `bf16_rows`); the global route widens each element as it reads it
+// (an instantiation a storage type). Widening is exact, so on bf16 rows
+// the kernel gives the bits it gives on the upcast f32 rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,7 +53,7 @@
 namespace {
 
 using repro_kernels::LeafMajor;
-using repro_kernels::Natural;
+using repro_kernels::NaturalT;
 using repro_kernels::bit_reverse;
 using repro_kernels::comp;
 using repro_kernels::leaf_groups;
@@ -62,9 +68,9 @@ constexpr int kThreads = 256;
 // group g (chunks 4g .. 4g+3) of leaf l of the tile's TQ x kTC dots; the
 // first group's first chunk starts each running sum
 template <class Src, int TQ, bool kFirst>
-__device__ __forceinline__ void leaf_group(const float* const (&qr)[TQ],
-                                           const float* const (&cr)[kTC],
-                                           int l, int g, int prm,
+__device__ __forceinline__ void leaf_group(
+    const typename Src::Elem* const (&qr)[TQ],
+    const typename Src::Elem* const (&cr)[kTC], int l, int g, int prm,
                                            float (&leaf)[TQ][kTC]) {
   float4 a[TQ], b[kTC];
 #pragma unroll
@@ -90,8 +96,9 @@ __device__ __forceinline__ void leaf_group(const float* const (&qr)[TQ],
 template <class Src, int TQ, int JJ>
 struct Quarter {
   static __device__ __forceinline__ void run(
-      const float* const (&qr)[TQ], const float* const (&cr)[kTC], int res,
-      int ng, int prm, float (&st)[3][TQ][kTC], float (&v)[TQ][kTC]) {
+      const typename Src::Elem* const (&qr)[TQ],
+      const typename Src::Elem* const (&cr)[kTC], int res, int ng, int prm,
+      float (&st)[3][TQ][kTC], float (&v)[TQ][kTC]) {
     constexpr int u = ((JJ & 1) << 2) | (JJ & 2) | ((JJ & 4) >> 2);
     constexpr int merges =
         (JJ & 1) ? ((JJ & 2) ? ((JJ & 4) ? 3 : 2) : 1) : 0;
@@ -125,7 +132,8 @@ struct Quarter {
 template <class Src, int TQ>
 struct Quarter<Src, TQ, 8> {
   static __device__ __forceinline__ void run(
-      const float* const (&)[TQ], const float* const (&)[kTC], int, int, int,
+      const typename Src::Elem* const (&)[TQ],
+      const typename Src::Elem* const (&)[kTC], int, int, int,
       float (&)[3][TQ][kTC], float (&)[TQ][kTC]) {}
 };
 
@@ -135,9 +143,9 @@ struct Quarter<Src, TQ, 8> {
 // eight; the four quarters' sums are the tree's top two levels, folded in
 // turn.
 template <class Src, int TQ>
-__device__ __forceinline__ void tile_dots(const float* const (&qr)[TQ],
-                                          const float* const (&cr)[kTC],
-                                          int ng, int prm,
+__device__ __forceinline__ void tile_dots(
+    const typename Src::Elem* const (&qr)[TQ],
+    const typename Src::Elem* const (&cr)[kTC], int ng, int prm,
                                           float (&dot)[TQ][kTC]) {
   float hi[2][TQ][kTC];  // completed quarter (level 3), half (level 4)
 #pragma unroll 1
@@ -169,15 +177,19 @@ __device__ __forceinline__ void tile_dots(const float* const (&qr)[TQ],
 // rows: output rows of a block (TQ a thread, 16 threads a row group);
 // classes, ubits, tc, groups: the column classes G, log2 of a class's
 // columns U = P / G, the columns a group sums in registers, U / tc groups
-// a class; gpp: groups a pass
-template <bool kSmemRows, int TQ>
+// a class; gpp: groups a pass. T: the storage type of the rows the global
+// route reads in place; the smem route is instantiated for T = float and
+// reads q and c as bf16 rows where bf16_rows is set.
+template <class T, bool kSmemRows, int TQ>
 __global__ void __launch_bounds__(kThreads) matvec_kernel(
-    const float* __restrict__ q, const int32_t* __restrict__ q_idx,
-    const float* __restrict__ c, const int32_t* __restrict__ c_idx,
+    const T* __restrict__ q, const int32_t* __restrict__ q_idx,
+    const T* __restrict__ c, const int32_t* __restrict__ c_idx,
     const float* __restrict__ w, float* __restrict__ out, int m, int n,
     int d, float k, int rows, int classes, int ubits, int tc, int groups,
-    int gpp) {
-  using Src = typename std::conditional<kSmemRows, LeafMajor, Natural>::type;
+    int gpp, int bf16_rows) {
+  using Src =
+      typename std::conditional<kSmemRows, LeafMajor, NaturalT<T>>::type;
+  using Row = typename Src::Elem;  // a row as the dots read it
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ng = leaf_groups(d);
@@ -198,18 +210,48 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
   const int qg = tid / kSlots;        // row group
   const long b = blockIdx.y;
   const int i0 = blockIdx.x * rows;
-  const float* qb = q + b * m * static_cast<long>(d);
-  const float* cb = c + b * n * static_cast<long>(d);
-  auto q_row = [&](int row) -> const float* {  // in place, clamped
+  const T* qb = q + b * m * static_cast<long>(d);
+  const T* cb = c + b * n * static_cast<long>(d);
+  auto q_row = [&](int row) -> const T* {  // in place, clamped
     return qb + min(i0 + row, m - 1) * static_cast<long>(d);
+  };
+  // output row `row` and staged column slot `s` as the dots read them
+  auto q_src = [&](int row) -> const Row* {
+    if constexpr (kSmemRows) {
+      return qs + row * ld;
+    } else {
+      return q_row(row);
+    }
+  };
+  auto c_src = [&](int s) -> const Row* {
+    if constexpr (kSmemRows) {
+      return cs + s * ld;
+    } else {
+      return cb + max(cjs[s], 0) * static_cast<long>(d);
+    }
+  };
+  // the smem route's staging: n_rows rows of `base` (q or c), row r the
+  // element row row_at(r) or none (-1), widened to f32: the one place the
+  // smem route reads the storage type
+  auto stage = [&](float* dst, int n_rows, const T* base, auto row_at) {
+    auto go = [&](auto* src) {
+      repro_kernels::stage_leaf_major(
+          dst, ld, ng, d, n_rows, src, [&](int r) -> decltype(src) {
+            const long i = row_at(r);
+            return i >= 0 ? src + i * d : nullptr;
+          });
+    };
+    if (bf16_rows) {
+      go(reinterpret_cast<const __nv_bfloat16*>(base));
+    } else {
+      go(reinterpret_cast<const float*>(base));
+    }
   };
 
   if constexpr (kSmemRows) {
-    repro_kernels::stage_leaf_major(
-        qs, ld, ng, d, rows, qb,
-        [&](int row) -> const float* {
-          return i0 + row < m ? q_row(row) : nullptr;
-        });
+    stage(qs, rows, q, [&](int row) -> long {
+      return i0 + row < m ? b * m + i0 + row : -1;
+    });
     __syncthreads();
   }
   // |q|^2 and |c|^2 in the pinned order, four threads a row (quad_dot);
@@ -217,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
   const int quad = tid >> 2, t4 = tid & 3, nquads = blockDim.x >> 2;
   for (int row0 = 0; row0 < rows; row0 += nquads) {
     const int row = min(row0 + quad, rows - 1);
-    const float* qrow = kSmemRows ? qs + row * ld : q_row(row);
+    const Row* qrow = q_src(row);
     const float v = quad_dot<Src>(qrow, qrow, t4, ng, prm);
     if (t4 == 0 && row0 + quad < rows) {
       q2s[row] = v;
@@ -225,12 +267,9 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
     }
   }
 
-  const float* qr[TQ];
+  const Row* qr[TQ];
 #pragma unroll
-  for (int rr = 0; rr < TQ; ++rr) {
-    const int row = qg * TQ + rr;
-    qr[rr] = kSmemRows ? qs + row * ld : q_row(row);
-  }
+  for (int rr = 0; rr < TQ; ++rr) qr[rr] = q_src(qg * TQ + rr);
   // the class's groups folded in walk order (local memory: one access a
   // group and row)
   float jst[TQ][kDepth];
@@ -253,18 +292,15 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
     }
     __syncthreads();
     if constexpr (kSmemRows) {
-      repro_kernels::stage_leaf_major(
-          cs, ld, ng, d, slots, cb,
-          [&](int s) -> const float* {
-            const int j = cjs[s];
-            return j >= 0 ? cb + j * static_cast<long>(d) : nullptr;
-          });
+      stage(cs, slots, c, [&](int s) -> long {
+        const int j = cjs[s];
+        return j >= 0 ? b * n + j : -1;
+      });
       __syncthreads();
     }
     for (int s0 = 0; s0 < slots; s0 += nquads) {
       const int s = min(s0 + quad, slots - 1);
-      const float* crow =
-          kSmemRows ? cs + s * ld : cb + max(cjs[s], 0) * static_cast<long>(d);
+      const Row* crow = c_src(s);
       const float v = quad_dot<Src>(crow, crow, t4, ng, prm);
       if (t4 == 0 && s0 + quad < slots) c2s[s] = v;
     }
@@ -272,13 +308,9 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
 
     for (int gg = 0; gg * kGroupSlots < slots; ++gg) {
       const int sb = gg * kGroupSlots + r;
-      const float* cr[kTC];
+      const Row* cr[kTC];
 #pragma unroll
-      for (int tt = 0; tt < kTC; ++tt) {
-        const int s = sb + tt * kSlots;
-        cr[tt] = kSmemRows ? cs + s * ld
-                           : cb + max(cjs[s], 0) * static_cast<long>(d);
-      }
+      for (int tt = 0; tt < kTC; ++tt) cr[tt] = c_src(sb + tt * kSlots);
       float dot[TQ][kTC];
       tile_dots<Src, TQ>(qr, cr, ng, prm, dot);
       float prod[TQ][kTC];
@@ -324,46 +356,73 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(
   }
 }
 
-template <bool kSmemRows, int TQ>
-int launch(const float* q, const int32_t* q_idx, const float* c,
+template <class T, bool kSmemRows, int TQ>
+int launch(const T* q, const int32_t* q_idx, const T* c,
            const int32_t* c_idx, const float* w, float* out, int batch,
            int m, int n, int d, float k, int rows, int classes, int ubits,
-           int tc, int groups, int gpp, int smem_bytes, cudaStream_t stream) {
+           int tc, int groups, int gpp, int smem_bytes, int bf16_rows,
+           cudaStream_t stream) {
   // raise the dynamic shared-memory limit only when a launch needs more
   // than before, so that repeated launches (and CUDA graph captures of
   // them) make no further API call
   static int smem_limit = 0;
   if (smem_bytes > smem_limit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        matvec_kernel<kSmemRows, TQ>,
+        matvec_kernel<T, kSmemRows, TQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_limit = smem_bytes;
   }
   const dim3 grid((m + rows - 1) / rows, batch);
-  matvec_kernel<kSmemRows, TQ><<<grid, rows / TQ * kSlots, smem_bytes,
-                                 stream>>>(
+  matvec_kernel<T, kSmemRows, TQ><<<grid, rows / TQ * kSlots, smem_bytes,
+                                    stream>>>(
       q, q_idx, c, c_idx, w, out, m, n, d, k, rows, classes, ubits, tc,
-      groups, gpp);
+      groups, gpp, bf16_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_route(const T* q, const int32_t* q_idx, const T* c,
+                 const int32_t* c_idx, const float* w, float* out, int batch,
+                 int m, int n, int d, float k, int smem_rows, int rows,
+                 int classes, int ubits, int tc, int groups, int gpp,
+                 int smem_bytes, void* stream) {
+  if (batch <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the smem route's one instantiation takes the rows' type at run time
+  return smem_rows
+      ? launch<float, true, 4>(reinterpret_cast<const float*>(q), q_idx,
+                               reinterpret_cast<const float*>(c), c_idx, w,
+                               out, batch, m, n, d, k, rows, classes, ubits,
+                               tc, groups, gpp, smem_bytes,
+                               std::is_same<T, __nv_bfloat16>::value, s)
+      : launch<T, false, 1>(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
+                            rows, classes, ubits, tc, groups, gpp,
+                            smem_bytes, 0, s);
 }
 
 }  // namespace
 
 // The plan (route, rows, classes, ubits, tc, groups, gpp, smem_bytes) comes
 // from kernels/affinity_matvec.py `plan`: 4 output rows a thread on the
-// "smem" route, 1 on the "global" route.
+// "smem" route, 1 on the "global" route. q and c are f32
+// (affinity_matvec_launch) or bf16 (affinity_matvec_bf16_launch).
 extern "C" int affinity_matvec_launch(
     const float* q, const int32_t* q_idx, const float* c,
     const int32_t* c_idx, const float* w, float* out, int batch, int m,
     int n, int d, float k, int smem_rows, int rows, int classes, int ubits,
     int tc, int groups, int gpp, int smem_bytes, void* stream) {
-  if (batch <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return smem_rows
-      ? launch<true, 4>(q, q_idx, c, c_idx, w, out, batch, m, n, d, k, rows,
-                        classes, ubits, tc, groups, gpp, smem_bytes, s)
-      : launch<false, 1>(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
-                         rows, classes, ubits, tc, groups, gpp, smem_bytes,
-                         s);
+  return launch_route(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
+                      smem_rows, rows, classes, ubits, tc, groups, gpp,
+                      smem_bytes, stream);
+}
+
+extern "C" int affinity_matvec_bf16_launch(
+    const __nv_bfloat16* q, const int32_t* q_idx, const __nv_bfloat16* c,
+    const int32_t* c_idx, const float* w, float* out, int batch, int m,
+    int n, int d, float k, int smem_rows, int rows, int classes, int ubits,
+    int tc, int groups, int gpp, int smem_bytes, void* stream) {
+  return launch_route(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
+                      smem_rows, rows, classes, ubits, tc, groups, gpp,
+                      smem_bytes, stream);
 }

@@ -1,11 +1,23 @@
 // Helpers shared by the kernels of repro_torch/csrc.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace repro_kernels {
+
+// ---- storage loads: points are stored as f32 or bf16 and every sum runs
+// on their f32 values; widening a bf16 (its 16 bits above 16 zero bits) is
+// exact, so a kernel gives on bf16 rows the bits it gives on the upcast
+// rows ----
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  const unsigned short u =
+      __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
 
 // Copy `rows` rows of `d` floats from device memory (row stride d) into
 // shared memory (row stride ld >= d). Where d is a multiple of 4 and the
@@ -211,24 +223,27 @@ __device__ __forceinline__ void stage(float* dst, int ld, int dp,
 
 // a leaf-major row (shared memory, local or a cluster peer's)
 struct LeafMajor {
+  using Elem = float;
   static __device__ __forceinline__ float4 group(const float* row, int l,
                                                  int g, int ldl) {
     return *reinterpret_cast<const float4*>(row + l * ldl + 4 * g);
   }
 };
 
-// a row of d floats in device memory, read in place (zeros past d; the
-// loads are clamped to the row and unconditional, so that they all issue
-// before their first use)
-struct Natural {
-  static __device__ __forceinline__ float4 group(const float* row, int l,
-                                                 int g, int d) {
+// a row of d elements (T: float or __nv_bfloat16) in device memory, read
+// in place and widened to f32 (zeros past d; the loads are clamped to the
+// row and unconditional, so that they all issue before their first use)
+template <class T>
+struct NaturalT {
+  using Elem = T;
+  static __device__ __forceinline__ float4 group(const T* row, int l, int g,
+                                                 int d) {
     const int t = 128 * g + l;
     float4 v;
-    v.x = __ldg(row + min(t, d - 1));
-    v.y = __ldg(row + min(t + 32, d - 1));
-    v.z = __ldg(row + min(t + 64, d - 1));
-    v.w = __ldg(row + min(t + 96, d - 1));
+    v.x = load_f32(row + min(t, d - 1));
+    v.y = load_f32(row + min(t + 32, d - 1));
+    v.z = load_f32(row + min(t + 64, d - 1));
+    v.w = load_f32(row + min(t + 96, d - 1));
     v.x = t < d ? v.x : 0.f;
     v.y = t + 32 < d ? v.y : 0.f;
     v.z = t + 64 < d ? v.z : 0.f;
@@ -236,6 +251,7 @@ struct Natural {
     return v;
   }
 };
+using Natural = NaturalT<float>;
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
@@ -246,29 +262,29 @@ __host__ __device__ __forceinline__ int leaf_groups(int d) {
   return ((d + 31) / 32 + 3) / 4;
 }
 
-// Copy rows of d floats into leaf-major shared rows of stride ld (4 ng
-// floats a leaf), zero past d and for rows whose source is null: row r
-// comes from src(r). A warp takes a row at a time: lane l loads the
+// Copy rows of d elements (T: float or __nv_bfloat16, widened to f32) into
+// leaf-major shared rows of stride ld (4 ng floats a leaf), zero past d
+// and for rows whose source is null: row r comes from src(r). A warp takes a row at a time: lane l loads the
 // floats t = l + 32 c (128 contiguous bytes a load across the warp) and
 // stores leaf l's float4s; a null row reads the `fallback` row and stores
 // zeros, so that every load issues unconditionally.
-template <class RowSrc>
+template <class T, class RowSrc>
 __device__ __forceinline__ void stage_leaf_major(float* dst, int ld, int ng,
                                                  int d, int n_rows,
-                                                 const float* fallback,
+                                                 const T* fallback,
                                                  RowSrc src) {
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
 #pragma unroll 4
   for (int r = threadIdx.x >> 5; r < n_rows; r += nw) {
-    const float* row = src(r);
+    const T* row = src(r);
     const bool on = row != nullptr;
-    const float4 v = Natural::group(on ? row : fallback, lane, 0, d);
+    const float4 v = NaturalT<T>::group(on ? row : fallback, lane, 0, d);
     float* out = dst + r * ld + lane * 4 * ng;
     *reinterpret_cast<float4*>(out) =
         on ? v : make_float4(0.f, 0.f, 0.f, 0.f);
     for (int g = 1; g < ng; ++g) {
-      const float4 w = Natural::group(on ? row : fallback, lane, g, d);
+      const float4 w = NaturalT<T>::group(on ? row : fallback, lane, g, d);
       *reinterpret_cast<float4*>(out + 4 * g) =
           on ? w : make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -278,7 +294,8 @@ __device__ __forceinline__ void stage_leaf_major(float* dst, int ld, int ng,
 // leaf l of the dot of leaf-major rows (or rows in place): the running sum
 // of the products at t = l, l + 32, ..., from the first, over 4 ng chunks
 template <class Src>
-__device__ __forceinline__ float leaf_dot(const float* a, const float* b,
+__device__ __forceinline__ float leaf_dot(const typename Src::Elem* a,
+                                          const typename Src::Elem* b,
                                           int l, int ng, int prm) {
   float4 x = Src::group(a, l, 0, prm), y = Src::group(b, l, 0, prm);
   float leaf = __fmul_rn(x.x, y.x);
@@ -300,7 +317,8 @@ __device__ __forceinline__ float leaf_dot(const float* a, const float* b,
 // 3-deep stack (template recursion keeps the indices constant)
 template <class Src, int P>
 struct QuadWalk {
-  static __device__ __forceinline__ void run(const float* a, const float* b,
+  static __device__ __forceinline__ void run(const typename Src::Elem* a,
+                                             const typename Src::Elem* b,
                                              int t, int ng, int prm,
                                              float (&st)[3], float& v) {
     constexpr int u = ((P & 1) << 2) | (P & 2) | ((P & 4) >> 2);
@@ -319,7 +337,8 @@ struct QuadWalk {
 
 template <class Src>
 struct QuadWalk<Src, 8> {
-  static __device__ __forceinline__ void run(const float*, const float*, int,
+  static __device__ __forceinline__ void run(const typename Src::Elem*,
+                                             const typename Src::Elem*, int,
                                              int, int, float (&)[3],
                                              float&) {}
 };
@@ -360,7 +379,8 @@ struct QuadFold<8> {
 // top two levels. Every thread of the quad gets the dot. Up to d = 128
 // (one group a leaf) a thread loads its 16 float4s before the first add.
 template <class Src>
-__device__ __forceinline__ float quad_dot(const float* a, const float* b,
+__device__ __forceinline__ float quad_dot(const typename Src::Elem* a,
+                                          const typename Src::Elem* b,
                                           int t, int ng, int prm) {
   float st[3];
   float v;

@@ -38,6 +38,13 @@
 //
 // Where a slice does not fit in shared memory even at cs = 8, the same
 // schedule reads the rows in place from device memory ("global" route).
+// The rows may be stored as f32 or bf16 (the JAX package's storage dtype):
+// the smem route widens bf16 rows to f32 as it stages them, so its shared
+// layout and every line of arithmetic are the f32 kernel's, and one
+// instantiation serves both (the staging branches on `bf16_rows`); the
+// global route widens each element as it reads it (an instantiation a
+// storage type). Widening is exact, so on bf16 rows the kernel gives the
+// bits it gives on the upcast f32 rows.
 // Every operation is the plain PyTorch version's, in its order: pi, |v|^2
 // and the d-long dots in the pinned order of kernels/ref.py (`pinned_sum`),
 // the refresh's contraction in `tree_matvec`'s (a stack over the columns in
@@ -60,7 +67,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using repro_kernels::LeafMajor;
-using repro_kernels::Natural;
+using repro_kernels::NaturalT;
 using repro_kernels::TreeStack;
 using repro_kernels::affinity;
 using repro_kernels::bit_reverse;
@@ -111,17 +118,22 @@ __device__ __forceinline__ void store_all(float* buf, int j, float v, int t,
   }
 }
 
-template <bool kSmemRows>
+// T: the storage type of the rows the global route reads in place, float
+// or __nv_bfloat16; the smem route is instantiated for T = float and reads
+// v_g as bf16 rows where bf16_rows is set
+template <class T, bool kSmemRows>
 __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
-    const float* __restrict__ v_g, const int32_t* __restrict__ idx_g,
+    const T* __restrict__ v_g, const int32_t* __restrict__ idx_g,
     const uint8_t* __restrict__ mask_g, const float* __restrict__ x_g,
     const float* __restrict__ ax_g, const int32_t* __restrict__ it_g,
     const uint8_t* __restrict__ cv_g, float* __restrict__ x_out,
     float* __restrict__ ax_out, int32_t* __restrict__ it_out,
     uint8_t* __restrict__ cv_out, int cap, int d, float k, int n_steps,
     int max_iters, float tol, int refresh_every, float support_eps, int cs,
-    int rows_per) {
-  using Src = typename std::conditional<kSmemRows, LeafMajor, Natural>::type;
+    int rows_per, int bf16_rows) {
+  using Src =
+      typename std::conditional<kSmemRows, LeafMajor, NaturalT<T>>::type;
+  using Row = typename Src::Elem;  // a row as the dots read it
   extern __shared__ float4 smem4[];
   const int rank = cs > 1 ? static_cast<int>(cg::this_cluster().block_rank())
                           : 0;
@@ -170,17 +182,26 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
     msk[j] = in && mask_g[lb + j] != 0;
   }
   if constexpr (kSmemRows) {
-    repro_kernels::stage_leaf_major(
-        rows, ldr, ng, d, rows_per, v_g + lb * d,
-        [&](int r) -> const float* {
-          return r0 + r < r1 ? v_g + (lb + r0 + r) * static_cast<long>(d)
-                             : nullptr;
-        });
+    // this block's slice widened to f32 as it is staged: the one place
+    // the smem route reads the storage type
+    auto stage = [&](auto* v) {
+      repro_kernels::stage_leaf_major(
+          rows, ldr, ng, d, rows_per, v + lb * d,
+          [&](int r) -> decltype(v) {
+            return r0 + r < r1 ? v + (lb + r0 + r) * static_cast<long>(d)
+                               : nullptr;
+          });
+    };
+    if (bf16_rows) {
+      stage(reinterpret_cast<const __nv_bfloat16*>(v_g));
+    } else {
+      stage(reinterpret_cast<const float*>(v_g));
+    }
   }
   __syncthreads();
 
   // a row of the seed: this block's (or a peer's) slice, or device memory
-  auto row_of = [&](int j) -> const float* {
+  auto row_of = [&](int j) -> const Row* {
     if constexpr (kSmemRows) {
       const int owner = j / rows_per;
       const float* base = rows + (j - owner * rows_per) * ldr;
@@ -193,7 +214,7 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
   // this block's rows a quad at a time; every thread runs every round so
   // that the quads' shuffles see whole warps
   const int rounds = (rows_per + nquads - 1) / nquads;
-  auto own_row = [&](int jj) -> const float* {
+  auto own_row = [&](int jj) -> const Row* {
     if constexpr (kSmemRows) {
       return rows + min(jj, rows_per - 1) * ldr;
     } else {
@@ -203,7 +224,7 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
 
   for (int rd = 0; rd < rounds; ++rd) {  // |v_j|^2 of this block's rows
     const int jj = quad + rd * nquads;
-    const float* vj = own_row(jj);
+    const Row* vj = own_row(jj);
     const float s = quad_dot<Src>(vj, vj, t, ng, prm);
     if (t == 0 && r0 + jj < r1) v2[r0 + jj] = s;
   }
@@ -274,7 +295,7 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
       }
       if (refresh_every <= 0 || (it + 1) % refresh_every != 0) {
         // the column and Ax of this block's rows
-        const float* vi = row_of(i);
+        const Row* vi = row_of(i);
         const float v2i = v2[i];
         const int idi = idx[i];
         for (int rd = 0; rd < rounds; ++rd) {
@@ -302,7 +323,7 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
         for (int rd = 0; rd < rounds; ++rd) {
           const int jj = quad + rd * nquads;
           const int j = min(r0 + jj, cap - 1);
-          const float* vj = own_row(jj);
+          const Row* vj = own_row(jj);
           TreeStack<kRefreshDepth> st;
           for (int p = 0; p < pow2; ++p) {
             const int l = bit_reverse(p, bits);
@@ -344,13 +365,13 @@ __global__ void __launch_bounds__(kMaxThreads) lid_sweep_kernel(
   if (!peers_quiet) cluster_barrier(cs);
 }
 
-template <bool kSmemRows>
-int launch(const float* v, const int32_t* idx, const uint8_t* mask,
+template <class T, bool kSmemRows>
+int launch(const T* v, const int32_t* idx, const uint8_t* mask,
            const float* x, const float* ax, const int32_t* it,
            const uint8_t* cv, float* x_out, float* ax_out, int32_t* it_out,
            uint8_t* cv_out, int batch, int cap, int d, float k, int n_steps,
            int max_iters, float tol, int refresh_every, float support_eps,
-           int cs, int threads, int rows_per, int smem_bytes,
+           int cs, int threads, int rows_per, int smem_bytes, int bf16_rows,
            cudaStream_t stream) {
   // raise the dynamic shared-memory limit only when a launch needs more
   // than before, so that repeated launches (and CUDA graph captures of
@@ -358,7 +379,7 @@ int launch(const float* v, const int32_t* idx, const uint8_t* mask,
   static int smem_limit = 0;
   if (smem_bytes > smem_limit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lid_sweep_kernel<kSmemRows>,
+        lid_sweep_kernel<T, kSmemRows>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_limit = smem_bytes;
@@ -376,17 +397,43 @@ int launch(const float* v, const int32_t* idx, const uint8_t* mask,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, lid_sweep_kernel<kSmemRows>, v, idx, mask, x, ax, it, cv, x_out,
+      &cfg, lid_sweep_kernel<T, kSmemRows>, v, idx, mask, x, ax, it, cv, x_out,
       ax_out, it_out, cv_out, cap, d, k, n_steps, max_iters, tol,
-      refresh_every, support_eps, cs, rows_per);
+      refresh_every, support_eps, cs, rows_per, bf16_rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_route(const T* v, const int32_t* idx, const uint8_t* mask,
+                 const float* x, const float* ax, const int32_t* it,
+                 const uint8_t* cv, float* x_out, float* ax_out,
+                 int32_t* it_out, uint8_t* cv_out, int batch, int cap, int d,
+                 float k, int n_steps, int max_iters, float tol,
+                 int refresh_every, float support_eps, int cs, int threads,
+                 int rows_per, int smem_rows, int smem_bytes, void* stream) {
+  if (batch <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the smem route's one instantiation takes the rows' type at run time
+  return smem_rows
+      ? launch<float, true>(reinterpret_cast<const float*>(v), idx, mask, x,
+                            ax, it, cv, x_out, ax_out, it_out, cv_out, batch,
+                            cap, d, k, n_steps, max_iters, tol,
+                            refresh_every, support_eps, cs, threads,
+                            rows_per, smem_bytes,
+                            std::is_same<T, __nv_bfloat16>::value, s)
+      : launch<T, false>(v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out,
+                         cv_out, batch, cap, d, k, n_steps, max_iters, tol,
+                         refresh_every, support_eps, cs, threads, rows_per,
+                         smem_bytes, 0, s);
 }
 
 }  // namespace
 
 // The plan (cs, threads, rows_per, smem_rows, smem_bytes) comes from
 // kernels/lid_sweep.py `plan`. A refused cluster launch returns its error.
+// v_beta is f32 (lid_sweep_launch) or bf16 (lid_sweep_bf16_launch); every
+// other argument is the same.
 extern "C" int lid_sweep_launch(
     const float* v, const int32_t* idx, const uint8_t* mask, const float* x,
     const float* ax, const int32_t* it, const uint8_t* cv, float* x_out,
@@ -394,15 +441,21 @@ extern "C" int lid_sweep_launch(
     int d, float k, int n_steps, int max_iters, float tol, int refresh_every,
     float support_eps, int cs, int threads, int rows_per, int smem_rows,
     int smem_bytes, void* stream) {
-  if (batch <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return smem_rows
-      ? launch<true>(v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out,
-                     cv_out, batch, cap, d, k, n_steps, max_iters, tol,
-                     refresh_every, support_eps, cs, threads, rows_per,
-                     smem_bytes, s)
-      : launch<false>(v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out,
+  return launch_route(v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out,
                       cv_out, batch, cap, d, k, n_steps, max_iters, tol,
                       refresh_every, support_eps, cs, threads, rows_per,
-                      smem_bytes, s);
+                      smem_rows, smem_bytes, stream);
+}
+
+extern "C" int lid_sweep_bf16_launch(
+    const __nv_bfloat16* v, const int32_t* idx, const uint8_t* mask,
+    const float* x, const float* ax, const int32_t* it, const uint8_t* cv,
+    float* x_out, float* ax_out, int32_t* it_out, uint8_t* cv_out, int batch,
+    int cap, int d, float k, int n_steps, int max_iters, float tol,
+    int refresh_every, float support_eps, int cs, int threads, int rows_per,
+    int smem_rows, int smem_bytes, void* stream) {
+  return launch_route(v, idx, mask, x, ax, it, cv, x_out, ax_out, it_out,
+                      cv_out, batch, cap, d, k, n_steps, max_iters, tol,
+                      refresh_every, support_eps, cs, threads, rows_per,
+                      smem_rows, smem_bytes, stream);
 }

@@ -35,10 +35,19 @@
 // products overlapping the second half's copies (0.46), 2 points a thread
 // (0.47), and at the probe 2 or 4 points a thread (0.0064, 0.0093 ms
 // against 0.0063).
+//
+// x may be stored as f32 or bf16 (proj and bias stay f32): bf16 points are
+// loaded 4 at a time (8 bytes) and widened to f32 as the tile is staged, so
+// the shared tile, the FMA chains and the keys are those of the upcast f32
+// points, bit for bit; the f32 tile is copied by cp.async.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "common.cuh"
 #include "wgmma.cuh"
 
 // A profiling build (launch/profile_kernel_phases.py, -DDROP_PHASE=n) takes
@@ -90,9 +99,9 @@ __device__ __forceinline__ int32_t fold(const int32_t* h, int n_proj) {
 // kQ register tile (points pg + (pts / P) i, projections qg + G k for G =
 // ceil(L m / kQ)), the words into hs (rows L m + 1 apart), and a thread a
 // (point, table) for the fold.
-template <int P>
+template <class T, int P>
 __global__ void __launch_bounds__(kThreads) lsh_tile_kernel(
-    const float* __restrict__ x, const float* __restrict__ proj,
+    const T* __restrict__ x, const float* __restrict__ proj,
     const float* __restrict__ bias, int32_t* __restrict__ out, int n, int d,
     int n_tables, int n_proj, int pts, float seg, int vec) {
   extern __shared__ float4 smem4[];
@@ -123,17 +132,50 @@ __global__ void __launch_bounds__(kThreads) lsh_tile_kernel(
     }
   }
   const int copies = DROP_PHASE == 2 && seg > 0.f ? 0 : rows * d4;
-  for (int e = threadIdx.x; e < copies; e += blockDim.x) {
-    const int r = e / d4, c = 4 * (e - r * d4);
-    const float* src = x + (base + r) * d + c;
-    if (vec) {
-      sm90::cp_async16(sm90::smem_addr(xs + r * ldx + c), src, true);
-    } else {
-      for (int u = 0; u < 4; ++u) {
-        if (c + u < d) {
-          cp_async4(xs + r * ldx + c + u, src + u);
+  if constexpr (!std::is_same<T, float>::value) {
+    // bf16 points: 4 elements (8 bytes) a load, each widened (its bits
+    // above 16 zero bits); a thread has four loads in flight (clamped to
+    // the tile, so that they issue unconditionally) before its stores
+    for (int e0 = threadIdx.x; e0 < copies; e0 += 4 * blockDim.x) {
+      float4 v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = min(e0 + q * static_cast<int>(blockDim.x), copies - 1);
+        const int r = e / d4, c = 4 * (e - r * d4);
+        const T* src = x + (base + r) * d + c;
+        if (vec) {
+          const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+          v[q].x = __uint_as_float(u.x << 16);
+          v[q].y = __uint_as_float(u.x & 0xffff0000u);
+          v[q].z = __uint_as_float(u.y << 16);
+          v[q].w = __uint_as_float(u.y & 0xffff0000u);
         } else {
-          xs[r * ldx + c + u] = 0.f;
+          v[q].x = repro_kernels::load_f32(src);
+          v[q].y = c + 1 < d ? repro_kernels::load_f32(src + 1) : 0.f;
+          v[q].z = c + 2 < d ? repro_kernels::load_f32(src + 2) : 0.f;
+          v[q].w = c + 3 < d ? repro_kernels::load_f32(src + 3) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = e0 + q * static_cast<int>(blockDim.x);
+        const int r = e / d4, c = 4 * (e - r * d4);
+        if (e < copies) *reinterpret_cast<float4*>(xs + r * ldx + c) = v[q];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < copies; e += blockDim.x) {
+      const int r = e / d4, c = 4 * (e - r * d4);
+      const float* src = x + (base + r) * d + c;
+      if (vec) {
+        sm90::cp_async16(sm90::smem_addr(xs + r * ldx + c), src, true);
+      } else {
+        for (int u = 0; u < 4; ++u) {
+          if (c + u < d) {
+            cp_async4(xs + r * ldx + c + u, src + u);
+          } else {
+            xs[r * ldx + c + u] = 0.f;
+          }
         }
       }
     }
@@ -203,34 +245,28 @@ __global__ void __launch_bounds__(kThreads) lsh_tile_kernel(
 // raise the kernel's dynamic shared-memory limit only when a launch needs
 // more than before, so that repeated launches (and CUDA graph captures of
 // them) make no further API call; then launch one block a tile
-template <int P>
+template <class T, int P>
 int launch_tiles(int tiles, int threads, int smem_bytes, cudaStream_t st,
-                 const float* x, const float* proj, const float* bias,
+                 const T* x, const float* proj, const float* bias,
                  int32_t* out, int n, int d, int n_tables, int n_proj,
                  int pts, float seg, int vec) {
   static int limit = 0;
   if (smem_bytes > limit) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lsh_tile_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lsh_tile_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     limit = smem_bytes;
   }
-  lsh_tile_kernel<P><<<tiles, threads, smem_bytes, st>>>(
+  lsh_tile_kernel<T, P><<<tiles, threads, smem_bytes, st>>>(
       x, proj, bias, out, n, d, n_tables, n_proj, pts, seg, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// The plan (points a thread: 1 or 4; points a block, threads,
-// smem_bytes) comes from kernels/lsh_hash.py `plan`, whose byte count is
-// the layout carved in lsh_tile_kernel.
-extern "C" int lsh_hash_launch(const float* x, const float* proj,
-                               const float* bias, int32_t* out, int n, int d,
-                               int n_tables, int n_proj, int per_thread,
-                               int pts, int threads, int smem_bytes, float seg,
-                               void* stream) {
+template <class T>
+int launch(const T* x, const float* proj, const float* bias, int32_t* out,
+           int n, int d, int n_tables, int n_proj, int per_thread, int pts,
+           int threads, int smem_bytes, float seg, void* stream) {
   if (n_tables <= 0 || n_proj <= 0 || d < 0 || pts <= 0 ||
       (per_thread != 1 && per_thread != 4) ||
       pts % per_thread != 0 || threads <= 0 || threads > kThreads ||
@@ -238,15 +274,40 @@ extern "C" int lsh_hash_launch(const float* x, const float* proj,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  // rows of whole 4-element groups, each group aligned for one load
   const int vec = (d & 3) == 0 &&
-                  (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T))) == 0 &&
                   (reinterpret_cast<uintptr_t>(proj) & 15) == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (n + pts - 1) / pts;
   if (per_thread == 4) {
-    return launch_tiles<4>(tiles, threads, smem_bytes, st, x, proj, bias, out,
-                           n, d, n_tables, n_proj, pts, seg, vec);
+    return launch_tiles<T, 4>(tiles, threads, smem_bytes, st, x, proj, bias,
+                              out, n, d, n_tables, n_proj, pts, seg, vec);
   }
-  return launch_tiles<1>(tiles, threads, smem_bytes, st, x, proj, bias, out,
-                         n, d, n_tables, n_proj, pts, seg, vec);
+  return launch_tiles<T, 1>(tiles, threads, smem_bytes, st, x, proj, bias,
+                            out, n, d, n_tables, n_proj, pts, seg, vec);
+}
+
+}  // namespace
+
+// The plan (points a thread: 1 or 4; points a block, threads,
+// smem_bytes) comes from kernels/lsh_hash.py `plan`, whose byte count is
+// the layout carved in lsh_tile_kernel. x is f32 (lsh_hash_launch) or bf16
+// (lsh_hash_bf16_launch).
+extern "C" int lsh_hash_launch(const float* x, const float* proj,
+                               const float* bias, int32_t* out, int n, int d,
+                               int n_tables, int n_proj, int per_thread,
+                               int pts, int threads, int smem_bytes, float seg,
+                               void* stream) {
+  return launch(x, proj, bias, out, n, d, n_tables, n_proj, per_thread, pts,
+                threads, smem_bytes, seg, stream);
+}
+
+extern "C" int lsh_hash_bf16_launch(const __nv_bfloat16* x, const float* proj,
+                                    const float* bias, int32_t* out, int n,
+                                    int d, int n_tables, int n_proj,
+                                    int per_thread, int pts, int threads,
+                                    int smem_bytes, float seg, void* stream) {
+  return launch(x, proj, bias, out, n, d, n_tables, n_proj, per_thread, pts,
+                threads, smem_bytes, seg, stream);
 }

@@ -18,7 +18,10 @@
 // pinned order of kernels/ref.py, so the kernel gives its plain version's
 // bits. Rows whose valid flag is
 // false may hold NaN or Inf: they come out ok = false, neg = -inf, and no
-// other row reads them.
+// other row reads them. The candidate rows may be stored as f32 or bf16
+// (the centre and radii are f32): a bf16 element is widened to f32 as it
+// is read, exactly, so on bf16 rows the kernel gives the bits it gives on
+// the upcast rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,7 +33,8 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void roi_filter_kernel(const float* __restrict__ vc,
+template <class T>
+__global__ void roi_filter_kernel(const T* __restrict__ vc,
                                   const float* __restrict__ center,
                                   const float* __restrict__ radius,
                                   const uint8_t* __restrict__ valid,
@@ -43,7 +47,7 @@ __global__ void roi_filter_kernel(const float* __restrict__ vc,
                    (threadIdx.x >> 5);
   if (row >= rows) return;
   const long b = row / per_seed;
-  const float* v = vc + row * d;
+  const T* v = vc + row * d;
   const float* c = center + b * d;
   // lane l: the running sum of the squares at t = l, l + 32, ... (the
   // pinned order of kernels/ref.py), then the butterfly over the lanes
@@ -51,7 +55,8 @@ __global__ void roi_filter_kernel(const float* __restrict__ vc,
   for (int t = lane; t - lane < d; t += 32) {
     float sq = 0.f;
     if (t < d) {
-      const float diff = __fsub_rn(v[t], c[t]);
+      const float diff =
+          __fsub_rn(repro_kernels::load_f32(v + t), c[t]);
       sq = __fmul_rn(diff, diff);
     }
     acc = t == lane ? sq : __fadd_rn(acc, sq);
@@ -66,19 +71,38 @@ __global__ void roi_filter_kernel(const float* __restrict__ vc,
   }
 }
 
+template <class T>
+int launch(const T* vc, const float* center, const float* radius,
+           const uint8_t* valid, float* dist, uint8_t* ok, float* neg,
+           int rows, int per_seed, int d, void* stream) {
+  const int warps = kThreads / 32;
+  const int grid = (rows + warps - 1) / warps;
+  if (grid > 0) {
+    roi_filter_kernel<T><<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        vc, center, radius, valid, dist, ok, neg, rows, per_seed, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// vc is f32 (roi_filter_launch) or bf16 (roi_filter_bf16_launch)
 extern "C" int roi_filter_launch(const float* vc, const float* center,
                                  const float* radius, const uint8_t* valid,
                                  float* dist, uint8_t* ok, float* neg,
                                  int rows, int per_seed, int d,
                                  void* stream) {
-  const int warps = kThreads / 32;
-  const int grid = (rows + warps - 1) / warps;
-  if (grid > 0) {
-    roi_filter_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        vc, center, radius, valid, dist, ok, neg, rows, per_seed, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(vc, center, radius, valid, dist, ok, neg, rows, per_seed, d,
+                stream);
+}
+
+extern "C" int roi_filter_bf16_launch(const __nv_bfloat16* vc,
+                                      const float* center,
+                                      const float* radius,
+                                      const uint8_t* valid, float* dist,
+                                      uint8_t* ok, float* neg, int rows,
+                                      int per_seed, int d, void* stream) {
+  return launch(vc, center, radius, valid, dist, ok, neg, rows, per_seed, d,
+                stream);
 }

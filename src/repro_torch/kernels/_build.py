@@ -75,6 +75,9 @@ SIGNATURES = {
     # stream (a kernel that does nothing: the floor of one launch)
     "empty_launch": (P,),
 }
+# the fit's four kernels on bf16 points: the f32 entry point's arguments
+for _name in ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep"):
+    SIGNATURES[f"{_name}_bf16_launch"] = SIGNATURES[f"{_name}_launch"]
 
 
 def _nvcc() -> str:

@@ -21,6 +21,18 @@ def f32(name: str, t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+# the point storage dtypes the fit's kernels read (`ops.storage_dtype`)
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def storage(name: str, t: torch.Tensor) -> torch.Tensor:
+    """Point rows stored as float32 or bfloat16."""
+    if t.dtype not in STORAGE:
+        raise TypeError(f"{name}: expected float32 or bfloat16 storage, got "
+                        f"{t.dtype}")
+    return t.contiguous()
+
+
 def i32(name: str, t: torch.Tensor) -> torch.Tensor:
     if t.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32, got {t.dtype}")

@@ -9,7 +9,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import f32, i32, require_cuda
+from repro_torch.kernels._common import f32, i32, require_cuda, storage
 
 # dynamic shared memory one Hopper block may opt into (227 KB)
 SMEM_MAX = 232448
@@ -75,7 +75,8 @@ def plan(m: int, n: int, d: int) -> Plan:
 
 def affinity_matvec_cuda(q, q_idx, c, c_idx, w, k_scale: float):
     """q:(B, m, d), q_idx:(B, m) i32, c:(B, n, d), c_idx:(B, n) i32,
-    w:(B, n) f32 on the card -> (B, m) f32."""
+    w:(B, n) f32 on the card -> (B, m) f32. q and c are stored in one
+    dtype, f32 or bf16."""
     dev = require_cuda("affinity_matvec", q, q_idx, c, c_idx, w)
     bsz, m, d = q.shape
     n = c.shape[1]
@@ -85,14 +86,20 @@ def affinity_matvec_cuda(q, q_idx, c, c_idx, w, k_scale: float):
             f"affinity_matvec: shapes q{tuple(q.shape)} q_idx"
             f"{tuple(q_idx.shape)} c{tuple(c.shape)} c_idx"
             f"{tuple(c_idx.shape)} w{tuple(w.shape)}")
-    q = f32("affinity_matvec q", q)
-    c = f32("affinity_matvec c", c)
+    if q.dtype != c.dtype:     # a mixed pair is no engine's: no upcast
+        raise TypeError(f"affinity_matvec: q is {q.dtype} and c is "
+                        f"{c.dtype}; both must be stored in one dtype")
+    q = storage("affinity_matvec q", q)
+    c = storage("affinity_matvec c", c)
     w = f32("affinity_matvec w", w)
     q_idx = i32("affinity_matvec q_idx", q_idx)
     c_idx = i32("affinity_matvec c_idx", c_idx)
     pl = plan(m, n, d)
     out = torch.empty((bsz, m), dtype=torch.float32, device=dev)
-    err = _build.library().affinity_matvec_launch(
+    lib = _build.library()
+    launch = (lib.affinity_matvec_launch if q.dtype == torch.float32
+              else lib.affinity_matvec_bf16_launch)
+    err = launch(
         q.data_ptr(), q_idx.data_ptr(), c.data_ptr(), c_idx.data_ptr(),
         w.data_ptr(), out.data_ptr(), bsz, m, n, d, float(k_scale),
         int(pl.route == "smem"), pl.rows, pl.classes, pl.ubits, pl.tc,

@@ -8,7 +8,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import f32, i32, require_cuda, u8
+from repro_torch.kernels._common import f32, i32, require_cuda, storage, u8
 from repro_torch.kernels.affinity_matvec import leaf_groups
 
 # dynamic shared memory one Hopper block may opt into (227 KB)
@@ -68,9 +68,10 @@ def lid_sweep_cuda(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
                    k_scale: float, *, n_steps: int, max_iters: int,
                    tol: float, refresh_every: int = 0,
                    support_eps: float = 1e-6):
-    """v_beta:(B, cap, d) f32, beta_idx:(B, cap) i32, beta_mask:(B, cap)
-    bool, x/ax:(B, cap) f32, n_iters:(B,) i32, converged:(B,) bool on the
-    card -> (x, ax, n_iters, converged), new tensors."""
+    """v_beta:(B, cap, d) f32 or bf16, beta_idx:(B, cap) i32,
+    beta_mask:(B, cap) bool, x/ax:(B, cap) f32, n_iters:(B,) i32,
+    converged:(B,) bool on the card -> (x, ax, n_iters, converged), new
+    tensors."""
     dev = require_cuda("lid_sweep", v_beta, beta_idx, beta_mask, x, ax,
                        n_iters, converged)
     bsz, cap, d = v_beta.shape
@@ -85,7 +86,7 @@ def lid_sweep_cuda(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
     if refresh_every > 0 and cap > MAX_REFRESH_CAP:
         raise ValueError(f"lid_sweep: the in-sweep refresh takes cap <= "
                          f"{MAX_REFRESH_CAP}, got {cap}")
-    v_beta = f32("lid_sweep v_beta", v_beta)
+    v_beta = storage("lid_sweep v_beta", v_beta)
     x = f32("lid_sweep x", x)
     ax = f32("lid_sweep ax", ax)
     beta_idx = i32("lid_sweep beta_idx", beta_idx)
@@ -97,7 +98,10 @@ def lid_sweep_cuda(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
     ax_out = torch.empty_like(ax)
     it_out = torch.empty_like(n_iters)
     cv_out = torch.empty(bsz, dtype=torch.bool, device=dev)
-    err = _build.library().lid_sweep_launch(
+    lib = _build.library()
+    launch = (lib.lid_sweep_launch if v_beta.dtype == torch.float32
+              else lib.lid_sweep_bf16_launch)
+    err = launch(
         v_beta.data_ptr(), beta_idx.data_ptr(), mask8.data_ptr(),
         x.data_ptr(), ax.data_ptr(), n_iters.data_ptr(), cv8.data_ptr(),
         x_out.data_ptr(), ax_out.data_ptr(), it_out.data_ptr(),

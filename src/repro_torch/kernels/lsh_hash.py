@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import f32, require_cuda
+from repro_torch.kernels._common import f32, require_cuda, storage
 
 # dynamic shared memory one Hopper block may opt into: 227 KB less a
 # margin for the kernel's static shared variables
@@ -68,10 +68,13 @@ def plan(n: int, d: int, n_tables: int, n_proj: int) -> Plan:
 
 def lsh_hash_cuda(x: torch.Tensor, proj: torch.Tensor, bias: torch.Tensor,
                   seg_len: float) -> torch.Tensor:
-    """x:(n, d), proj:(L, m, d), bias:(L, m) f32 on the card -> (n, L)
-    int32 key bits. No points launch nothing."""
+    """x:(n, d) f32 or bf16, proj:(L, m, d), bias:(L, m) f32 on the card
+    -> (n, L) int32 key bits. No points launch nothing."""
     dev = require_cuda("lsh_hash", x, proj, bias)
-    x = f32("lsh_hash x", x)
+    x = storage("lsh_hash x", x)
+    if proj.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"lsh_hash: x is {x.dtype} and proj {proj.dtype}, "
+                        f"bias {bias.dtype}; the projections are float32")
     n, d = x.shape
     n_tables, n_proj, dp = proj.shape
     if dp != d or tuple(bias.shape) != (n_tables, n_proj):
@@ -84,7 +87,10 @@ def lsh_hash_cuda(x: torch.Tensor, proj: torch.Tensor, bias: torch.Tensor,
         return out
     seg = float(torch.tensor(seg_len, dtype=torch.float32))
     pl = plan(n, d, n_tables, n_proj)
-    err = _build.library().lsh_hash_launch(
+    lib = _build.library()
+    launch = (lib.lsh_hash_launch if x.dtype == torch.float32
+              else lib.lsh_hash_bf16_launch)
+    err = launch(
         x.data_ptr(), proj.data_ptr(), bias.data_ptr(), out.data_ptr(), n, d,
         n_tables, n_proj, PER_THREAD[pl.route], pl.pts, pl.threads,
         pl.smem, seg, _build.stream_ptr(dev))

@@ -37,6 +37,53 @@ from repro_torch.kernels.roi_filter import roi_filter_cuda
 from repro_torch.kernels.segment_matmul import segment_matmul_cuda
 
 BACKENDS = ("auto", "ref", "kernel")
+DTYPES = ("float32", "bfloat16")
+
+
+def storage_dtype(name: str) -> torch.dtype:
+    """The `EngineSpec.dtype` knob as the torch STORAGE dtype (validated).
+
+    The kernel layer's mixed-precision contract, the JAX package's: points,
+    store shards and the v_beta support blocks are stored in this dtype,
+    while every distance, affinity and LID accumulator (x, Ax, pi) stays
+    f32, and each op upcasts its storage inputs once. Engines and stores
+    round their points through `to_storage`, once, BEFORE hashing, so LSH
+    keys of the rounded values are the same on every engine."""
+    if name not in DTYPES:
+        raise ValueError(
+            f"unknown storage dtype {name!r}; expected one of {DTYPES}")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+# rows rounded per block by to_storage: bounds its int32 temporaries
+_ROUND_ROWS = 1 << 16
+
+
+def to_storage(t: torch.Tensor, name: str, device=None) -> torch.Tensor:
+    """`t` in the storage dtype `name` on `device` (default: t's; a tensor
+    already there in that dtype is returned as is). f32 -> bf16 rounds to
+    nearest, ties to even, as XLA's convert: subnormals are kept, overflow
+    goes to inf, and a NaN becomes the quiet NaN 0x7FC0 with its sign
+    (torch's own conversion gives 0xFFFF or 0x7FFF), so the port's rounded
+    points are the JAX package's bit for bit. Integer arithmetic on the
+    bits, a block of rows at a time, each block moved to `device` first:
+    host points go to the card as bf16 with no f32 copy there."""
+    dtype = storage_dtype(name)
+    device = t.device if device is None else torch.device(device)
+    if dtype == torch.float32 or t.dtype == dtype:
+        return t.to(device=device, dtype=dtype)
+    src = t.float().contiguous()
+    flat = src.reshape(-1, src.shape[-1]) if src.dim() > 1 \
+        else src.reshape(1, -1)
+    out = torch.empty(flat.shape, dtype=torch.int16, device=device)
+    for lo in range(0, flat.shape[0], _ROUND_ROWS):
+        b = flat[lo:lo + _ROUND_ROWS].to(device).view(torch.int32)
+        mag = b & 0x7FFFFFFF
+        sign = (b >> 16) & 0x8000
+        rne = (mag + (0x7FFF + ((mag >> 16) & 1))) >> 16
+        r = torch.where(mag > 0x7F800000, 0x7FC0, rne) | sign
+        out[lo:lo + _ROUND_ROWS] = torch.where(r >= 0x8000, r - 0x10000, r)
+    return out.view(torch.bfloat16).reshape(t.shape)
 
 KERNELS = {
     "lsh_hash": lsh_hash_cuda,
@@ -106,16 +153,17 @@ def pairwise_distance(q, c, p: float = 2.0, *, backend: str = "auto"):
 
 def affinity(q, c, k_scale: float, p: float = 2.0, *, backend: str = "auto"):
     """exp(-k ||q_i - c_j||_p) for q:(..., m, d), c:(..., n, d) -> (..., m, n)
-    f32, with no diagonal logic. The kernel takes f32 only: bf16 storage
-    waits for ROADMAP queue item "bf16 storage"."""
+    f32, with no diagonal logic. The kernel takes f32 only: bf16 rows in
+    this kernel wait for ROADMAP item P1b (no fit engine calls it on
+    storage rows)."""
     mode = resolve_backend(backend, q)
     check_norm(mode, p, "affinity")
     if mode == "ref":
         return _ref.affinity_ref(q, c, k_scale, p)
     if q.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"affinity: the kernel takes float32 only, got "
-                        f"{q.dtype} and {c.dtype} (bf16 storage is ROADMAP "
-                        "queue item 'bf16 storage')")
+                        f"{q.dtype} and {c.dtype} (bf16 rows in this "
+                        "kernel are ROADMAP item P1b)")
     lead = torch.broadcast_shapes(q.shape[:-2], c.shape[:-2])
     return affinity_cuda(q.expand(*lead, *q.shape[-2:]),
                          c.expand(*lead, *c.shape[-2:]), k_scale)
@@ -124,8 +172,8 @@ def affinity(q, c, k_scale: float, p: float = 2.0, *, backend: str = "auto"):
 def affinity_matvec(q, q_idx, c, c_idx, w, k_scale: float, p: float = 2.0,
                     *, backend: str = "auto"):
     """out_i = sum_j [q_idx_i != c_idx_j] exp(-k||q_i - c_j||) w_j, (..., m)
-    f32 for q:(..., m, d), c:(..., n, d); the leading dim is the seed batch.
-    """
+    f32 for q:(..., m, d), c:(..., n, d) stored in one dtype (f32 or bf16,
+    the affinity taken in f32); the leading dim is the seed batch."""
     mode = resolve_backend(backend, q)
     check_norm(mode, p, "affinity_matvec")
     if mode == "ref":
@@ -181,11 +229,11 @@ def roi_filter(vc, center, radius, valid, p: float = 2.0, *,
 
 def lsh_hash(x, proj, bias, seg_len: float, *, backend: str = "auto"):
     """p-stable bucket keys x:(n, d) -> (n, L) int32 bits (callers read them
-    as uint32); the projection runs in f32."""
+    as uint32); x is stored as f32 or bf16, the projection runs in f32."""
     mode = resolve_backend(backend, x)
     if mode == "ref":
         return _ref.lsh_hash_ref(x, proj, bias, seg_len)
-    return lsh_hash_cuda(x.float(), proj, bias, seg_len)
+    return lsh_hash_cuda(x, proj, bias, seg_len)
 
 
 def assign_clusters(q, sup_v, sup_w, dens, k_scale, threshold, valid=None,

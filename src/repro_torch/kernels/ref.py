@@ -146,8 +146,14 @@ def affinity_matvec_ref(q, q_idx, c, c_idx, w, k_scale,
     """out_i = sum_j [q_idx_i != c_idx_j] * exp(-k ||q_i - c_j||) * w_j.
 
     q:(..., m, d), q_idx:(..., m), c:(..., n, d), c_idx:(..., n),
-    w:(..., n) -> (..., m) f32, contracted in `tree_matvec` order."""
-    a = affinity_ref(q, c, k_scale, p).float()
+    w:(..., n) -> (..., m) f32, contracted in `tree_matvec` order.
+
+    The affinity is taken in f32 on the upcast rows and never rounded to
+    q's dtype: the JAX Pallas kernel's semantics, which the CUDA kernel
+    computes. (The JAX package's `affinity_matvec_ref` rounds the block to
+    q's dtype first, so at bf16 storage its two backends differ, by up to
+    ~4e-4 relative; at f32 the two forms are one.)"""
+    a = pairwise_distance_ref(q, c, p).mul_(-k_scale).exp_()
     a = torch.where(q_idx.unsqueeze(-1) == c_idx.unsqueeze(-2), 0.0, a)
     return tree_matvec(a, w)
 

@@ -79,12 +79,12 @@ SWEEP_MARKS = [
      "    atomicAdd(&g_prof[9], (unsigned long long)NS);\n  }\n"),
 ]
 MATVEC_MARKS = [
-    ("  if constexpr (kSmemRows) {\n    repro_kernels::stage_leaf_major(\n"
-     "        qs,", "  long long P0 = clock64(); unsigned long long A[4] = {};\n"),
-    ("  const float* qr[TQ];",
+    ("  if constexpr (kSmemRows) {\n    stage(qs,",
+     "  long long P0 = clock64(); unsigned long long A[4] = {};\n"),
+    ("  const Row* qr[TQ];",
      "  __syncthreads(); long long P1 = clock64(); A[0] += P1 - P0;\n"),
-    ("    if constexpr (kSmemRows) {\n      repro_kernels::stage_leaf_major(\n"
-     "          cs,", "    long long Pa = clock64();\n"),
+    ("    if constexpr (kSmemRows) {\n      stage(cs,",
+     "    long long Pa = clock64();\n"),
     ("    for (int s0 = 0; s0 < slots; s0 += nquads) {",
      "    long long Pb = clock64(); A[1] += Pb - Pa;\n"),
     ("\n    for (int gg = 0;", "\n    long long Pc = clock64(); A[2] += Pc - Pb;"),

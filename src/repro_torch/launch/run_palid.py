@@ -17,9 +17,12 @@ bit-identical to the clean run's. It prints the lines the JAX package's
       --device cpu --engine streamed --shards 4 --profile \\
       --inject-faults transient:0.1,corrupt:0.05,kill-reader:3
 
-The JAX CLI's flags that need a part not ported yet (the mesh engine, bf16
-storage, the contract checker) raise NotImplementedError naming their
-ROADMAP item.
+  # bf16 point storage (the JAX CLI's --dtype), on the card
+  PYTHONPATH=src python -m repro_torch.launch.run_palid --quick \
+      --dtype bfloat16
+
+The JAX CLI's flags that need a part not ported yet (the mesh engine, the
+contract checker) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,8 +56,6 @@ def _unported_flags(args) -> list[str]:
     checks = [
         (args.engine == "mesh", "--engine mesh (ROADMAP A13)"),
         (args.devices > 1, "--devices > 1, the mesh engine (ROADMAP A13)"),
-        (args.dtype != "float32", f"--dtype {args.dtype} (ROADMAP queue "
-         "item 'bf16 storage in the four kernels')"),
         (args.check, "--check, the contract checker (ROADMAP A15)"),
     ]
     return [what for given, what in checks if given]
@@ -176,10 +177,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="resume the fit from the latest intact checkpoint "
                          "in --checkpoint-dir (bit-identical to the "
                          "uninterrupted run)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="point STORAGE dtype (EngineSpec.dtype): bfloat16 "
+                         "halves the points' device memory; k, distances, "
+                         "affinities and the LID state stay f32")
     # the JAX CLI's flags whose parts are not ported yet: refused in main
     ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "bfloat16"])
     ap.add_argument("--check", action="store_true")
     return ap.parse_args(argv)
 

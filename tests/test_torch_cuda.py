@@ -1188,3 +1188,150 @@ def test_sharded_and_streamed_fits_equal_replicated_on_card(dev, tmp_path):
         assert got.n_rounds == want.n_rounds
         np.testing.assert_allclose(np.sort(got.densities),
                                    np.sort(want.densities), rtol=1e-6)
+
+
+# ------------------------------------------------- bf16 point storage ----
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return ops.to_storage(t, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(777, 24), (3584, 128), (5, 101),
+                                 (100_003, 128), (100_003, 24),
+                                 (20_000, 101)])
+def test_lsh_hash_bf16_matches_plain(dev, n, d):
+    """bf16 points on both routes (probe up to 16,384 points, stream past
+    it; d = 101 loads a point element by element): the keys of the upcast
+    f32 points from the f32 kernel, bit for bit, and the plain version's
+    within the key-flip rule."""
+    rng = np.random.default_rng(n + d)
+    x = torch.tensor(rng.normal(size=(n, d)).astype(np.float32) * 4,
+                     device=dev)
+    proj = torch.tensor(rng.normal(size=(3, 5, d)).astype(np.float32),
+                        device=dev)
+    bias = torch.tensor(rng.uniform(0, 2, (3, 5)).astype(np.float32),
+                        device=dev)
+    xb = _bf16(x)
+    got, want = _both(lambda b: ops.lsh_hash(xb, proj, bias, 2.0, backend=b))
+    assert torch.equal(got, ops.lsh_hash(xb.float(), proj, bias, 2.0))
+    n_flip, near = key_flips(xb.float(), proj, bias, 2.0, got, want)
+    assert near and n_flip <= 1e-4 * max(got.numel(), 1), n_flip
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_seed,d", [(350, 24), (7168, 128), (5, 101)])
+def test_roi_filter_bf16_bitwise(dev, per_seed, d):
+    rng = np.random.default_rng(per_seed + 1)
+    vc = _bf16(torch.tensor(rng.normal(size=(2, per_seed, d)).astype(
+        np.float32), device=dev))
+    center = torch.tensor(rng.normal(size=(2, d)).astype(np.float32),
+                          device=dev)
+    radius = torch.tensor([np.sqrt(2 * d), 0.9 * np.sqrt(2 * d)],
+                          dtype=torch.float32, device=dev)
+    valid = torch.tensor(rng.integers(0, 2, (2, per_seed)).astype(bool),
+                         device=dev)
+    got, want = _both(lambda b: ops.roi_filter(vc, center, radius, valid,
+                                               backend=b))
+    assert _equal(got, want)
+    assert _equal(got, ops.roi_filter(vc.float(), center, radius, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,cap,n,d", [
+    (3, 48, 37, 16), (32, 240, 240, 128), (32, 240, 112, 128),
+    (2, 560, 560, 256), (2, 64, 37, 2048), (2, 9, 3, 101)])
+def test_affinity_matvec_bf16_bitwise(dev, bsz, cap, n, d):
+    """bf16 rows on the smem route (the fit's shapes, passes at d = 256)
+    and the global route (d = 2,048): the plain version's bits, and the
+    f32 kernel's on the upcast rows."""
+    st = _states(dev, bsz=bsz, cap=cap, d=d)
+    v = _bf16(st.v_beta)
+    w = st.x[:, :n] + 0.1
+    c, ci = v[:, :n].contiguous(), st.beta_idx[:, :n].contiguous()
+    got, want = _both(lambda b: ops.affinity_matvec(
+        v, st.beta_idx, c, ci, w, K, backend=b))
+    assert _equal(got, want)
+    assert _equal(got, ops.affinity_matvec(v.float(), st.beta_idx,
+                                           c.float(), ci, w, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,cap,d,refresh", [
+    (3, 48, 16, 2), (32, 240, 128, 0), (1, 240, 128, 0), (7, 240, 128, 4),
+    (4, 560, 256, 0), (2, 2000, 256, 0), (3, 100, 101, 3)])
+def test_lid_sweep_bf16_bitwise(dev, bsz, cap, d, refresh):
+    """bf16 support blocks on every cluster size and both routes (rows
+    read in place at cap 2,000 x d 256), with and without the in-sweep
+    refresh: the plain version's bits, and the f32 kernel's on the upcast
+    rows."""
+    st = _states(dev, bsz=bsz, cap=cap, d=d, n_valid=cap - 5)
+    v = _bf16(st.v_beta)
+    st = refresh_ax(st._replace(v_beta=v), K, backend="ref")
+
+    def sweep(rows, b="auto"):
+        return ops.lid_sweep(rows, st.beta_idx, st.beta_mask, st.x, st.ax,
+                             st.n_iters, st.converged, K, n_steps=8,
+                             max_iters=64, tol=1e-5, refresh_every=refresh,
+                             backend=b)
+    got, want = sweep(v, "kernel"), sweep(v, "ref")
+    assert int(want[2].min()) > 1, "the states did not iterate"
+    assert _equal(got, want)
+    assert _equal(got, sweep(v.float()))
+
+
+@pytest.mark.cuda
+def test_bf16_mixed_pairs_raise_before_launching(dev):
+    """A call whose rows mix f32 and bf16 in a way no engine produces
+    raises a TypeError naming the pair, and launches nothing."""
+    st = _states(dev, bsz=2, cap=48, d=16)
+    v = _bf16(st.v_beta)
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="q is torch.bfloat16 and c is "
+                                        "torch.float32"):
+        ops.affinity_matvec(v, st.beta_idx, st.v_beta, st.beta_idx, st.x, K)
+    with pytest.raises(TypeError, match="center is torch.bfloat16"):
+        ops.roi_filter(st.v_beta, v[:, 0], torch.ones(2, device=dev),
+                       st.beta_mask)
+    with pytest.raises(TypeError, match="proj torch.bfloat16"):
+        ops.lsh_hash(v[0], v[:, :3].contiguous().reshape(2, 3, 16),
+                     torch.ones((2, 3), device=dev), 1.0)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_bf16_fits_bitwise_across_engines_and_backends(dev, tmp_path):
+    """At bf16 storage the replicated fit through the kernels equals its
+    backend="ref" fit, and the sharded and streamed engines equal it, bit
+    for bit (labels, rounds, densities); the four fit kernels launch."""
+    from repro_torch import random as trandom
+    from repro_torch.core.alid import ALIDConfig, EngineSpec
+    from repro_torch.core.engine import fit
+    from repro_torch.data import auto_lsh_params, make_blobs_with_noise
+    spec = make_blobs_with_noise(8, 40, 1_200, d=32, seed=2)
+    lshp = auto_lsh_params(spec.points, probe=128, seg_scale=1.0)
+    cfg = ALIDConfig(a_cap=72, delta=96, lsh=lshp, seeds_per_round=16,
+                     max_rounds=16)
+    ops.reset_launch_counts()
+    runs = {}
+    for name, espec in (
+            ("kernel", EngineSpec(dtype="bfloat16")),
+            ("ref", EngineSpec(dtype="bfloat16", backend="ref")),
+            ("sharded", EngineSpec(engine="sharded", n_shards=6,
+                                   dtype="bfloat16")),
+            ("streamed", EngineSpec(engine="streamed", n_shards=6,
+                                    scratch_dir=str(tmp_path),
+                                    dtype="bfloat16"))):
+        runs[name] = fit(spec.points, cfg._replace(spec=espec),
+                         trandom.PRNGKey(0), device=dev)
+        if name == "kernel":
+            counts = ops.launch_counts()
+            assert all(counts[k] > 0 for k in ("lsh_hash", "roi_filter",
+                                               "affinity_matvec",
+                                               "lid_sweep")), counts
+    want = runs["kernel"]
+    assert want.n_clusters > 0
+    for name, got in runs.items():
+        np.testing.assert_array_equal(got.labels, want.labels, err_msg=name)
+        np.testing.assert_array_equal(got.densities, want.densities,
+                                      err_msg=name)
+        assert got.n_rounds == want.n_rounds, name

@@ -169,8 +169,14 @@ def test_engine_parity_with_jax(blobs, cfg, fits, engine, exhaustive):
 
 
 def test_engine_spec_validation():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        make_engine(talid.EngineSpec(dtype="bfloat16"), device="cpu")
+    """bf16 storage (ROADMAP B P1) builds on every ported engine; an
+    unknown storage dtype or engine raises."""
+    for engine in ("replicated", "sharded", "streamed"):
+        eng = make_engine(talid.EngineSpec(engine=engine, dtype="bfloat16"),
+                          device="cpu")
+        assert eng.spec.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="unknown storage dtype"):
+        make_engine(talid.EngineSpec(dtype="float16"), device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         make_engine(talid.EngineSpec(engine="nope"), device="cpu")
 

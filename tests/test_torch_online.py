@@ -436,11 +436,24 @@ def test_warm_start_steps_on_the_same_supports_as_jax(make):
 
 # ------------------------------------------------------------ refusals --
 def test_bf16_and_missing_card_refused(jbase, blobs, tcfg, tmp_path):
+    """bf16 storage (ROADMAP B P1) runs: a bf16 `OnlineClustering` commits
+    its baseline, and its routing balls are measured on the support rows
+    cast to bf16 (tests/test_torch_bf16.py holds its updates to the JAX
+    package's). Without a card the default device is refused."""
     base = clustering_from_dict(jbase.to_dict())
     bf16 = tcfg._replace(spec=EngineSpec(dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="bf16 storage"):
-        tonline.OnlineClustering(base, blobs.points, bf16, device="cpu",
-                                 ckpt_dir=str(tmp_path / "a"))
+    oc = tonline.OnlineClustering(base, blobs.points, bf16, device="cpu",
+                                  ckpt_dir=str(tmp_path / "a"))
+    assert oc.epoch_id == 0 and oc.verify() == []
+    oc._refresh_rois()
+    c = int(np.flatnonzero(oc.live)[0])
+    center, r_out = tonline._roi_of_support(
+        ops.to_storage(torch.tensor(oc.sup_v[c]), "bfloat16").float(),
+        torch.tensor(oc.sup_idx[c]), torch.tensor(oc.sup_w[c]), oc.k,
+        bf16.r0, bf16.p, bf16.support_eps, "auto")
+    np.testing.assert_array_equal(oc._roi_center[c],
+                                  center.numpy().astype(np.float64))
+    assert oc._roi_radius[c] == float(r_out)
     if torch.cuda.is_available():
         oc = tonline.OnlineClustering(base, blobs.points, tcfg,
                                       ckpt_dir=str(tmp_path / "b"))

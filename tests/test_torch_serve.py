@@ -251,7 +251,7 @@ def test_run_palid_quick_serve_bench_prints_the_jax_lines(capsys,
 
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "mesh"], "A13"), (["--devices", "4"], "A13"),
-    (["--dtype", "bfloat16"], "bf16"), (["--check"], "A15")])
+    (["--check"], "A15")])
 def test_run_palid_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_palid.main(["--quick", "--device", "cpu", *flags])
@@ -287,11 +287,13 @@ _FIT_LINE = re.compile(r"\[palid\] n=\d+ d=\d+ engine=(\w+) .* "
 
 @pytest.mark.parametrize("case", ["engine-sharded", "engine-streamed",
                                   "shards", "source", "inject-faults",
-                                  "checkpoint-dir", "resume"])
+                                  "checkpoint-dir", "resume",
+                                  "dtype-bfloat16"])
 def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
     """The flags the port refused before the sharded and streamed engines
-    (ROADMAP A10, A11) now run, and the fit finds the JAX CLI's clusters,
-    members and AVG-F."""
+    (ROADMAP A10, A11) and bf16 storage (ROADMAP B P1) now run, and the
+    fit finds the JAX CLI's clusters, members and AVG-F (at bf16 the JAX
+    CLI's own --dtype bfloat16 run)."""
     _cli_full_probe(monkeypatch)
     npy = tmp_path / "pts.npy"
     np.save(npy, make_blobs_with_noise(4, 60, 360, d=8, seed=0).points)
@@ -307,6 +309,7 @@ def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
                           "transient:0.1,corrupt:0.3,kill-reader:2"],
         "checkpoint-dir": ["--checkpoint-dir", ckpt],
         "resume": ["--checkpoint-dir", ckpt, "--resume"],
+        "dtype-bfloat16": ["--dtype", "bfloat16"],
     }[case]
     if case == "resume":          # a finished run's checkpoints to resume
         run_palid.main(["--quick", "--device", "cpu", "--checkpoint-dir",
@@ -317,7 +320,8 @@ def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
     # with every bucket covered every engine finds the replicated fit's
     # clusters, so the JAX CLI runs once on the replicated engine (and once
     # on the source)
-    jax_flags = ["--source", f"memmap:{npy}"] if case == "source" else []
+    jax_flags = {"source": ["--source", f"memmap:{npy}"],
+                 "dtype-bfloat16": ["--dtype", "bfloat16"]}.get(case, [])
     want = _FIT_LINE.fullmatch(_jax_cli_line(monkeypatch, capsys, jax_flags))
     got = _FIT_LINE.fullmatch(_palid_line(ours, "[palid] n="))
     assert got.group(1) == {"engine-sharded": "sharded", "shards": "sharded",
