@@ -228,6 +228,29 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    per graph; (d) `examples/torch_gnn_cluster.py` on the card, which must
    find a cluster; phase 9's segment_matmul launches are added to the
    kernel table's;
+10. the mesh engine (PALID over `torch.distributed`): (a) phase 4's
+   full-width fit on the mesh engine at world size 1 over NCCL in this
+   process, on the replicated store and on 8 shards, bit-identical to
+   phase 4's and 4b's fits, with the all-gather's seconds and bytes a
+   round (the fits of (a)-(c) and (d)'s second forwards time their
+   collectives, `timed_collectives`, a device sync around each); then
+   two gloo ranks sharing the one card (NCCL refuses two
+   ranks on one device), spawned once: (b) the full-width fit from a .npy
+   through MemmapSource on the replicated store, bit-identical to phase
+   4's fit, each rank launching the four fit kernels; (c) 3b's data on 8
+   shards split over the ranks, bit-identical to 3b's sharded fit, with
+   the bytes each rank broadcasts and holds, and the split store built
+   alone on each rank, whose peak device bytes must stay below the whole
+   store's; (d) GIN
+   and SAGE at ogb_products, full batch, and MeshGraphNet and GraphCast
+   at full_graph_sm, the nodes and edges split over the ranks, held to
+   phase 9's one-process forwards within the CPU tests' tolerances, each
+   rank launching segment_matmul, with each rank's peak device memory;
+   the collectives the ranks ran on CUDA tensors are printed (gloo takes
+   them; none goes through the host); (e) `run_palid --quick --engine
+   mesh --devices 1` (one NCCL rank) and `--devices 2` refused with the
+   card count; phase
+   10's launches (a)-(d) are added to the kernel table's;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -1080,7 +1103,7 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     kernels, at n = 20,000 x 128, and the replicated fit through
     backend="ref" against the kernels' one; every streamed run takes no
     fallback. Returns the kernel path's streamed default fit (4d's clean
-    run)."""
+    run) and its sharded fit (phase 10c's reference)."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
@@ -1126,7 +1149,7 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     ok, why = same_fit(out[("replicated", "auto")], out[("replicated", "ref")])
     print(f"[parity] engines' data, kernel vs plain replicated: {why}")
     need(ok, "phase 3b: kernel and plain replicated fits differ")
-    return out[("streamed-default", "auto")]
+    return out[("streamed-default", "auto")], out[("sharded", "auto")]
 
 
 def bitwise_fit(a, b) -> tuple[bool, str]:
@@ -3468,7 +3491,8 @@ def split_layer(kernels) -> dict:
     return parts
 
 
-def gnn_case(dev, arch: str, shape: str, g, batch, profiled: bool) -> dict:
+def gnn_case(dev, arch: str, shape: str, g, batch, profiled: bool,
+             keep=None) -> dict:
     """One (arch, shape) forward on the card through the kernels and
     through backend="ref", each from launch counts at 0: bit-equal
     outputs of the expected shape, finite, segment_matmul launched;
@@ -3513,6 +3537,8 @@ def gnn_case(dev, arch: str, shape: str, g, batch, profiled: bool) -> dict:
     need(ref_launches == 0, f"9 {arch} {shape}: backend='ref' launched")
     res = dict(launches=launches, ms=again[1] * 1e3, first_ms=wall * 1e3,
                plain_ms=ref_wall * 1e3, peak=peak)
+    if keep is not None:           # phase 10d's reference, on the host
+        keep[arch] = out.float().cpu().numpy()
     del out, again, ref
     if profiled:
         fwall, kernels = device_kernels(
@@ -3556,12 +3582,13 @@ def gnn_case(dev, arch: str, shape: str, g, batch, profiled: bool) -> dict:
     return res
 
 
-def check_gnns(dev) -> dict:
+def check_gnns(dev, keep: dict) -> dict:
     """Phase 9: the four GNNs' forwards on the card. (a) GIN-TU and
     GraphSAGE-Reddit at ogb_products on one graph, profiled; (b)
     MeshGraphNet and GraphCast at full_graph_sm; (c) all four at molecule;
     (d) examples/torch_gnn_cluster.py. Returns the phase's numbers and
-    segment_matmul launches."""
+    segment_matmul launches. The kernel forwards of (a) and (b) go into
+    `keep` (arch -> host f32 output) for phase 10d."""
     import importlib.util
 
     from repro_torch.configs import get_arch
@@ -3590,7 +3617,8 @@ def check_gnns(dev) -> dict:
          and n_valid == spec["n_edges"], "9a: graph sizes")
     del valid, deg, top
     for arch in GNN_OGB_ARCHS:
-        res = gnn_case(dev, arch, "ogb_products", g, batch, profiled=True)
+        res = gnn_case(dev, arch, "ogb_products", g, batch, profiled=True,
+                       keep=keep)
         out["cases"][f"{arch} ogb_products"] = res
         out["launches"] += res["launches"]
     del g, batch
@@ -3598,7 +3626,8 @@ def check_gnns(dev) -> dict:
     for arch in GNN_SM_ARCHS:
         cfg = get_arch(arch).make_cell("full_graph_sm").model_cfg
         g, batch = gnn_graph(dev, "full_graph_sm", cfg)
-        res = gnn_case(dev, arch, "full_graph_sm", g, batch, profiled=False)
+        res = gnn_case(dev, arch, "full_graph_sm", g, batch, profiled=False,
+                       keep=keep)
         out["cases"][f"{arch} full_graph_sm"] = res
         out["launches"] += res["launches"]
     for arch in GNN_ARCHS:
@@ -3626,6 +3655,382 @@ def check_gnns(dev) -> dict:
     out["launches"] += launches["segment_matmul"]
     out["example"] = dict(clusters=res.n_clusters, avg_f=f)
     return out
+
+
+# ----------------------------------------------------- the mesh engine ----
+# phase 10: two gloo ranks share the one card in (b)-(d) (NCCL refuses two
+# ranks on one device); (a) and (e) are NCCL at world size 1
+MESH_RANKS = 2
+# 10d: the CPU tests' tolerances (tests/test_torch_gnn_mesh.py): f32 within
+# 2e-6 of the largest |output|, bf16 within (layers + 1) bf16 ulps
+GNN_MESH_F32_TOL = 2e-6
+GNN_MESH_CASES = (("gin-tu", "ogb_products"),
+                  ("graphsage-reddit", "ogb_products"),
+                  ("meshgraphnet", "full_graph_sm"),
+                  ("graphcast", "full_graph_sm"))
+
+
+def same_flags() -> None:
+    """The matmul settings main() gives the card, for a rank process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def slim(res) -> dict:
+    return dict(labels=res.labels, densities=res.densities,
+                n_rounds=res.n_rounds, n_clusters=res.n_clusters)
+
+
+class Slim:
+    """A rank's fit as `bitwise_fit` reads it."""
+
+    def __init__(self, d: dict):
+        self.__dict__.update(d)
+
+
+def mesh_w1(dev, points, lshp, rep, shd) -> dict:
+    """10(a): the full-width fit on the mesh engine at world size 1 over
+    NCCL in this process, on the replicated store and on 8 shards,
+    bit-identical to phase 4's and 4b's fits. Returns the launches."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.distributed.context import (collective_stats,
+                                                 reset_collective_stats,
+                                                 timed_collectives)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width
+    from repro_torch.random import PRNGKey
+    tmp = tempfile.mkdtemp(prefix="alid_mesh_w1_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=300))
+    total = dict.fromkeys(FIT_KERNELS, 0)
+    try:
+        for name, espec, want in (
+                ("replicated", EngineSpec(engine="mesh"), rep),
+                (f"{N_SHARDS} shards",
+                 EngineSpec(engine="mesh", n_shards=N_SHARDS), shd)):
+            cfg = full_width.config(lshp)._replace(spec=espec)
+            engine = make_engine(cfg.spec, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            reset_collective_stats()
+            t0 = time.perf_counter()
+            with timed_collectives():
+                res = fit(points, cfg, PRNGKey(0), engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            st = collective_stats()
+            backend = dist.get_backend(engine.group)
+            engine.close()
+            del engine
+            ag = st["all_gather"]
+            ok, why = bitwise_fit(res, want)
+            print(f"[mesh] 10a full width, world 1 ({backend}), {name}: "
+                  f"wall={wall:.2f}s rounds={res.n_rounds} clusters="
+                  f"{res.n_clusters}; all-gather {ag['calls']} calls, "
+                  f"{ag['bytes'] / res.n_rounds:.0f} bytes and "
+                  f"{ag['seconds'] / res.n_rounds * 1e3:.4f} ms a round; "
+                  f"collectives {json.dumps(st)}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated()}; launches "
+                  f"{ {k: counts[k] for k in FIT_KERNELS} }; against "
+                  f"{'phase 4' if espec.n_shards == 0 else '4b'}: {why}")
+            need(backend == "nccl", "10a: the group is not NCCL")
+            need(ok, f"10a: the world-1 mesh fit ({name}) is not "
+                 "bit-identical to the one-process fit")
+            for k in FIT_KERNELS:
+                need(counts[k] > 0, f"10a: kernel {k} was never launched")
+                total[k] += counts[k]
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def _rank_gnn(rank, dev, ref_dir) -> dict:
+    """10(d) on one rank: each GNN_MESH_CASES forward under a one-axis
+    mesh over the ranks; rank 0 holds the gathered output to phase 9's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import (collective_stats,
+                                                 mesh_context,
+                                                 reset_collective_stats,
+                                                 timed_collectives)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import data_context
+    from repro_torch.models import gnn as gnn_m
+    from repro_torch.random import PRNGKey
+    out = {}
+    graphs: dict = {}
+    with mesh_context(data_context("cuda")):
+        for arch, shape in GNN_MESH_CASES:
+            cfg = get_arch(arch).make_cell(shape).model_cfg
+            if shape not in graphs:
+                graphs.clear()
+                torch.cuda.empty_cache()
+                graphs[shape] = gnn_graph(dev, shape, cfg)[0]
+            g = graphs[shape]
+            params = gnn_m.init_params(PRNGKey(0), cfg, device=dev)
+            split = gnn_m.mesh_split(g.node_feat.shape[0],
+                                     g.edge_src.shape[0])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = gnn_m.forward(params, cfg, g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()["segment_matmul"]
+            # a second forward, warm, its collectives timed: its time and
+            # their share
+            reset_collective_stats()
+            t0 = time.perf_counter()
+            with timed_collectives():
+                again = gnn_m.forward(params, cfg, g)
+            torch.cuda.synchronize()
+            res = dict(wall=wall, launches=launches,
+                       again=time.perf_counter() - t0,
+                       collectives=collective_stats(),
+                       repeat=bool(torch.equal(again, y)),
+                       peak=torch.cuda.max_memory_allocated(),
+                peak_above=torch.cuda.max_memory_allocated() - base,
+                split=None if split is None else split.size,
+                layers=cfg.n_layers, dtype=str(cfg.dtype).split(".")[-1],
+                shape=tuple(y.shape),
+                finite=bool(torch.isfinite(y.float()).all()))
+            if rank == 0:
+                ref = torch.from_numpy(np.load(Path(ref_dir) / f"{arch}.npy"))
+                yh = y.float().cpu()
+                res.update(err=float((yh - ref).abs().max()),
+                           scale=float(ref.abs().max()),
+                           ref_shape=tuple(ref.shape))
+            out[arch] = res
+            del y, again, params
+    return out
+
+
+def _rank_store_build(dev, ppoints, pcfg) -> dict:
+    """10(c)'s split store built alone on this rank: the device bytes it
+    allocated at its peak and holds after, beside the bytes of the whole
+    store (`build_store` of the same data on the card)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.source import as_source
+    from repro_torch.core.store import build_mesh_store, build_store
+    from repro_torch.random import PRNGKey
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = build_mesh_store(as_source(ppoints), pcfg.lsh, PRNGKey(0),
+                          N_SHARDS, dist.group.WORLD, device=dev)
+    torch.cuda.synchronize()
+    out = dict(peak=torch.cuda.max_memory_allocated() - base,
+               held=torch.cuda.memory_allocated() - base)
+    del st
+    full = build_store(torch.as_tensor(ppoints, device=dev), pcfg.lsh,
+                       PRNGKey(0), n_shards=N_SHARDS)
+    out["full"] = nbytes(full.shards, full.valid, full.global_idx,
+                         full.shard_of, full.slot_of, full.centers,
+                         full.radii, *full.tables)
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, npy, lshp, ppoints, pcfg, ref_dir) -> dict:
+    """Phase 10 (b)-(d) on one of the gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.core.source import MemmapSource
+    from repro_torch.distributed.context import (collective_stats,
+                                                 reset_collective_stats,
+                                                 timed_collectives)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import full_width
+    from repro_torch.random import PRNGKey
+    same_flags()
+    dev = torch.device(DEVICE)
+    out = {"backend": dist.get_backend(),
+           "build": _rank_store_build(dev, ppoints, pcfg)}
+    used: set = set()
+    for name, data, cfg in (
+            ("b", MemmapSource(npy), full_width.config(lshp)._replace(
+                spec=EngineSpec(engine="mesh"))),
+            ("c", ppoints, pcfg._replace(spec=EngineSpec(
+                engine="mesh", n_shards=N_SHARDS)))):
+        engine = make_engine(cfg.spec, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        reset_collective_stats()
+        t0 = time.perf_counter()
+        with timed_collectives():
+            res = fit(data, cfg, PRNGKey(0), engine=engine)
+        torch.cuda.synchronize()
+        st = collective_stats()
+        used |= set(st)
+        out[name] = dict(slim(res), wall=time.perf_counter() - t0,
+                         launches=ops.launch_counts(), collectives=st,
+                         peak=torch.cuda.max_memory_allocated(),
+                         backend=dist.get_backend(engine.group))
+        if engine.store is not None:
+            out[name].update(held=engine.store.shards.shape[0],
+                             payload=engine.store.payload_bytes())
+        engine.close()
+        del engine, res
+        torch.cuda.empty_cache()
+    out["d"] = _rank_gnn(rank, dev, ref_dir)
+    used |= {op for o in out["d"].values() for op in o["collectives"]}
+    out["cuda_ops"] = sorted(used)
+    return out
+
+
+def check_mesh(dev, points, lshp, rep, shd, pspec, pcfg, shd_3b,
+               gnn_ref: dict) -> dict:
+    """Phase 10 (b)-(e); (a) runs before it. Returns the launches of
+    (b)-(d), summed over the ranks."""
+    import tempfile
+
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import run_palid
+    total = dict.fromkeys(FIT_KERNELS + ("segment_matmul",), 0)
+    with tempfile.TemporaryDirectory(prefix="alid_mesh_") as tmp:
+        npy = Path(tmp) / "points.npy"
+        np.save(npy, points)
+        for arch, y in gnn_ref.items():
+            np.save(Path(tmp) / f"{arch}.npy", y)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_ranks(mesh_rank, MESH_RANKS, str(npy), lshp,
+                         pspec.points, pcfg, tmp,
+                         devices=[DEVICE] * MESH_RANKS, backend="gloo",
+                         timeout=600)
+        spawn_wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        need(out["backend"] == "gloo", f"10: rank {r}'s group is not gloo")
+        for name in ("b", "c"):
+            o = out[name]
+            ag = o["collectives"]["all_gather"]
+            print(f"[mesh] 10{name} rank {r}/{MESH_RANKS} "
+                  f"({o['backend']}, {DEVICE}): wall={o['wall']:.2f}s "
+                  f"rounds={o['n_rounds']} clusters={o['n_clusters']}; "
+                  f"all-gather {ag['bytes'] / o['n_rounds']:.0f} bytes and "
+                  f"{ag['seconds'] / o['n_rounds'] * 1e3:.4f} ms a round; "
+                  f"collectives {json.dumps(o['collectives'])}; peak device "
+                  f"memory {o['peak']}; launches "
+                  f"{ {k: o['launches'][k] for k in FIT_KERNELS} }"
+                  + (f"; holds {o['held']} of {N_SHARDS} shards, "
+                     f"{o['payload']} payload bytes with its slot"
+                     if "held" in o else ""))
+            for k in FIT_KERNELS:
+                need(o["launches"][k] > 0, f"10{name}: rank {r} never "
+                     f"launched {k}")
+                total[k] += o["launches"][k]
+    for name, want, what in (("b", rep, "phase 4's fit"),
+                             ("c", shd_3b, "3b's sharded fit")):
+        got = Slim(outs[0][name])
+        for r in range(1, MESH_RANKS):
+            ok, why = bitwise_fit(Slim(outs[r][name]), got)
+            need(ok, f"10{name}: ranks 0 and {r} returned different fits: "
+                 f"{why}")
+        bit, why = bitwise_fit(got, want)
+        print(f"[mesh] 10{name} against {what}: {why}")
+        # a rank runs 16 of the 32 lanes; every op of the fit gives a lane
+        # the same bits whatever lanes share its batch (ROADMAP C)
+        need(bit, f"10{name}: the mesh fit is not bit-identical to {what}")
+    c0 = outs[0]["c"]
+    shard_payload = c0["payload"] // (c0["held"] + 1)
+    need(all(o["c"]["held"] == N_SHARDS // MESH_RANKS for o in outs),
+         "10c: a rank holds other than S/W shards")
+    sent = [o["c"]["collectives"].get("broadcast", {}).get("bytes", 0)
+            for o in outs]
+    print(f"[mesh] 10c bytes broadcast by each rank: {sent}; each holds "
+          f"{c0['held']} shards + one slot (~{shard_payload} bytes a shard)")
+    for r, out in enumerate(outs):
+        b = out["build"]
+        print(f"[mesh] 10c rank {r}/{MESH_RANKS} split-store build alone: "
+              f"peak {b['peak']} B allocated above its start, {b['held']} B "
+              f"held after; the whole store is {b['full']} B")
+        need(b["peak"] < b["full"], f"10c: rank {r}'s store build peaked "
+             "at the whole store's bytes or more")
+    for arch, _ in GNN_MESH_CASES:
+        for r, out in enumerate(outs):
+            o = out["d"][arch]
+            coll = {op: round(v["seconds"], 4)
+                    for op, v in o["collectives"].items()}
+            line = (f"[mesh] 10d {arch} rank {r}/{MESH_RANKS}: split "
+                    f"{o['split']} ways, {o['dtype']}, forward "
+                    f"{o['wall']:.4f}s (the first, warm-up included) then "
+                    f"{o['again']:.4f}s with its collectives timed, of "
+                    f"which collectives' seconds "
+                    f"{coll}; segment_matmul launches {o['launches']}, "
+                    f"peak device memory {o['peak']} ({o['peak_above']} "
+                    f"above its start), output {o['shape']}")
+            need(o["split"] == MESH_RANKS and o["finite"],
+                 f"10d {arch}: rank {r} did not split or is not finite")
+            need(o["repeat"], f"10d {arch}: rank {r}'s two forwards differ")
+            need(o["launches"] > 0, f"10d {arch}: rank {r} never launched "
+                 "segment_matmul")
+            total["segment_matmul"] += o["launches"]
+            if r == 0:
+                if o["dtype"] == "bfloat16":
+                    ulp = 2.0 ** (math.floor(math.log2(o["scale"])) - 7)
+                    tol, rule = (o["layers"] + 1) * ulp, "(layers+1) ulps"
+                else:
+                    tol, rule = GNN_MESH_F32_TOL * o["scale"], "2e-6 rel"
+                line += (f"; against phase 9's forward: max |diff| "
+                         f"{o['err']:.3e} at scale {o['scale']:.4e}, "
+                         f"tolerance {tol:.3e} ({rule})")
+                need(o["ref_shape"] == o["shape"] and o["err"] <= tol,
+                     f"10d {arch}: the mesh forward is off phase 9's")
+            print(line)
+    ops_used = sorted({op for o in outs for op in o["cuda_ops"]})
+    print(f"[mesh] gloo ran these collectives on CUDA tensors on each rank: "
+          f"{ops_used}; ops moved through the host: none; the ranks' "
+          f"spawn, fits and forwards took {spawn_wall:.2f}s")
+
+    # (e) the CLI
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_palid.main(["--quick", "--engine", "mesh", "--devices", "1"])
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("[palid] n=")]
+    print(f"[mesh] 10e run_palid --quick --engine mesh --devices 1 "
+          f"({time.perf_counter() - t0:.2f}s): {line}")
+    need(len(line) == 1 and "engine=mesh" in line[0]
+         and "devices=1" in line[0], "10e: run_palid --engine mesh "
+         "--devices 1 line")
+    try:
+        run_palid.main(["--quick", "--devices", "2"])
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    count = torch.cuda.device_count()
+    print(f"[mesh] 10e run_palid --quick --devices 2 on {count} card(s): "
+          f"refused: {refused!r}")
+    need(f"this host has {count}" in refused, "10e: --devices 2 not "
+         "refused with the card count")
+    return total
 
 
 def _leaves(tree):
@@ -3672,20 +4077,19 @@ def main() -> int:
     stamp("phase 2")
     check_parity_fit(dev)
     pspec, pcfg = engine_parity_data()
-    clean = check_engine_parity(dev, pspec, pcfg)
+    clean, shd_3b = check_engine_parity(dev, pspec, pcfg)
     bf16_counts = check_engine_parity_bf16(dev, pspec, pcfg)
     stamp("phases 3, 3b")
     res, counts, rep_info = full_fit(dev, spec, lshp)
     sharded, ooc_counts, shd = full_fit_sharded(dev, spec, lshp, res,
                                                 rep_info)
     sharded["labels"] = shd.labels
-    del shd
     stm_counts, _ = full_fit_streamed(dev, spec, lshp, rep_info, sharded)
     del sharded
     stamp("phases 4-4c")
     fault_counts, resume_counts = check_fault_tolerance(
         dev, pspec, pcfg, clean, spec, lshp, res)
-    del pspec, clean
+    del clean
     torch.cuda.empty_cache()
     stamp("phase 4d")
     res16, cfg16, fit16_counts = full_fit_bf16(dev, spec, lshp, res,
@@ -3720,7 +4124,9 @@ def main() -> int:
     online = check_online(dev, res, spec.points, full_width.config(lshp))
     for name in ONLINE_KERNELS:
         counts[name] += online[name]
-    del res, sup, mix, spec
+    # phase 10 holds its fits to phase 4's and 4b's, on phase 4's data
+    mesh_ref = (spec.points, lshp, slim(res), slim(shd))
+    del res, shd, sup, mix, spec
     torch.cuda.empty_cache()
     stamp("phases 5, 5b")
 
@@ -3750,7 +4156,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("phase 8")
 
-    gnn = check_gnns(dev)
+    gnn_ref: dict = {}
+    gnn = check_gnns(dev, gnn_ref)
     stamp("phase 9")
     print(f"[gnn] segment_matmul launches: 8a's one call "
           f"{counts['segment_matmul']} + phase 9's {gnn['launches']}")
@@ -3762,6 +4169,20 @@ def main() -> int:
         for k, v in gnn["cases"].items()}
     stats["flash_attention"]["bst"]["launches"] = \
         bst_counts["flash_attention"]
+
+    points, lshp, rep, shd = mesh_ref
+    w1 = mesh_w1(dev, points, lshp, Slim(rep), Slim(shd))
+    ranks = check_mesh(dev, points, lshp, Slim(rep), Slim(shd), pspec,
+                       pcfg, shd_3b, gnn_ref)
+    del mesh_ref, points, gnn_ref
+    print(f"[mesh] phase 10 launches: 10a {w1}, + the ranks of 10b-10d "
+          f"{ranks}")
+    for name in FIT_KERNELS:
+        counts[name] += w1[name] + ranks[name]
+    counts["segment_matmul"] += ranks["segment_matmul"]
+    stats["segment_matmul"]["gnn"]["mesh"] = {
+        "launches": ranks["segment_matmul"]}
+    stamp("phase 10")
 
     table = []
     for name, s in stats.items():

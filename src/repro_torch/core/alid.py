@@ -14,7 +14,7 @@ path of `Clustering.predict` and the serving layer (`repro_torch.serve`).
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,9 +49,14 @@ class EngineSpec(NamedTuple):
               device, CIVS probes one shard at a time; "streamed": a
               host-resident StreamedStore fed by a DataSource, the CIVS
               shard loop on the host uploading one routed shard at a time,
-              so peak device memory is O(shard + cap). The mesh engine of
-              the JAX package is not ported yet (ROADMAP A13).
-    n_shards: store shard count (sharded: at least 1; streamed: 0 = 8).
+              so peak device memory is O(shard + cap); "mesh": PALID over
+              the ranks of a process group (`torch.distributed`), each
+              rank running its block of every round's seeds against a
+              replicated store or, with n_shards > 0, the shards split
+              over the ranks (`core.store.MeshStore`).
+    n_shards: store shard count (sharded: at least 1; streamed: 0 = 8;
+              mesh: 0 = the replicated store, else a multiple of the
+              data-axes size).
     chunk_size: host chunk rows of the streamed store's build (0 = 32,768).
     cache_bytes: host LRU budget for streamed shard bundles
               (`core.pipeline.ShardBundleCache`); <= 0 disables the cache.
@@ -75,6 +80,9 @@ class EngineSpec(NamedTuple):
               and the LID state (x, Ax, pi) stay f32, each kernel widening
               the rows it reads. The supports a fit exports are f32 rows of
               the source, as in the JAX package.
+    mesh_ctx: the mesh engine's `distributed.MeshContext` (seeds split
+              over its data axes); None = a one-axis "data" mesh over the
+              whole initialized process group.
     """
     engine: str = "replicated"
     n_shards: int = 0
@@ -84,6 +92,7 @@ class EngineSpec(NamedTuple):
     scratch_dir: Optional[str] = ""
     backend: str = "auto"
     dtype: str = "float32"
+    mesh_ctx: Optional[Any] = None
 
 
 class ALIDConfig(NamedTuple):
@@ -277,11 +286,11 @@ def alid_from_seed(points, active: torch.Tensor, tables: LSHTables | None,
     """Alg. 2: one complete ALID run from each seed of seed_idx:(B,).
 
     `points` is the replicated (n, d) tensor with its monolithic `tables`,
-    or a shard substrate (`tables=None`), a ShardedStore or the streamed
-    engine: its `seed_rows` gives the seeds' rows and CIVS probes its
-    shards (`civs.retrieve_shards`). The lanes follow the JAX package's
-    vmap of a while loop: an outer iteration runs on every lane with
-    ~done & c <= C, and a lane that has stopped keeps its state."""
+    or a shard substrate (`tables=None`), a ShardedStore, a MeshStore or
+    the streamed engine: its `seed_rows` gives the seeds' rows and CIVS
+    probes its shards (`civs.retrieve_shards`). The lanes follow the JAX
+    package's vmap of a while loop: an outer iteration runs on every lane
+    with ~done & c <= C, and a lane that has stopped keeps its state."""
     if isinstance(points, torch.Tensor):
         rows = points[seed_idx.long()]
     else:
@@ -295,10 +304,18 @@ def alid_from_seed(points, active: torch.Tensor, tables: LSHTables | None,
     solve = dict(max_iters=cfg.t_lid, tol=cfg.tol, p=cfg.p,
                  backend=cfg.backend, sweep_steps=cfg.sweep_steps,
                  refresh_every=cfg.refresh_every, support_eps=cfg.support_eps)
+    # a substrate split over ranks (`core.store.MeshStore`) runs its CIVS
+    # steps in lockstep: every rank goes on while any rank has a live lane
+    lockstep = getattr(points, "lockstep", None)
     while True:
         lanes = torch.nonzero((~done) & (c <= cfg.c_outer))[:, 0]
-        if lanes.numel() == 0:
+        if lockstep is None:
+            if lanes.numel() == 0:
+                break
+        elif not lockstep(lanes.numel()):
             break
+        elif lanes.numel() == 0:
+            continue                  # took part in the step's collectives
         sub = lid_solve(take_lanes(state, lanes), k, **solve)
         cl = c[lanes]
         roi = estimate_roi(sub.v_beta, sub.beta_idx, sub.beta_mask, sub.x, k,

@@ -15,9 +15,11 @@ index and `jnp.argsort` is stable, so both become stable sorts here.
 Two retrieval substrates sit behind the one `civs_update` signature:
 
   * replicated: `points`/`tables` are the full dataset + monolithic LSH;
-  * sharded: `points` is a `core.store.ShardedStore` (`tables=None`), or
-    the streamed engine (`engine.StreamedEngine`), which uploads one
-    routed shard at a time. Both go through `retrieve_shards`: the shards
+  * sharded: `points` is a `core.store.ShardedStore` (`tables=None`),
+    a `core.store.MeshStore` (the shards split over ranks, each routed
+    shard broadcast from its owner), or the streamed engine
+    (`engine.StreamedEngine`), which uploads one routed shard at a time.
+    All go through `retrieve_shards`: the shards
     whose bounding ball can meet a lane's ROI ball are probed one after
     another, and each chunk is folded into a running top-delta buffer
     (`top_k` over [buffer ++ chunk]) by `retrieve_chunk`, with an explicit
@@ -284,15 +286,16 @@ def retrieve_shards(roi: ROI, substrate, active, lsh_params: LSHParams,
                     sup_idx, sup_v, sup_slot_mask, delta: int, p: float,
                     backend: str = "auto"):
     """Steps 2-4 out of core: fold the routed shards into a running
-    top-delta carry. `substrate` is a `core.store.ShardedStore` or the
-    streamed engine; either gives its LSH projections (`proj`, `bias`),
-    its shard balls in f64 (`balls()`), the global probe windows of the
-    routed shards (`windows`: carved over ALL shards on the sharded
-    engine, over the routed ones on the streamed engine, as the JAX
+    top-delta carry. `substrate` is a `core.store.ShardedStore`, a
+    `core.store.MeshStore` or the streamed engine; each gives its LSH
+    projections (`proj`, `bias`), its shard balls in f64 (`balls()`), the
+    shards to route (`routed`: those some lane's ROI ball meets; on the
+    mesh store the union over the ranks), the global probe windows of the
+    routed shards (`windows`: carved over ALL shards on the sharded and
+    mesh stores, over the routed ones on the streamed engine, as the JAX
     package carves them) and the routed shards' tensors in routed order
     (`stream`). A shard is probed only for the lanes whose ROI ball can
-    meet its ball, and skipped when no lane meets it; the other lanes keep
-    their carry."""
+    meet its ball; the other lanes keep their carry."""
     bsz, a_cap, d = sup_v.shape
     dev = sup_v.device
     n_tables = lsh_params.n_tables
@@ -300,7 +303,7 @@ def retrieve_shards(roi: ROI, substrate, active, lsh_params: LSHParams,
                                substrate.bias, lsh_params.seg_len,
                                backend)                  # (L, B*a_cap)
     touch = route_shards(roi, *substrate.balls(), p)
-    routed = np.flatnonzero(touch.any(axis=0))
+    routed = substrate.routed(touch)
     carry = init_retrieval_carry(bsz, delta, d, dev, sup_v.dtype)
     if routed.size == 0:
         return finalize_retrieval(carry)
@@ -313,6 +316,8 @@ def retrieve_shards(roi: ROI, substrate, active, lsh_params: LSHParams,
     keys, starts, lo, hi = (lanes_of(t) for t in (keys, starts, lo, hi))
     for pos, s, (pts_s, sk, pm, gmap) in substrate.stream(routed):
         lanes = torch.as_tensor(np.flatnonzero(touch[:, s]), device=dev)
+        if lanes.numel() == 0:        # routed for another rank's lanes
+            continue
         carry = retrieve_lanes(
             carry, lanes, pts_s, sk, pm, gmap, keys, starts[pos], lo[pos],
             hi[pos], roi, active, sup_idx, sup_slot_mask,

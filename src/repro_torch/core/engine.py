@@ -1,4 +1,4 @@
-"""The fit: ONE host peel-reduce loop over three engines.
+"""The fit: ONE host peel-reduce loop over four engines.
 
 `fit` runs the host-level peeling loop of paper Sec. 4.4: rounds of batched
 seeds, each resolved by the PALID reducer (Sec. 4.6): a point belongs to the
@@ -13,6 +13,11 @@ Engines differ only in where the retrieval substrate lives:
   * ReplicatedEngine  the full dataset + monolithic LSH on the device;
   * ShardedEngine     the out-of-core `ShardedStore` on the device, CIVS
                       probes one shard at a time;
+  * MeshEngine        PALID over the ranks of a process group: each rank
+                      maps its block of the round's seeds, the results
+                      are all-gathered and reduced on every rank; the
+                      store replicated or split over the ranks
+                      (`MeshStore`);
   * StreamedEngine    the ALID outer loop on the HOST over a host-resident
                       `StreamedStore`: one routed shard at a time is
                       uploaded through the shard pipeline
@@ -37,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as trandom
 from repro_torch.core.affinity import estimate_k
@@ -48,21 +54,20 @@ from repro_torch.core.resilience import (DEFAULT_RETRY, ResilientSource,
                                          RetryPolicy, resilient)
 from repro_torch.core.source import (DataSource, as_source,
                                      strided_sample_indices)
-from repro_torch.core.store import (build_store, build_store_streamed,
+from repro_torch.core.store import (build_mesh_store, build_store,
+                                    build_store_streamed,
                                     global_bucket_sizes)
+from repro_torch.distributed.context import all_gather, axis_group
 from repro_torch.kernels import ops
 from repro_torch.lsh.pstable import (bucket_sizes, build_lsh,
                                      shard_bucket_windows_host)
 
 __all__ = ["EngineSpec", "Clustering", "fit", "make_engine",
            "resolve_claims", "ReplicatedEngine", "ShardedEngine",
-           "StreamedEngine"]
+           "MeshEngine", "StreamedEngine"]
 
 # rows drawn for k estimation when cfg.k is None (estimate_k's default)
 _K_SAMPLE = 512
-
-# engines of the JAX package that this port does not have yet
-_NOT_PORTED = {"mesh": "A13"}
 
 
 def resolve_claims(member_idx: torch.Tensor, member_mask: torch.Tensor,
@@ -147,6 +152,13 @@ class _EngineBase:
         files, worker threads). `fit` calls this on the way out for an
         engine it made."""
 
+    # fit checkpoints: the engines of one process write them; the mesh
+    # engine lets one rank write and holds the others until it has
+    writes_checkpoints = True
+
+    def sync(self) -> None:
+        """Wait for the engine's peers (a no-op on one process)."""
+
     def _reduce(self, results: SeedResult, seed_valid: torch.Tensor):
         claimed, best_row, _ = resolve_claims(
             results.member_idx, results.member_mask, results.density,
@@ -187,6 +199,84 @@ class ShardedEngine(_EngineBase):
                   seed_valid: torch.Tensor):
         results = alid_from_seed(self.store, active, None, seeds, self.k,
                                  self._cfg)
+        return self._reduce(results, seed_valid)
+
+
+class MeshEngine(_EngineBase):
+    """PALID over the ranks of a process group (paper Sec. 4.6, Alg. 3; the
+    JAX package's `MeshEngine`). SPMD: every rank runs `fit` on the same
+    data, cfg and rng, so every rank builds the same k, LSH tables and
+    seeds. A round's seed batch splits over the data axes in contiguous
+    blocks (rank r runs seeds[r*B/W:(r+1)*B/W], the order of the JAX
+    engine's P("data")) through `alid_from_seed`; every `SeedResult` leaf
+    is all-gathered in rank order, and every rank resolves the one
+    `resolve_claims` over the whole batch, so the global seed row breaks
+    exact density ties as on one device. Every rank returns the same
+    `Clustering`.
+
+    The store is replicated on every rank, or (n_shards > 0) a
+    `core.store.MeshStore`: the shards split over the ranks, each built
+    and held only by its owner, each routed shard broadcast from its
+    owner during a CIVS step. With
+    `spec.mesh_ctx=None` the mesh is one "data" axis over the whole
+    initialized group (`launch.mesh.data_context`). Fit checkpoints are
+    written by group rank 0 only and read by every rank."""
+
+    def _setup_mesh(self, cfg: ALIDConfig) -> None:
+        from repro_torch.launch.mesh import data_context
+        self.ctx = self.spec.mesh_ctx or data_context(self.device.type)
+        n_data = self.ctx.n_data
+        if cfg.seeds_per_round % n_data:
+            raise ValueError(f"seeds_per_round={cfg.seeds_per_round} does "
+                             f"not split over {n_data} data ranks")
+        if self.spec.n_shards % n_data:
+            raise ValueError(f"n_shards={self.spec.n_shards} does not "
+                             f"split over {n_data} data ranks")
+        self.group = axis_group(self.ctx.mesh, self.ctx.data_axes)
+        self.rank = dist.get_rank(self.group)
+
+    def build_source(self, source: DataSource, cfg: ALIDConfig,
+                     rng: torch.Tensor) -> None:
+        """The replicated store as the replicated engine builds it; the
+        split store (n_shards > 0) from the source, each rank uploading
+        only its own shards (`build_mesh_store`)."""
+        self._setup_mesh(cfg)
+        if self.spec.n_shards == 0:
+            super().build_source(source, cfg, rng)
+            return
+        self._setup_k(source, cfg)
+        self.points = self.tables = None
+        self.store = build_mesh_store(
+            source, cfg.lsh, rng, self.spec.n_shards, self.group,
+            backend=cfg.backend, dtype=cfg.spec.dtype, device=self.device,
+            chunk_size=self.spec.chunk_size)
+        self._bsizes = self.store.bucket_sizes
+
+    def build(self, points: torch.Tensor, cfg: ALIDConfig,
+              rng: torch.Tensor) -> None:
+        self.store = None
+        self.points = ops.to_storage(points, cfg.spec.dtype)
+        self.tables = build_lsh(self.points, cfg.lsh, rng, cfg.backend)
+        self._bsizes = bucket_sizes(self.tables)
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        return self.rank == 0
+
+    def sync(self) -> None:
+        dist.barrier(group=self.group)
+
+    def run_round(self, active: torch.Tensor, seeds: torch.Tensor,
+                  seed_valid: torch.Tensor):
+        b = seeds.shape[0] // self.ctx.n_data
+        mine = seeds[self.rank * b:(self.rank + 1) * b]
+        if self.store is not None:
+            local = alid_from_seed(self.store, active, None, mine, self.k,
+                                   self._cfg)
+        else:
+            local = alid_from_seed(self.points, active, self.tables, mine,
+                                   self.k, self._cfg)
+        results = SeedResult(*(all_gather(t, self.group) for t in local))
         return self._reduce(results, seed_valid)
 
 
@@ -316,6 +406,10 @@ class StreamedEngine(_EngineBase):
         """The shards' centres and radii, host f64 metadata."""
         return self._store.centers, self._store.radii
 
+    def routed(self, touch: np.ndarray) -> np.ndarray:
+        """The shards some lane's ROI ball meets, ascending."""
+        return np.flatnonzero(touch.any(axis=0))
+
     def windows(self, keys, salts, routed: np.ndarray, probe: int):
         """The global probe windows carved on the host over the ROUTED
         shards only: an unrouted shard holds no point of any lane's ROI, so
@@ -342,17 +436,13 @@ class StreamedEngine(_EngineBase):
 _ENGINES = {
     "replicated": ReplicatedEngine,
     "sharded": ShardedEngine,
+    "mesh": MeshEngine,
     "streamed": StreamedEngine,
 }
 
 
 def make_engine(spec: EngineSpec, device="cuda") -> _EngineBase:
     """Instantiate the engine an EngineSpec names (unbuilt)."""
-    if spec.engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {spec.engine!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[spec.engine]}); 'replicated', 'sharded' and "
-            "'streamed' run")
     if spec.engine not in _ENGINES:
         raise ValueError(f"unknown engine {spec.engine!r}; expected one of "
                          f"{sorted(_ENGINES)}")
@@ -599,10 +689,12 @@ def _fit_loop(source: DataSource, cfg: ALIDConfig, rng: torch.Tensor,
         # the round-level resume point, saved only when the loop goes on,
         # so a resumed run re-enters at round + 1 where this run did
         if checkpoint_dir is not None and rounds % checkpoint_every == 0:
-            _save_fit_checkpoint(checkpoint_dir, rounds, labels, active_np,
-                                 rng, seeds, seed_valid, any_eligible,
-                                 densities, sup_idx, sup_w, sup_v,
-                                 next_label, cap, d)
+            if engine.writes_checkpoints:
+                _save_fit_checkpoint(checkpoint_dir, rounds, labels,
+                                     active_np, rng, seeds, seed_valid,
+                                     any_eligible, densities, sup_idx,
+                                     sup_w, sup_v, next_label, cap, d)
+            engine.sync()
 
     return Clustering(
         labels=labels,

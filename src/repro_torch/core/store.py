@@ -25,9 +25,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.pipeline import ScratchShards
 from repro_torch.core.source import DataSource, iter_source_chunks
+from repro_torch.distributed.context import (all_gather, all_reduce_max,
+                                             broadcast)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import pinned_sum
 from repro_torch.lsh.pstable import (PAD_KEY, LSHParams, ShardedLSHTables,
@@ -75,13 +78,15 @@ class ShardedStore(NamedTuple):
         return (self.centers.double().cpu().numpy(),
                 self.radii.double().cpu().numpy())
 
+    def routed(self, touch: np.ndarray) -> np.ndarray:
+        """The shards some lane's ROI ball meets, ascending."""
+        return np.flatnonzero(touch.any(axis=0))
+
     def windows(self, keys, salts, routed: np.ndarray, probe: int):
         """The routed shards' (R, L, B*q) global probe windows (starts, lo,
         hi), carved over ALL shards as the JAX package's sharded engine
         carves them."""
-        rows = torch.as_tensor(routed, device=keys.device)
-        return tuple(t[rows] for t in shard_bucket_windows(
-            self.tables.sorted_keys, keys, salts, probe))
+        return _windows(self.tables.sorted_keys, keys, salts, routed, probe)
 
     def stream(self, routed: np.ndarray):
         """(pos, s, (points, sorted_keys, perm, global_idx)) of each routed
@@ -89,6 +94,137 @@ class ShardedStore(NamedTuple):
         for pos, s in enumerate(routed):
             yield pos, s, (self.shards[s], self.tables.sorted_keys[s],
                            self.tables.perm[s], self.global_idx[s])
+
+
+def _windows(sorted_keys, keys, salts, routed: np.ndarray, probe: int):
+    rows = torch.as_tensor(routed, device=keys.device)
+    return tuple(t[rows] for t in shard_bucket_windows(
+        sorted_keys, keys, salts, probe))
+
+
+class MeshStore:
+    """A ShardedStore placed over the ranks of a process group (the JAX
+    package's mesh engine with `n_shards > 0`, `store_specs`): the
+    retrieval substrate of `civs.retrieve_shards` on every rank.
+
+    Group rank r holds the payload of shards [r*S/W, (r+1)*S/W): their
+    points, validity, slot -> index maps and perms. The routing state is
+    replicated: the (n,) inverse maps, the balls, the LSH projections,
+    and the per-shard sorted keys, which the global probe windows are
+    carved from (4 tables x n keys; the JAX rules shard them, ROADMAP C).
+    A CIVS step routes the UNION of every rank's routed shards (a MAX
+    all-reduce of the (S,) mask), so every rank enters the same broadcasts
+    in the same order: `stream` broadcasts each routed shard from its
+    owner into a one-shard slot. A rank's device holds S/W shards plus the
+    one in flight: `build_mesh_store` builds it without the whole store
+    on any device.
+
+    The ranks run their CIVS steps in lockstep: `lockstep` (called by
+    `alid_from_seed` at the top of each outer iteration) tells whether any
+    rank still has a live lane, and a rank with none takes part in that
+    step's collectives without computing."""
+
+    def __init__(self, group, shards, valid, global_idx, perm, sorted_keys,
+                 shard_of, slot_of, centers, radii, proj, bias,
+                 bucket_sizes):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        # this rank's shards: points, validity, slot -> index maps, perms
+        self.shards, self.valid = shards, valid
+        self.global_idx, self.perm = global_idx, perm
+        self.per_rank = shards.shape[0]
+        # replicated: the routing state and the (n,) table-0 bucket sizes
+        self.sorted_keys = sorted_keys
+        self.shard_of, self.slot_of = shard_of, slot_of
+        self.centers, self.radii = centers, radii
+        self._proj, self._bias = proj, bias
+        self.bucket_sizes = bucket_sizes
+        self.n_shards = sorted_keys.shape[0]
+        self.n_points = shard_of.shape[0]
+        # the one-shard slot a broadcast lands in
+        self._slot = (torch.empty_like(self.shards[0]),
+                      torch.empty_like(self.perm[0]),
+                      torch.empty_like(self.global_idx[0]))
+
+    @property
+    def proj(self) -> torch.Tensor:
+        return self._proj
+
+    @property
+    def bias(self) -> torch.Tensor:
+        return self._bias
+
+    def owner(self, s: int) -> int:
+        return int(s) // self.per_rank
+
+    def payload_bytes(self) -> int:
+        """Device bytes of this rank's shards (points, validity, maps,
+        perms) and of the slot."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.shards, self.valid, self.global_idx, self.perm,
+            *self._slot))
+
+    def seed_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Every rank's seeds' rows, each from the rank that owns it: the
+        seed ids are all-gathered, each rank fills the rows it owns, the
+        rows are all-gathered and each is SELECTED from its owner (a
+        summed all-reduce would turn -0.0 into +0.0). Returns this rank's
+        rows."""
+        ids = all_gather(idx.long(), self.group)
+        safe = torch.clamp(ids, 0, self.n_points - 1)
+        shard = self.shard_of[safe]
+        owner = shard // self.per_rank
+        mine = owner == self.rank
+        rows = torch.zeros((ids.shape[0], self.shards.shape[-1]),
+                           dtype=self.shards.dtype, device=ids.device)
+        rows[mine] = self.shards[shard[mine] - self.rank * self.per_rank,
+                                 self.slot_of[safe][mine]]
+        every = all_gather(rows, self.group).reshape(
+            self.size, ids.shape[0], -1)
+        picked = every[owner, torch.arange(ids.shape[0], device=ids.device)]
+        b = idx.shape[0]
+        return picked[self.rank * b:(self.rank + 1) * b]
+
+    def balls(self) -> tuple[np.ndarray, np.ndarray]:
+        return (self.centers.double().cpu().numpy(),
+                self.radii.double().cpu().numpy())
+
+    def routed(self, touch: np.ndarray) -> np.ndarray:
+        """The union over the ranks of the shards some lane's ROI ball
+        meets, ascending."""
+        mask = torch.as_tensor(touch.any(axis=0), device=self.shards.device)
+        return np.flatnonzero(all_reduce_max(mask, self.group).cpu().numpy())
+
+    def windows(self, keys, salts, routed: np.ndarray, probe: int):
+        return _windows(self.sorted_keys, keys, salts, routed, probe)
+
+    def stream(self, routed: np.ndarray):
+        """(pos, s, (points, sorted_keys, perm, global_idx)) of each routed
+        shard in routed order, broadcast from its owner (the owner's own
+        tensors, the slot elsewhere)."""
+        for pos, s in enumerate(routed):
+            owner = self.owner(s)
+            if owner == self.rank:
+                i = int(s) - self.rank * self.per_rank
+                held = (self.shards[i], self.perm[i], self.global_idx[i])
+            else:
+                held = self._slot
+            for t in held:
+                broadcast(t, owner, self.group)
+            yield pos, s, (held[0], self.sorted_keys[s], held[1], held[2])
+
+    def lockstep(self, n_live: int) -> bool:
+        """Whether any rank has a live lane this outer iteration; a rank
+        with none takes part in the step's collectives (an empty routing
+        mask, then the union's broadcasts)."""
+        live = torch.tensor([n_live > 0], device=self.shards.device)
+        any_live = bool(all_reduce_max(live, self.group)[0])
+        if any_live and n_live == 0:
+            for _ in self.stream(self.routed(
+                    np.zeros((0, self.n_shards), bool))):
+                pass
+        return any_live
 
 
 def take(store: ShardedStore, idx: torch.Tensor) -> torch.Tensor:
@@ -105,25 +241,17 @@ def ball_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(pinned_sum(diff * diff))
 
 
-def _build_store_impl(points: torch.Tensor, params: LSHParams,
-                      rng: torch.Tensor, n_shards: int,
-                      backend: str = "auto") -> ShardedStore:
-    n, d = points.shape
-    dev = points.device
+def _shard_layout(order: torch.Tensor, n_shards: int):
+    """The shards of a spatial order (n,): contiguous equal runs of it, the
+    last padded. Returns (global_idx (S, cap), valid (S, cap), shard_of
+    (n,), slot_of (n,)), every index int64."""
+    n = order.shape[0]
+    dev = order.device
     cap = -(-n // n_shards)                    # ceil: the last shard padded
     pad = n_shards * cap - n
-
-    # spatial order along the first LSH direction: the projections are
-    # drawn again from the same key, as build_lsh_sharded draws them
-    proj, _ = make_projections(rng, params, d, dev)
-    order = torch.sort(spatial_score(points, proj[0, 0]), stable=True).indices
-
     gidx = torch.cat([order, torch.full((pad,), -1, dtype=torch.int64,
                                         device=dev)]).reshape(n_shards, cap)
     valid = gidx >= 0
-    shards = torch.where(valid[..., None],
-                         points[torch.clamp(gidx, 0, n - 1)], 0.0)
-
     sid = torch.arange(n_shards, device=dev)[:, None].expand(-1, cap)
     slot = torch.arange(cap, device=dev)[None, :].expand(n_shards, -1)
     safe_g = torch.where(valid, gidx, n).reshape(-1)
@@ -131,18 +259,43 @@ def _build_store_impl(points: torch.Tensor, params: LSHParams,
     shard_of[safe_g] = sid.reshape(-1)
     slot_of = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     slot_of[safe_g] = slot.reshape(-1)
+    return gidx, valid, shard_of[:n], slot_of[:n]
 
-    cnt = torch.clamp_min(valid.sum(1), 1)
-    # centres in f32 even for bf16 shards (a bf16 row-sum accumulator loses
-    # mantissa long before shard_cap rows); the radii are the f32 distances
-    # from it to the STORED (rounded) points, so routing stays exact
-    centers = shards.float().sum(1) / cnt[:, None].float()
-    radii = torch.where(valid, ball_distance(shards, centers[:, None, :]),
-                        0.0).amax(1)
 
+def _shard_balls(shards: torch.Tensor, valid: torch.Tensor):
+    """Each shard's centre (S, d) and radius (S,), one shard at a time, so
+    a shard's ball is the same bits whatever shards share the call (the
+    mesh build takes only its own). Centres in f32 even for bf16 shards (a
+    bf16 row-sum accumulator loses mantissa long before shard_cap rows);
+    the radii are the f32 distances from it to the STORED (rounded)
+    points, so routing stays exact."""
+    cnt = torch.clamp_min(valid.sum(1), 1).float()
+    centers, radii = [], []
+    for s in range(shards.shape[0]):
+        c = shards[s].float().sum(0) / cnt[s]
+        centers.append(c)
+        radii.append(torch.where(valid[s], ball_distance(shards[s], c[None]),
+                                 0.0).amax())
+    return torch.stack(centers), torch.stack(radii)
+
+
+def _build_store_impl(points: torch.Tensor, params: LSHParams,
+                      rng: torch.Tensor, n_shards: int,
+                      backend: str = "auto") -> ShardedStore:
+    n, d = points.shape
+    dev = points.device
+
+    # spatial order along the first LSH direction: the projections are
+    # drawn again from the same key, as build_lsh_sharded draws them
+    proj, _ = make_projections(rng, params, d, dev)
+    order = torch.sort(spatial_score(points, proj[0, 0]), stable=True).indices
+    gidx, valid, shard_of, slot_of = _shard_layout(order, n_shards)
+    shards = torch.where(valid[..., None],
+                         points[torch.clamp(gidx, 0, n - 1)], 0.0)
+    centers, radii = _shard_balls(shards, valid)
     tables = build_lsh_sharded(shards, valid, params, rng, backend)
     return ShardedStore(shards=shards, valid=valid, global_idx=gidx,
-                        shard_of=shard_of[:n], slot_of=slot_of[:n],
+                        shard_of=shard_of, slot_of=slot_of,
                         centers=centers, radii=radii, tables=tables)
 
 
@@ -158,6 +311,72 @@ def build_store(points: torch.Tensor, params: LSHParams, rng: torch.Tensor,
     points = ops.to_storage(points, dtype)
     n_shards = max(1, min(int(n_shards), points.shape[0]))
     return _build_store_impl(points, params, rng, n_shards, backend)
+
+
+def build_mesh_store(source: DataSource, params: LSHParams,
+                     rng: torch.Tensor, n_shards: int, group,
+                     backend: str = "auto", dtype: str = "float32",
+                     device="cpu", chunk_size: int = 0) -> MeshStore:
+    """The store of `source` split over the ranks of `group`, built
+    without the whole store on any device: each rank's device holds its
+    own S/W shards and the replicated routing state, and every rank gets
+    `build_store`'s bits shard for shard (it consumes `rng` as
+    `build_store` does).
+
+      1. each rank scores its contiguous 1/W block of the rows, chunk by
+         chunk, no chunk longer than a shard (`spatial_score` sums in the
+         pinned order, so a chunk's scores are a whole pass's bits); the
+         scores are all-gathered and every rank sorts them into the one
+         spatial order;
+      2. each rank reads its own shards' rows from the source, one shard
+         at a time, hashes them (`build_lsh_sharded`: a row's keys do not
+         depend on its batch) and takes their balls;
+      3. the balls, the sorted keys and table 0's point at each sorted
+         position are all-gathered: the routing state, and the global
+         table-0 bucket sizes every rank computes from them.
+    """
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    n, d = source.n, source.dim
+    n_shards = max(1, min(int(n_shards), n))
+    if n_shards % size:
+        raise ValueError(f"{n_shards} shards do not divide over {size} "
+                         f"ranks")
+    dev = torch.device(device)
+    chunk = min(int(chunk_size) or _DEFAULT_CHUNK, -(-n // n_shards))
+
+    def upload(rows):
+        return ops.to_storage(torch.as_tensor(np.asarray(rows, np.float32)),
+                              dtype, dev)
+
+    proj, _ = make_projections(rng, params, d, dev)
+    block = -(-n // size)
+    lo, hi = min(rank * block, n), min((rank + 1) * block, n)
+    part = torch.zeros(block, dtype=torch.float32, device=dev)
+    for start in range(lo, hi, chunk):
+        stop = min(start + chunk, hi)
+        part[start - lo:stop - lo] = spatial_score(
+            upload(source.get_chunk(start, stop - start)), proj[0, 0])
+    order = torch.sort(all_gather(part, group)[:n], stable=True).indices
+    del part
+    gidx, valid, shard_of, slot_of = _shard_layout(order, n_shards)
+
+    per = n_shards // size
+    gidx = gidx[rank * per:(rank + 1) * per].contiguous()
+    valid = valid[rank * per:(rank + 1) * per].contiguous()
+    shards = torch.zeros((per, gidx.shape[1], d),
+                         dtype=ops.storage_dtype(dtype), device=dev)
+    for i, row in enumerate(gidx.cpu().numpy()):
+        idx = row[row >= 0]                    # a shard's pads come last
+        if idx.size:
+            shards[i, :idx.size] = upload(source.sample(idx))
+    centers, radii = _shard_balls(shards, valid)
+    tables = build_lsh_sharded(shards, valid, params, rng, backend)
+    sorted_keys = all_gather(tables.sorted_keys, group)
+    points0 = all_gather(_table0_points(tables.perm[:, 0], gidx, n), group)
+    return MeshStore(group, shards, valid, gidx, tables.perm, sorted_keys,
+                     shard_of, slot_of, all_gather(centers, group),
+                     all_gather(radii, group), tables.proj, tables.bias,
+                     _bucket_sizes(sorted_keys[:, 0], points0, n))
 
 
 # ----------------------------------------------------- host-streamed store --
@@ -377,14 +596,27 @@ def global_bucket_sizes(store: ShardedStore) -> torch.Tensor:
     reproduces `bucket_sizes(build_lsh(...))` without the monolithic table
     (PALID seeding, paper Sec. 4.6). (n,) int32."""
     n = store.n_points
-    sk0 = store.tables.sorted_keys[:, 0, :]                   # (S, cap)
-    perm0 = store.tables.perm[:, 0, :]
-    safe_slot = torch.clamp(perm0, 0, store.shard_cap - 1)
-    g_of_sorted = torch.gather(store.global_idx, 1, safe_slot)
-    g_of_sorted = torch.where(perm0 >= 0, g_of_sorted, n)     # drop pads
+    return _bucket_sizes(store.tables.sorted_keys[:, 0, :], _table0_points(
+        store.tables.perm[:, 0, :], store.global_idx, n), n)
+
+
+def _table0_points(perm0: torch.Tensor, global_idx: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """(S, cap) data index at each sorted position of table 0 (n at the
+    pads)."""
+    safe_slot = torch.clamp(perm0, 0, perm0.shape[-1] - 1)
+    return torch.where(perm0 >= 0, torch.gather(global_idx, 1, safe_slot), n)
+
+
+def _bucket_sizes(sk0: torch.Tensor, points0: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Each point's table-0 key counted in every shard's sorted table 0
+    (sk0 (S, cap)), summed over the shards: (n,) int32."""
     keys = torch.zeros(n + 1, dtype=sk0.dtype, device=sk0.device)
-    keys[g_of_sorted.reshape(-1)] = sk0.reshape(-1)
-    keys = keys[:n].unsqueeze(0).expand(sk0.shape[0], -1).contiguous()
-    counts = (torch.searchsorted(sk0.contiguous(), keys, side="right")
-              - torch.searchsorted(sk0.contiguous(), keys, side="left"))
-    return counts.sum(0).to(torch.int32)
+    keys[points0.reshape(-1)] = sk0.reshape(-1)
+    keys = keys[:n]
+    counts = torch.zeros(n, dtype=torch.int64, device=sk0.device)
+    for row in sk0:
+        counts += (torch.searchsorted(row, keys, side="right")
+                   - torch.searchsorted(row, keys, side="left"))
+    return counts.to(torch.int32)

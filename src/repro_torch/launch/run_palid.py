@@ -1,7 +1,7 @@
 """PALID launcher on the port: dominant-cluster detection over synthetic
 SIFT-like blobs (paper Sec. 5.3), or over a real dataset through the
-DataSource API (--source), on the replicated, sharded or streamed engine;
-with --serve-bench the continuous-batching assignment server over the
+DataSource API (--source), on the replicated, sharded, mesh or streamed
+engine; with --serve-bench the continuous-batching assignment server over the
 result, driven by open-loop traffic; with --online the online-update round
 trip (insert, commit, rollback, re-serve) over `LiveServing`; with
 --inject-faults the fit again under injected faults, whose labels must be
@@ -21,18 +21,30 @@ bit-identical to the clean run's. It prints the lines the JAX package's
   PYTHONPATH=src python -m repro_torch.launch.run_palid --quick \
       --dtype bfloat16
 
-The JAX CLI's flags that need a part not ported yet (the mesh engine, the
-contract checker) raise NotImplementedError naming their ROADMAP item.
+  # the mesh engine over 2 spawned ranks: one card each over NCCL, or
+  # gloo processes on the CPU; --shards splits the store over them
+  PYTHONPATH=src python -m repro_torch.launch.run_palid --quick \
+      --device cpu --devices 2 --shards 4
+
+With --devices D (or --engine mesh) the CLI spawns D ranks itself
+(`distributed.spawn.run_ranks`, a file:// rendezvous in a temp dir); every
+rank fits the same data, and rank 0's lines are printed here, the serving
+and online arms running here on its result. The JAX CLI's flag that needs
+a part not ported yet (--check, the contract checker) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import tempfile
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.alid import ALIDConfig, EngineSpec
 from repro_torch.core.engine import fit, make_engine
@@ -42,6 +54,7 @@ from repro_torch.core.resilience import (FaultySource, PipelineFaults,
 from repro_torch.core.source import (as_source, make_source,
                                      strided_sample_indices)
 from repro_torch.data import auto_lsh_params, make_blobs_with_noise
+from repro_torch.distributed.spawn import rank_devices, run_ranks
 from repro_torch.random import PRNGKey
 from repro_torch.serve import ClusterServer, LiveServing, run_open_loop
 from repro_torch.utils import avg_f1_score
@@ -54,8 +67,6 @@ def _unported_flags(args) -> list[str]:
     """The given flags of the JAX CLI whose parts are not ported yet, each
     with its ROADMAP item."""
     checks = [
-        (args.engine == "mesh", "--engine mesh (ROADMAP A13)"),
-        (args.devices > 1, "--devices > 1, the mesh engine (ROADMAP A13)"),
         (args.check, "--check, the contract checker (ROADMAP A15)"),
     ]
     return [what for given, what in checks if given]
@@ -66,16 +77,28 @@ def engine_spec(engine: str, shards: int, chunk_size: int = 0,
                 prefetch_depth: int = (
                     EngineSpec._field_defaults["prefetch_depth"]),
                 scratch_dir: str = "", backend: str = "auto",
-                dtype: str = "float32") -> EngineSpec:
-    """Resolve --engine (+ --shards) into an EngineSpec: "auto" is the
-    sharded engine when --shards is given, else the replicated one. The
-    pipeline knobs matter for engine="streamed" only: `cache_bytes` bounds
-    the host LRU of shard bundles, `prefetch_depth` sizes the reader's slot
-    ring (0 = synchronous), `scratch_dir` places the build-time scratch
-    memmap ("" = system temp dir, "none" disables persistence)."""
+                dtype: str = "float32", devices: int = 0) -> EngineSpec:
+    """Resolve --engine (+ --devices / --shards) into an EngineSpec:
+    "auto" is the mesh engine with --devices > 1, else the sharded engine
+    when --shards is given, else the replicated one. The mesh engine's
+    mesh is the spawned ranks' world (`spec.mesh_ctx=None`), its store
+    replicated or, with --shards, split over the ranks. The pipeline knobs
+    matter for engine="streamed" only: `cache_bytes` bounds the host LRU
+    of shard bundles, `prefetch_depth` sizes the reader's slot ring (0 =
+    synchronous), `scratch_dir` places the build-time scratch memmap (""
+    = system temp dir, "none" disables persistence)."""
     scratch = None if scratch_dir == "none" else scratch_dir
     if engine == "auto":
-        engine = "sharded" if shards > 0 else "replicated"
+        if devices > 1:
+            engine = "mesh"
+        elif shards > 0:
+            engine = "sharded"
+        else:
+            engine = "replicated"
+    if engine == "mesh":
+        return EngineSpec(engine="mesh", n_shards=shards,
+                          chunk_size=chunk_size, backend=backend,
+                          dtype=dtype)
     if engine == "streamed":
         # 0 lets StreamedEngine apply its own default (8 shards)
         return EngineSpec(engine="streamed", n_shards=shards,
@@ -127,9 +150,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "replicated", "sharded", "mesh",
                              "streamed"],
-                    help="EngineSpec.engine; 'auto' = 'sharded' with "
-                         "--shards, else 'replicated' ('mesh' is not "
-                         "ported: ROADMAP A13)")
+                    help="EngineSpec.engine; 'auto' = 'mesh' with "
+                         "--devices > 1, else 'sharded' with --shards, "
+                         "else 'replicated'")
     ap.add_argument("--shards", type=int, default=0,
                     help="ShardedStore / StreamedStore shard count (0 = "
                          "the replicated engine under --engine auto)")
@@ -182,10 +205,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="point STORAGE dtype (EngineSpec.dtype): bfloat16 "
                          "halves the points' device memory; k, distances, "
                          "affinities and the LID state stay f32")
-    # the JAX CLI's flags whose parts are not ported yet: refused in main
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks of the mesh engine (0 = one process, no "
+                         "mesh): the CLI spawns them itself, one card a "
+                         "rank over NCCL on the card, gloo processes with "
+                         "--device cpu; --shards must divide over them")
+    # the JAX CLI's flag whose part is not ported yet: refused in main
     ap.add_argument("--check", action="store_true")
     return ap.parse_args(argv)
+
+
+def _data(args):
+    """(source, planted spec or None, LSH params, a_cap) of the run."""
+    if args.source:
+        source = make_source(args.source)
+        # calibrate the LSH scale on a strided subsample, never the file
+        lshp = auto_lsh_params(
+            source.sample(strided_sample_indices(source.n, 512)))
+        return source, None, lshp, args.a_cap or 128
+    cluster_size = max(4, int(args.n * 0.4) // args.clusters)
+    noise = args.n - args.clusters * cluster_size
+    spec = make_blobs_with_noise(args.clusters, cluster_size, noise,
+                                 d=args.d, seed=0)
+    return (spec.points, spec, auto_lsh_params(spec.points),
+            args.a_cap or max(64, cluster_size + 32))
 
 
 def main(argv=None) -> None:
@@ -200,34 +243,44 @@ def main(argv=None) -> None:
         args.rounds = min(args.rounds, 8)
         args.seeds_per_round = min(args.seeds_per_round, 8)
 
-    spec = None
-    if args.source:
-        source = make_source(args.source)
-        # calibrate the LSH scale on a strided subsample, never the file
-        lshp = auto_lsh_params(
-            source.sample(strided_sample_indices(source.n, 512)))
-        a_cap = args.a_cap or 128
-        n, d = source.n, source.dim
-    else:
-        cluster_size = max(4, int(args.n * 0.4) // args.clusters)
-        noise = args.n - args.clusters * cluster_size
-        spec = make_blobs_with_noise(args.clusters, cluster_size, noise,
-                                     d=args.d, seed=0)
-        source = spec.points
-        lshp = auto_lsh_params(spec.points)
-        a_cap = args.a_cap or max(64, cluster_size + 32)
-        n, d = spec.points.shape
-
+    spec_ = engine_spec(args.engine, args.shards, args.chunk_size,
+                        args.cache_bytes, args.prefetch_depth,
+                        args.scratch_dir, args.backend, args.dtype,
+                        args.devices)
+    n_ranks = max(args.devices, 1)
+    if spec_.engine == "mesh":
+        devices = rank_devices(args.device, n_ranks)
+        if args.shards % n_ranks:
+            raise ValueError(f"--shards {args.shards} does not split over "
+                             f"--devices {n_ranks}")
+    source, spec, lshp, a_cap = _data(args)
     cfg = ALIDConfig(a_cap=a_cap, delta=128, lsh=lshp,
                      seeds_per_round=args.seeds_per_round,
-                     max_rounds=args.rounds,
-                     spec=engine_spec(args.engine, args.shards,
-                                      args.chunk_size, args.cache_bytes,
-                                      args.prefetch_depth, args.scratch_dir,
-                                      args.backend, args.dtype))
+                     max_rounds=args.rounds, spec=spec_)
+    if spec_.engine == "mesh":
+        # every rank fits the same data with this cfg; rank 0's result
+        # and lines come back here
+        res, fit_lines, chaos_lines = run_ranks(
+            _mesh_rank, n_ranks, args, cfg, devices=devices)[0]
+        print(fit_lines, end="")
+    else:
+        res = _fit(args, cfg, source, spec, args.device)
+        chaos_lines = ""
+    if args.serve_bench:
+        _serve_bench(res, source, args.serve_rate, device=args.device)
+    if args.online:
+        _online_demo(res, source, cfg, device=args.device)
+    if spec_.engine == "mesh":
+        print(chaos_lines, end="")
+    elif args.inject_faults:
+        _chaos_demo(res, source, cfg, args, args.device)
+
+
+def _fit(args, cfg, source, spec, device, n_ranks: int = 1):
+    """The fit and its [palid] line (and --profile's), on `device`."""
     # the engine is made here, so that --profile can read its stage
     # counters after the fit; closing it is then ours
-    engine = make_engine(cfg.spec, device=args.device)
+    engine = make_engine(cfg.spec, device=device)
     try:
         t0 = time.time()
         res = fit(source, cfg, PRNGKey(0), engine=engine,
@@ -236,9 +289,10 @@ def main(argv=None) -> None:
                   resume=args.resume)
         dt = time.time() - t0
         n_members = int((res.labels >= 0).sum())
+        n, d = as_source(source).n, as_source(source).dim
         line = (f"[palid] n={n} d={d} engine={cfg.spec.engine} "
                 f"backend={cfg.spec.backend} dtype={cfg.spec.dtype} "
-                f"devices=1 shards={args.shards} time={dt:.2f}s "
+                f"devices={n_ranks} shards={args.shards} time={dt:.2f}s "
                 f"clusters={res.n_clusters} members={n_members}")
         if spec is not None:
             line += f" AVG-F={avg_f1_score(spec.labels, res.labels):.3f}"
@@ -250,12 +304,25 @@ def main(argv=None) -> None:
                   "pipeline stats (streamed only)")
     finally:
         engine.close()
-    if args.serve_bench:
-        _serve_bench(res, source, args.serve_rate, device=args.device)
-    if args.online:
-        _online_demo(res, source, cfg, device=args.device)
+    return res
+
+
+def _mesh_rank(rank: int, world: int, args, cfg):
+    """One rank of `run_palid --devices`: the fit (and the chaos arm) on
+    this rank's device. Rank 0 returns (result, fit lines, chaos lines);
+    the others' output is dropped."""
+    device = (f"cuda:{torch.cuda.current_device()}"
+              if torch.device(args.device).type == "cuda" else args.device)
+    source, spec, _, _ = _data(args)
+    fit_out, chaos_out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(fit_out):
+        res = _fit(args, cfg, source, spec, device, world)
     if args.inject_faults:
-        _chaos_demo(res, source, cfg, args)
+        with contextlib.redirect_stdout(chaos_out):
+            _chaos_demo(res, source, cfg, args, device)
+    if rank:
+        return None
+    return res, fit_out.getvalue(), chaos_out.getvalue()
 
 
 def _parse_faults(spec: str) -> dict:
@@ -273,7 +340,7 @@ def _parse_faults(spec: str) -> dict:
     return out
 
 
-def _chaos_demo(clean, source, cfg, args) -> dict:
+def _chaos_demo(clean, source, cfg, args, device) -> dict:
     """Re-run the finished fit under injected faults; its labels must be
     BIT-IDENTICAL to the clean result's. With --checkpoint-dir, also crash
     at round 2 and resume. Prints one line with 'fault-parity=' (and
@@ -282,7 +349,7 @@ def _chaos_demo(clean, source, cfg, args) -> dict:
     fast = RetryPolicy(base_delay=0.001, max_delay=0.05)
     faulty = FaultySource(as_source(source),
                           rate=faults.get("transient", 0.0), seed=1)
-    engine = make_engine(cfg.spec, device=args.device)
+    engine = make_engine(cfg.spec, device=device)
     if faults.get("corrupt", 0.0) > 0.0 or "kill-reader" in faults:
         engine.faults = PipelineFaults(
             corrupt_rate=faults.get("corrupt", 0.0),
@@ -304,12 +371,12 @@ def _chaos_demo(clean, source, cfg, args) -> dict:
         try:
             fit(source, cfg, PRNGKey(0), checkpoint_dir=ckpt,
                 checkpoint_every=args.checkpoint_every, crash_at_round=2,
-                device=args.device)
+                device=device)
         except RuntimeError as exc:
             if "injected crash" not in str(exc):
                 raise
         resumed = fit(source, cfg, PRNGKey(0), checkpoint_dir=ckpt,
-                      resume=True, device=args.device)
+                      resume=True, device=device)
         out["resume_parity"] = bool(
             np.array_equal(clean.labels, resumed.labels)
             and resumed.n_rounds == clean.n_rounds)

@@ -27,8 +27,9 @@ from repro_torch import random as trandom
 from repro_torch.convert import clustering_from_dict
 from repro_torch.core import alid as talid
 from repro_torch.core import source as tsource
-from repro_torch.core.engine import (ShardedEngine, StreamedEngine, fit,
-                                     make_engine)
+from repro_torch.core.engine import (MeshEngine, ShardedEngine,
+                                    StreamedEngine, fit,
+                                    make_engine)
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.lsh.pstable import LSHParams
 from repro_torch.utils import metrics as tmetrics
@@ -124,16 +125,12 @@ def test_npz_saved_by_jax_loads_in_port(tmp_path, fits):
     np.testing.assert_array_equal(back.labels, want.labels)
 
 
-@pytest.mark.parametrize("engine,item", [("mesh", "A13")])
-def test_unported_engines_raise(engine, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_engine(talid.EngineSpec(engine=engine), device="cpu")
-
-
 @pytest.mark.parametrize("engine,cls", [("sharded", ShardedEngine),
-                                        ("streamed", StreamedEngine)])
+                                        ("streamed", StreamedEngine),
+                                        ("mesh", MeshEngine)])
 def test_ported_engines_make(engine, cls):
-    """The engines of ROADMAP A10 and A11, refused before, are made."""
+    """The engines of ROADMAP A10, A11 and A13, refused before, are
+    made."""
     eng = make_engine(talid.EngineSpec(engine=engine, n_shards=3),
                       device="cpu")
     assert type(eng) is cls and eng.device == torch.device("cpu")
@@ -171,7 +168,7 @@ def test_engine_parity_with_jax(blobs, cfg, fits, engine, exhaustive):
 def test_engine_spec_validation():
     """bf16 storage (ROADMAP B P1) builds on every ported engine; an
     unknown storage dtype or engine raises."""
-    for engine in ("replicated", "sharded", "streamed"):
+    for engine in ("replicated", "sharded", "mesh", "streamed"):
         eng = make_engine(talid.EngineSpec(engine=engine, dtype="bfloat16"),
                           device="cpu")
         assert eng.spec.dtype == "bfloat16"

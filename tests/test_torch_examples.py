@@ -5,8 +5,10 @@ and config (what `examples/quickstart.py --quick` prints first), and its
 sharded and streamed fits give the replicated fit's labels;
 `examples/torch_gnn_cluster.py`, the twin of `examples/gnn_cluster.py`,
 with --device cpu embeds the same graph as the JAX example and finds
-clusters."""
+clusters; `examples/torch_palid_pipeline.py`, the twin of
+`examples/palid_pipeline.py`, fits over two gloo ranks."""
 
+import importlib
 import importlib.util
 import re
 from pathlib import Path
@@ -104,3 +106,24 @@ def test_torch_gnn_cluster_runs_on_the_cpu(capsys):
           f"examples/gnn_cluster.py: {want.n_clusters} clusters, AVG-F "
           f"{avg_f1_score(comm, want.labels):.3f}")
     assert want.n_clusters > 0
+
+
+def test_torch_palid_pipeline_on_two_gloo_ranks(capsys, monkeypatch):
+    """`examples/torch_palid_pipeline.py --device cpu --devices 2` at n =
+    600: the mesh fit over two spawned gloo ranks gives the example's own
+    one-process fit bit for bit (labels, densities, rounds). The JAX
+    example's serial fit on the same data is not held equal: the --quick
+    scale's LSH probe of 16 reads other windows of an oversized bucket in
+    each package (ROADMAP C)."""
+    # the spawned ranks import the example by its module name
+    monkeypatch.syspath_prepend(str(EXAMPLES))
+    mod = importlib.import_module("torch_palid_pipeline")
+    mesh, f_mesh = mod.main(["--device", "cpu", "--n", "600", "--devices",
+                             "2"])
+    serial, f_serial = mod.main(["--device", "cpu", "--n", "600"])
+    out = capsys.readouterr().out
+    assert "PALID x2" in out and "ALID serial" in out
+    assert mesh.n_clusters > 0 and f_mesh == f_serial
+    np.testing.assert_array_equal(mesh.labels, serial.labels)
+    np.testing.assert_array_equal(mesh.densities, serial.densities)
+    assert mesh.n_rounds == serial.n_rounds

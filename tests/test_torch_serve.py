@@ -249,12 +249,21 @@ def test_run_palid_quick_serve_bench_prints_the_jax_lines(capsys,
         == serve.fullmatch(_palid_line(ours, "[palid] serve")).group(1)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--engine", "mesh"], "A13"), (["--devices", "4"], "A13"),
-    (["--check"], "A15")])
+@pytest.mark.parametrize("flags,item", [(["--check"], "A15")])
 def test_run_palid_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_palid.main(["--quick", "--device", "cpu", *flags])
+
+
+def test_run_palid_devices_past_the_card_count(monkeypatch):
+    """--devices D puts one rank on each card: more ranks than cards is
+    refused, naming the count, before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="this host has 1"):
+        run_palid.main(["--quick", "--devices", "2"])
+    with pytest.raises(ValueError, match="does not split"):
+        run_palid.main(["--quick", "--device", "cpu", "--devices", "2",
+                        "--shards", "3"])
 
 
 _JAX_CLI: dict = {}
@@ -288,12 +297,17 @@ _FIT_LINE = re.compile(r"\[palid\] n=\d+ d=\d+ engine=(\w+) .* "
 @pytest.mark.parametrize("case", ["engine-sharded", "engine-streamed",
                                   "shards", "source", "inject-faults",
                                   "checkpoint-dir", "resume",
-                                  "dtype-bfloat16"])
+                                  "dtype-bfloat16", "engine-mesh",
+                                  "devices"])
 def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
     """The flags the port refused before the sharded and streamed engines
-    (ROADMAP A10, A11) and bf16 storage (ROADMAP B P1) now run, and the
-    fit finds the JAX CLI's clusters, members and AVG-F (at bf16 the JAX
-    CLI's own --dtype bfloat16 run)."""
+    (ROADMAP A10, A11), bf16 storage (ROADMAP B P1) and the mesh engine
+    (ROADMAP A13) now run, and the fit finds the JAX CLI's clusters,
+    members and AVG-F (at bf16 the JAX CLI's own --dtype bfloat16 run;
+    the mesh engine's against the JAX CLI's replicated run, since the JAX
+    mesh engine raises on jax 0.9.0, ROADMAP C). The mesh cases spawn
+    gloo ranks, which get the patched probe through the cfg the CLI
+    hands them."""
     _cli_full_probe(monkeypatch)
     npy = tmp_path / "pts.npy"
     np.save(npy, make_blobs_with_noise(4, 60, 360, d=8, seed=0).points)
@@ -310,6 +324,9 @@ def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
         "checkpoint-dir": ["--checkpoint-dir", ckpt],
         "resume": ["--checkpoint-dir", ckpt, "--resume"],
         "dtype-bfloat16": ["--dtype", "bfloat16"],
+        "engine-mesh": ["--engine", "mesh", "--shards", "4", "--devices",
+                        "2"],
+        "devices": ["--devices", "4"],
     }[case]
     if case == "resume":          # a finished run's checkpoints to resume
         run_palid.main(["--quick", "--device", "cpu", "--checkpoint-dir",
@@ -326,9 +343,16 @@ def test_run_palid_runs_ported_flags(case, tmp_path, monkeypatch, capsys):
     got = _FIT_LINE.fullmatch(_palid_line(ours, "[palid] n="))
     assert got.group(1) == {"engine-sharded": "sharded", "shards": "sharded",
                             "engine-streamed": "streamed",
-                            "inject-faults": "streamed"}.get(case,
-                                                             "replicated")
+                            "inject-faults": "streamed",
+                            "engine-mesh": "mesh",
+                            "devices": "mesh"}.get(case, "replicated")
     assert got.group(2, 3, 4) == want.group(2, 3, 4)
+    if case in ("engine-mesh", "devices"):
+        # and the port's own replicated CLI's clusters
+        run_palid.main(["--quick", "--device", "cpu"])
+        rep = _FIT_LINE.fullmatch(_palid_line(capsys.readouterr().out,
+                                              "[palid] n="))
+        assert got.group(2, 3, 4) == rep.group(2, 3, 4)
     if case == "inject-faults":
         assert _palid_line(ours, "[palid] chaos").endswith(
             "fault-parity=True")
