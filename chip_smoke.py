@@ -251,6 +251,25 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    mesh --devices 1` (one NCCL rank) and `--devices 2` refused with the
    card count; phase
    10's launches (a)-(d) are added to the kernel table's;
+11. the tooling: (a) `run_palid --check` on the card (the port's contract
+   checker, `repro_torch.analysis`), its report written to
+   chiprun_out/CHECK_report_torch.json: it must exit 0 with its report
+   ok, all ten ops shape-checked ref against kernel, the ten poison
+   scenarios run on both backends (20 runs), the static shared bytes of
+   every source read from the built library, and every kernel's dynamic
+   + static shared bytes within 232,448 at the contract cases and the
+   main path's full-width shapes (printed by case and `smem_bytes_by_op`),
+   each of the nine kernels launched; (b) the JAX package's golden
+   fixtures (tests/golden_torch, read with numpy): every op through the
+   kernels against the reference's outputs (`lsh_hash` under its
+   key-flip rule, `flash_attention` under its kernel rule), the small fit
+   + predict through the kernels, and the fit at phase 3b's data on the
+   replicated, sharded (8 shards), streamed (default pipeline) and mesh
+   (world size 1, NCCL) engines, each compared with the reference and
+   printed; that fit differs from the reference's (ROADMAP C4), so the
+   gate there is the four engines equal to one another and to 3b's fit,
+   and the reference's round count; phase 11's launches are added to the
+   kernel table's;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -1103,7 +1122,8 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     kernels, at n = 20,000 x 128, and the replicated fit through
     backend="ref" against the kernels' one; every streamed run takes no
     fallback. Returns the kernel path's streamed default fit (4d's clean
-    run) and its sharded fit (phase 10c's reference)."""
+    run), its sharded fit (phase 10c's reference) and its replicated fit
+    (phase 11b's)."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
@@ -1149,7 +1169,8 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     ok, why = same_fit(out[("replicated", "auto")], out[("replicated", "ref")])
     print(f"[parity] engines' data, kernel vs plain replicated: {why}")
     need(ok, "phase 3b: kernel and plain replicated fits differ")
-    return out[("streamed-default", "auto")], out[("sharded", "auto")]
+    return (out[("streamed-default", "auto")], out[("sharded", "auto")],
+            slim(out[("replicated", "auto")]))
 
 
 def bitwise_fit(a, b) -> tuple[bool, str]:
@@ -3689,16 +3710,30 @@ class Slim:
         self.__dict__.update(d)
 
 
-def mesh_w1(dev, points, lshp, rep, shd) -> dict:
-    """10(a): the full-width fit on the mesh engine at world size 1 over
-    NCCL in this process, on the replicated store and on 8 shards,
-    bit-identical to phase 4's and 4b's fits. Returns the launches."""
+@contextlib.contextmanager
+def nccl_world1(dev):
+    """A world-size-1 NCCL process group in this process (the mesh engine
+    at world size 1), destroyed on exit."""
     import datetime
     import shutil
     import tempfile
 
     import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="alid_world1_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
+
+def mesh_w1(dev, points, lshp, rep, shd) -> dict:
+    """10(a): the full-width fit on the mesh engine at world size 1 over
+    NCCL in this process, on the replicated store and on 8 shards,
+    bit-identical to phase 4's and 4b's fits. Returns the launches."""
     from repro_torch.core.alid import EngineSpec
     from repro_torch.core.engine import fit, make_engine
     from repro_torch.distributed.context import (collective_stats,
@@ -3707,12 +3742,8 @@ def mesh_w1(dev, points, lshp, rep, shd) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import full_width
     from repro_torch.random import PRNGKey
-    tmp = tempfile.mkdtemp(prefix="alid_mesh_w1_")
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
-                            rank=0, world_size=1, device_id=dev,
-                            timeout=datetime.timedelta(seconds=300))
     total = dict.fromkeys(FIT_KERNELS, 0)
-    try:
+    with nccl_world1(dev) as dist:
         for name, espec, want in (
                 ("replicated", EngineSpec(engine="mesh"), rep),
                 (f"{N_SHARDS} shards",
@@ -3752,9 +3783,6 @@ def mesh_w1(dev, points, lshp, rep, shd) -> dict:
                 total[k] += counts[k]
             del res
             torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
     return total
 
 
@@ -4033,6 +4061,138 @@ def check_mesh(dev, points, lshp, rep, shd, pspec, pcfg, shd_3b,
     return total
 
 
+# ----------------------------------------------------------- the tooling ----
+# where phase 11 writes the checker's report (gitignored)
+CHECK_DIR = Path(__file__).resolve().parent / "chiprun_out"
+# the kernels of the launch counts (`ops.launch_counts()`)
+OPS_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep",
+               "assign", "affinity", "flash_attention", "embedding_bag",
+               "segment_matmul")
+
+
+def check_analysis(dev) -> dict:
+    """11(a): `run_palid --check` on the card (the port's checker: the
+    dispatch and concurrency lints, then the runtime pass through the
+    kernels), its report written under chiprun_out/. Returns the pass's
+    launches."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import run_palid
+    CHECK_DIR.mkdir(exist_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.chdir(CHECK_DIR), contextlib.redirect_stdout(buf):
+        try:
+            run_palid.main(["--check"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(f"[check] run_palid --check: exit {code} in {wall:.2f}s; "
+          f"{buf.getvalue().strip().splitlines()[-1]}")
+    report = json.loads((CHECK_DIR / run_palid.CHECK_REPORT).read_text())
+    info = report["passes"]["contracts"]
+    for row in info["smem_cases"]:
+        print(f"[check] smem {row['op']} at {row['shape']} ({row['route']}): "
+              f"{row['dynamic']} dynamic + {row['static']} static bytes")
+    print(f"[check] smem_bytes_by_op {json.dumps(info['smem_bytes_by_op'])} "
+          f"(budget {info['smem_budget_bytes']}); static bytes by source "
+          f"{json.dumps(info['static_smem_by_source'])}")
+    print(f"[check] ops shape-checked ref against kernel "
+          f"{info['ops_shape_checked']}, poison runs "
+          f"{info['poison_runs_by_backend']}, suppressed findings "
+          f"{len(report['suppressed'])}; launches {launches}")
+    need(code == 0 and report["ok"], "11a: run_palid --check failed: "
+         + "; ".join(v["message"] for v in report["violations"]))
+    need(info["ops_shape_checked"] == len(contracts.OP_CASES) == 10,
+         "11a: not every op was shape-checked ref against kernel")
+    need(info["poison_runs_by_backend"] == {"ref": 10, "kernel": 10},
+         "11a: the poison scenarios did not all run on both backends")
+    need(isinstance(info["static_smem_by_source"], dict) and set(
+        info["static_smem_by_source"]) == set(_build.STATIC_SMEM_SOURCES),
+        "11a: the static shared bytes were not read")
+    need(all(b <= contracts.SMEM_BUDGET
+             for b in info["smem_bytes_by_op"].values()),
+         "11a: a kernel asks more shared memory than a block has")
+    for name in OPS_KERNELS:
+        need(launches[name] > 0, f"11a: kernel {name} was never launched")
+    return launches
+
+
+def check_golden(dev, fits_3b) -> dict:
+    """11(b): the JAX package's golden outputs (tests/golden_torch) on the
+    card: the ops through the kernels, the small fit + predict through
+    them, and the fit at phase 3b's data on the replicated, sharded (8
+    shards), streamed (default pipeline) and mesh (world size 1, NCCL)
+    engines. Returns the phase's launches."""
+    import tempfile
+
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import ops
+    from repro_torch.utils import golden
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    bad = {k: v for k, v in golden.check_ops(dev, "kernel").items() if v}
+    print(f"[golden] ops through the kernels against the JAX package: "
+          f"{'all hold' if not bad else bad} ({time.perf_counter() - t0:.2f}"
+          "s)")
+    need(not bad, f"11b: the kernels' ops differ from the JAX package's: "
+         f"{bad}")
+    problems, res = golden.check_fit("fit_small", EngineSpec(), device=dev)
+    print(f"[golden] fit_small replicated through the kernels: clusters "
+          f"{res.n_clusters} rounds {res.n_rounds}; fit + predict "
+          f"{'hold' if not problems else problems}")
+    need(not problems, f"11b: fit_small differs from the JAX package's: "
+         f"{problems}")
+    _, _, want = golden.fit_data("fit_parity")
+    fits = {}
+    with tempfile.TemporaryDirectory(prefix="alid_golden_") as tmp:
+        for name, espec in (
+                ("replicated", EngineSpec()),
+                ("sharded", EngineSpec(engine="sharded", n_shards=N_SHARDS)),
+                ("streamed", EngineSpec(engine="streamed",
+                                        n_shards=N_SHARDS,
+                                        scratch_dir=tmp)),
+                ("mesh", EngineSpec(engine="mesh"))):
+            t1 = time.perf_counter()
+            with (nccl_world1(dev) if name == "mesh"
+                  else contextlib.nullcontext()):
+                engine = make_engine(espec, device=dev)
+                problems, res = golden.check_fit(
+                    "fit_parity", espec, device=dev, engine=engine)
+                torch.cuda.synchronize()
+                if name == "streamed":
+                    need_clean(engine, "11b streamed")
+                engine.close()
+            fits[name] = res
+            print(f"[golden] fit_parity {name}: {time.perf_counter() - t1:.2f}"
+                  f"s clusters {res.n_clusters} rounds {res.n_rounds} k "
+                  f"{res.k!r}; against the JAX package (clusters "
+                  f"{want['densities'].size}, rounds "
+                  f"{int(want['n_rounds'])}, k {float(want['k'])!r}): "
+                  f"{'holds' if not problems else problems}")
+    # the JAX package's fit at this data is not reproduced (ROADMAP C4):
+    # the port's engines must agree with each other and with phase 3b,
+    # and with the reference's round count
+    for name, res in fits.items():
+        for other, base in (("replicated", fits["replicated"]),
+                            ("3b", fits_3b)):
+            ok, why = same_fit(res, base)
+            need(ok, f"11b: fit_parity on {name} differs from {other}: "
+                 f"{why}")
+        need(res.n_rounds == int(want["n_rounds"]),
+             f"11b: fit_parity on {name} took {res.n_rounds} rounds, the "
+             f"JAX package {int(want['n_rounds'])}")
+    launches = ops.launch_counts()
+    print(f"[golden] launches {launches}")
+    for name in FIT_KERNELS + ("assign",):
+        need(launches[name] > 0, f"11b: kernel {name} was never launched")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4077,7 +4237,7 @@ def main() -> int:
     stamp("phase 2")
     check_parity_fit(dev)
     pspec, pcfg = engine_parity_data()
-    clean, shd_3b = check_engine_parity(dev, pspec, pcfg)
+    clean, shd_3b, rep_3b = check_engine_parity(dev, pspec, pcfg)
     bf16_counts = check_engine_parity_bf16(dev, pspec, pcfg)
     stamp("phases 3, 3b")
     res, counts, rep_info = full_fit(dev, spec, lshp)
@@ -4183,6 +4343,15 @@ def main() -> int:
     stats["segment_matmul"]["gnn"]["mesh"] = {
         "launches": ranks["segment_matmul"]}
     stamp("phase 10")
+
+    check_counts = check_analysis(dev)
+    golden_counts = check_golden(dev, Slim(rep_3b))
+    del rep_3b
+    print(f"[tooling] phase 11 launches: 11a {check_counts}, + 11b "
+          f"{golden_counts}")
+    for name in OPS_KERNELS:
+        counts[name] += check_counts[name] + golden_counts[name]
+    stamp("phase 11")
 
     table = []
     for name, s in stats.items():

@@ -63,6 +63,7 @@ def _spmv(g: SparseGraph, x: torch.Tensor) -> torch.Tensor:
 def _rd_steps(g: SparseGraph, x: torch.Tensor, steps: int) -> torch.Tensor:
     for _ in range(steps):
         ax = _spmv(g, x)
+        # analysis: allow(private-matmul): pi = x'Ax of SEA's replicator step, the twin of `x @ ax` at repro/core/baselines/sea.py:77
         pi = torch.dot(x, ax)
         x = torch.where(pi > 0, x * ax / torch.clamp_min(pi, 1e-30), x)
     return x
@@ -94,6 +95,7 @@ def _sea_from_seed(g: SparseGraph, seed: int, active: torch.Tensor,
                                                support_eps * 10, 0.0))
         x = newx / torch.clamp_min(newx.sum(), 1e-12)
     x = _rd_steps(g, x, rd_iters * 2)
+    # analysis: allow(private-matmul): the density x'Ax, the twin of `x @ ax` at repro/core/baselines/sea.py:98
     return x, torch.dot(x, _spmv(g, x))
 
 

@@ -25,6 +25,7 @@ def spectral_clustering(points: np.ndarray, n_clusters: int, k_aff: float,
     lap = dm[:, None] * a * dm[None, :]
     _, v = torch.linalg.eigh(lap)
     emb = v[:, -n_clusters:]
+    # analysis: allow(private-distance): row-unit normalization of the spectral embedding, not a pairwise distance; the twin of the pragma at repro/core/baselines/spectral.py:21
     emb = emb / torch.clamp_min(torch.linalg.norm(emb, dim=1, keepdim=True),
                                 1e-12)
     labels, _ = kmeans(emb.cpu().numpy(), n_clusters, seed=seed, device=dev)

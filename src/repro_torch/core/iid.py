@@ -132,6 +132,7 @@ def iid_solve(a: torch.Tensor, x0: torch.Tensor, max_iters: int = 1000,
 
     def step():
         live = (~done) & (t < max_iters)
+        # analysis: allow(private-matmul): pi = x'Ax of the StQP iterate, the twin of `x @ ax` at repro/core/iid.py:74
         pi = torch.dot(x, ax)
         r = ax - pi
         i, best = _select(x, r, tol)
@@ -145,6 +146,7 @@ def iid_solve(a: torch.Tensor, x0: torch.Tensor, max_iters: int = 1000,
         torch.where(live, stop, done, out=done)
 
     run_chunks(step, x.device, max_iters, chunk, lambda: bool(done), graphs)
+    # analysis: allow(private-matmul): the density x'Ax, the twin of `x @ ax` at repro/core/iid.py:85
     return StQPResult(x=x, density=torch.dot(x, ax), n_iters=t,
                       converged=done)
 

@@ -28,6 +28,7 @@ def replicator_solve(a: torch.Tensor, x0: torch.Tensor, max_iters: int = 2000,
     def step():
         live = (delta > tol) & (t < max_iters)
         ax = _restrict(torch.mv(a, x), active)
+        # analysis: allow(private-matmul): pi = x'Ax of the replicator step, the twin of `x @ ax` at repro/core/rd.py:27
         pi = torch.dot(x, ax)
         x_new = torch.where(pi > 0.0, x * ax / torch.clamp_min(pi, 1e-30), x)
         torch.where(live, (x_new - x).abs().sum(), delta, out=delta)
@@ -37,5 +38,6 @@ def replicator_solve(a: torch.Tensor, x0: torch.Tensor, max_iters: int = 2000,
     run_chunks(step, x.device, max_iters, chunk, lambda: not bool(delta > tol),
                graphs)
     ax = _restrict(torch.mv(a, x), active)
+    # analysis: allow(private-matmul): the density x'Ax, the twin of `x @ ax` at repro/core/rd.py:34
     return StQPResult(x=x, density=torch.dot(x, ax), n_iters=t,
                       converged=delta <= tol)

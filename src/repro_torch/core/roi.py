@@ -39,6 +39,7 @@ def estimate_roi(v_beta, beta_idx, beta_mask, x, k: float, c: torch.Tensor,
     wsum = torch.clamp_min(w.sum(-1), 1e-12)
     w = w / wsum[:, None]
 
+    # analysis: allow(private-matmul): the ROI centre sum x_i v_i, the twin of `w @ v_beta` at repro/core/roi.py:51 (a weighted mean, not a distance)
     center = torch.einsum("bc,bcd->bd", w, v_beta.float())  # D = sum x_i v_i
 
     # pi(x_hat) = w^T A w over the support block: the inner A w is the fused

@@ -49,6 +49,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "static_smem.cuh"
 
 namespace {
 
@@ -425,4 +426,13 @@ extern "C" int affinity_matvec_bf16_launch(
   return launch_route(q, q_idx, c, c_idx, w, out, batch, m, n, d, k,
                       smem_rows, rows, classes, ubits, tc, groups, gpp,
                       smem_bytes, stream);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int affinity_matvec_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(matvec_kernel<float, true, 4>),
+       repro_smem::fn(matvec_kernel<float, false, 1>),
+       repro_smem::fn(matvec_kernel<__nv_bfloat16, false, 1>)},
+      bytes);
 }

@@ -51,6 +51,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "static_smem.cuh"
 
 namespace {
 
@@ -485,4 +486,17 @@ extern "C" int assign_launch(const float* q, const float* s, const float* w,
   assign_pick_kernel<<<(m + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       scores, dens, valid, labels, bscore, m, n_clusters, t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int assign_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(assign_lanes_kernel<1>),
+       repro_smem::fn(assign_lanes_kernel<2>),
+       repro_smem::fn(assign_lanes_kernel<4>),
+       repro_smem::fn(assign_lanes_kernel<8>),
+       repro_smem::fn(assign_lanes_kernel<16>),
+       repro_smem::fn(assign_tiles_kernel),
+       repro_smem::fn(assign_pick_kernel)},
+      bytes);
 }

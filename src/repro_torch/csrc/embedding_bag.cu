@@ -42,6 +42,7 @@
 #include <limits.h>
 
 #include "segment_sum.cuh"
+#include "static_smem.cuh"
 
 namespace {
 
@@ -545,4 +546,40 @@ extern "C" int embedding_bag_launch(const void* table, long long v_rows,
             : launch_typed<int>(table, v_rows, idx, bag, scratch, out, n,
                                 n_bags, dim, is_bf16, vec, group, mean, st);
   return static_cast<int>(err);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int embedding_bag_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(bag_pass_kernel<int>),
+       repro_smem::fn(bag_pass_kernel<long long>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 8, int, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 8, int, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 8, long long, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 8, long long, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 4, int, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 4, int, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 4, long long, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 4, long long, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 2, int, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 2, int, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 2, long long, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 2, long long, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 1, int, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 1, int, false>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 1, long long, true>),
+       repro_smem::fn(bag_sum_kernel<__nv_bfloat16, 1, long long, false>),
+       repro_smem::fn(bag_sum_kernel<float, 4, int, true>),
+       repro_smem::fn(bag_sum_kernel<float, 4, int, false>),
+       repro_smem::fn(bag_sum_kernel<float, 4, long long, true>),
+       repro_smem::fn(bag_sum_kernel<float, 4, long long, false>),
+       repro_smem::fn(bag_sum_kernel<float, 2, int, true>),
+       repro_smem::fn(bag_sum_kernel<float, 2, int, false>),
+       repro_smem::fn(bag_sum_kernel<float, 2, long long, true>),
+       repro_smem::fn(bag_sum_kernel<float, 2, long long, false>),
+       repro_smem::fn(bag_sum_kernel<float, 1, int, true>),
+       repro_smem::fn(bag_sum_kernel<float, 1, int, false>),
+       repro_smem::fn(bag_sum_kernel<float, 1, long long, true>),
+       repro_smem::fn(bag_sum_kernel<float, 1, long long, false>)},
+      bytes);
 }

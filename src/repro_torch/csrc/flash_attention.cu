@@ -65,6 +65,7 @@
 
 #include "flash_common.cuh"
 #include "segment_sum.cuh"
+#include "static_smem.cuh"
 
 using namespace repro_flash;
 
@@ -889,4 +890,48 @@ extern "C" int flash_attention_launch(
     err = launch_wgmma(p, batch, smem_bytes, st);
   }
   return static_cast<int>(err);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int flash_attention_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(flash_kernel<float>),
+       repro_smem::fn(flash_kernel<__nv_bfloat16>),
+       repro_smem::fn(flash_split_kernel<float, 4, 1>),
+       repro_smem::fn(flash_split_kernel<float, 4, 2>),
+       repro_smem::fn(flash_split_kernel<float, 4, 4>),
+       repro_smem::fn(flash_split_kernel<float, 4, 8>),
+       repro_smem::fn(flash_split_kernel<float, 2, 1>),
+       repro_smem::fn(flash_split_kernel<float, 2, 2>),
+       repro_smem::fn(flash_split_kernel<float, 2, 4>),
+       repro_smem::fn(flash_split_kernel<float, 2, 8>),
+       repro_smem::fn(flash_split_kernel<float, 1, 1>),
+       repro_smem::fn(flash_split_kernel<float, 1, 2>),
+       repro_smem::fn(flash_split_kernel<float, 1, 4>),
+       repro_smem::fn(flash_split_kernel<float, 1, 8>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 8, 1>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 8, 2>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 8, 4>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 8, 8>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 4, 1>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 4, 2>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 4, 4>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 4, 8>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 2, 1>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 2, 2>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 2, 4>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 2, 8>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 1, 1>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 1, 2>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 1, 4>),
+       repro_smem::fn(flash_split_kernel<__nv_bfloat16, 1, 8>),
+       repro_smem::fn(flash_combine_kernel<float>),
+       repro_smem::fn(flash_combine_kernel<__nv_bfloat16>),
+       repro_smem::fn(flash_small_kernel<float, 4>),
+       repro_smem::fn(flash_small_kernel<float, 8>),
+       repro_smem::fn(flash_small_kernel<float, 16>),
+       repro_smem::fn(flash_small_kernel<__nv_bfloat16, 4>),
+       repro_smem::fn(flash_small_kernel<__nv_bfloat16, 8>),
+       repro_smem::fn(flash_small_kernel<__nv_bfloat16, 16>)},
+      bytes);
 }

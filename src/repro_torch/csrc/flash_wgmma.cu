@@ -56,6 +56,7 @@
 
 #include "flash_common.cuh"
 #include "wgmma.cuh"
+#include "static_smem.cuh"
 
 using namespace repro_flash;
 namespace sm90 = repro_kernels::sm90;
@@ -413,3 +414,25 @@ cudaError_t launch_wgmma(const Params& p, int batch, int smem_bytes,
 }
 
 }  // namespace repro_flash
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int flash_wgmma_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(flash_wgmma_kernel<16, 1>),
+       repro_smem::fn(flash_wgmma_kernel<16, 2>),
+       repro_smem::fn(flash_wgmma_kernel<32, 1>),
+       repro_smem::fn(flash_wgmma_kernel<32, 2>),
+       repro_smem::fn(flash_wgmma_kernel<48, 1>),
+       repro_smem::fn(flash_wgmma_kernel<48, 2>),
+       repro_smem::fn(flash_wgmma_kernel<64, 1>),
+       repro_smem::fn(flash_wgmma_kernel<64, 2>),
+       repro_smem::fn(flash_wgmma_kernel<80, 1>),
+       repro_smem::fn(flash_wgmma_kernel<80, 2>),
+       repro_smem::fn(flash_wgmma_kernel<96, 1>),
+       repro_smem::fn(flash_wgmma_kernel<96, 2>),
+       repro_smem::fn(flash_wgmma_kernel<112, 1>),
+       repro_smem::fn(flash_wgmma_kernel<112, 2>),
+       repro_smem::fn(flash_wgmma_kernel<128, 1>),
+       repro_smem::fn(flash_wgmma_kernel<128, 2>)},
+      bytes);
+}

@@ -61,6 +61,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "static_smem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -458,4 +459,13 @@ extern "C" int lid_sweep_bf16_launch(
                       cv_out, batch, cap, d, k, n_steps, max_iters, tol,
                       refresh_every, support_eps, cs, threads, rows_per,
                       smem_rows, smem_bytes, stream);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int lid_sweep_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(lid_sweep_kernel<float, true>),
+       repro_smem::fn(lid_sweep_kernel<float, false>),
+       repro_smem::fn(lid_sweep_kernel<__nv_bfloat16, false>)},
+      bytes);
 }

@@ -49,6 +49,7 @@
 
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "static_smem.cuh"
 
 // A profiling build (launch/profile_kernel_phases.py, -DDROP_PHASE=n) takes
 // one phase out to time it: 1 the projections' FMA chains, 2 the copies of
@@ -310,4 +311,14 @@ extern "C" int lsh_hash_bf16_launch(const __nv_bfloat16* x, const float* proj,
                                     int smem_bytes, float seg, void* stream) {
   return launch(x, proj, bias, out, n, d, n_tables, n_proj, per_thread, pts,
                 threads, smem_bytes, seg, stream);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int lsh_hash_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(lsh_tile_kernel<float, 4>),
+       repro_smem::fn(lsh_tile_kernel<float, 1>),
+       repro_smem::fn(lsh_tile_kernel<__nv_bfloat16, 4>),
+       repro_smem::fn(lsh_tile_kernel<__nv_bfloat16, 1>)},
+      bytes);
 }

@@ -28,6 +28,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "static_smem.cuh"
 
 namespace {
 
@@ -105,4 +106,12 @@ extern "C" int roi_filter_bf16_launch(const __nv_bfloat16* vc,
                                       int per_seed, int d, void* stream) {
   return launch(vc, center, radius, valid, dist, ok, neg, rows, per_seed, d,
                 stream);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int roi_filter_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(roi_filter_kernel<float>),
+       repro_smem::fn(roi_filter_kernel<__nv_bfloat16>)},
+      bytes);
 }

@@ -25,6 +25,7 @@
 // (a split of large segments across warps is later work).
 
 #include "segment_sum.cuh"
+#include "static_smem.cuh"
 
 namespace {
 
@@ -89,4 +90,17 @@ extern "C" int segment_matmul_launch(const void* msg, const long long* perm,
   }
 #undef REPRO_SEG
   return static_cast<int>(err);
+}
+
+// the static shared bytes of this source's kernels (static_smem.cuh)
+extern "C" int segment_matmul_static_smem(int* bytes) {
+  return repro_smem::max_static(
+      {repro_smem::fn(segment_matmul_kernel<__nv_bfloat16, 8>),
+       repro_smem::fn(segment_matmul_kernel<__nv_bfloat16, 4>),
+       repro_smem::fn(segment_matmul_kernel<__nv_bfloat16, 2>),
+       repro_smem::fn(segment_matmul_kernel<__nv_bfloat16, 1>),
+       repro_smem::fn(segment_matmul_kernel<float, 4>),
+       repro_smem::fn(segment_matmul_kernel<float, 2>),
+       repro_smem::fn(segment_matmul_kernel<float, 1>)},
+      bytes);
 }

@@ -20,6 +20,7 @@ from repro_torch import random as trandom
 from repro_torch.core.alid import resolve_device
 
 _M32 = 0xFFFFFFFF
+# analysis: allow(private-lsh): Knuth multiplicative hash assigns synthetic category ids, not LSH bucket keys; the twin of the pragma at repro/data/recsys.py:25
 _KNUTH = 2654435761
 
 

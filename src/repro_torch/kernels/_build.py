@@ -34,6 +34,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 L = ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: name -> argtypes (all return the int cudaError_t)
 SIGNATURES = {
@@ -78,6 +79,14 @@ SIGNATURES = {
 # the fit's four kernels on bf16 points: the f32 entry point's arguments
 for _name in ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep"):
     SIGNATURES[f"{_name}_bf16_launch"] = SIGNATURES[f"{_name}_launch"]
+# the sources whose kernels' static shared bytes can be queried
+# (`static_smem`, csrc/static_smem.cuh)
+STATIC_SMEM_SOURCES = ("lsh_hash", "roi_filter", "affinity_matvec",
+                       "lid_sweep", "assign", "affinity", "flash_attention",
+                       "flash_wgmma", "embedding_bag", "segment_matmul")
+for _name in STATIC_SMEM_SOURCES:
+    # int* bytes
+    SIGNATURES[f"{_name}_static_smem"] = (IP,)
 
 
 def _nvcc() -> str:
@@ -152,6 +161,16 @@ def empty_kernel(device) -> None:
     """Launch a kernel that does nothing on `device`'s current stream: its
     device time is the floor of one launch."""
     check("empty", library().empty_launch(stream_ptr(device)))
+
+
+def static_smem(source: str) -> int:
+    """The most static `__shared__` bytes that any kernel of
+    `csrc/<source>.cu` declares, read from the loaded module by
+    cudaFuncGetAttributes (needs the card)."""
+    bytes_ = ctypes.c_int(0)
+    check(f"{source} static shared memory query",
+          getattr(library(), f"{source}_static_smem")(ctypes.byref(bytes_)))
+    return bytes_.value
 
 
 def stream_ptr(device) -> int:

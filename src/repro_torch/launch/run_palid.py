@@ -29,9 +29,13 @@ bit-identical to the clean run's. It prints the lines the JAX package's
 With --devices D (or --engine mesh) the CLI spawns D ranks itself
 (`distributed.spawn.run_ranks`, a file:// rendezvous in a temp dir); every
 rank fits the same data, and rank 0's lines are printed here, the serving
-and online arms running here on its result. The JAX CLI's flag that needs
-a part not ported yet (--check, the contract checker) raises
-NotImplementedError naming its ROADMAP item.
+and online arms running here on its result.
+
+With --check the CLI runs the port's contract checker instead of a fit
+(`python -m repro_torch.analysis.check`, its runtime pass on --device),
+writes CHECK_report_torch.json in the working directory and exits with the
+checker's code, as the JAX CLI's --check does (that one writes
+CHECK_report.json, the JAX package's report, which this never touches).
 """
 
 from __future__ import annotations
@@ -62,14 +66,9 @@ from repro_torch.utils import avg_f1_score
 SERVE_SLOTS = 64
 SERVE_QUERIES = 1024
 
-
-def _unported_flags(args) -> list[str]:
-    """The given flags of the JAX CLI whose parts are not ported yet, each
-    with its ROADMAP item."""
-    checks = [
-        (args.check, "--check, the contract checker (ROADMAP A15)"),
-    ]
-    return [what for given, what in checks if given]
+# where --check writes the port's report (never the JAX package's
+# CHECK_report.json)
+CHECK_REPORT = "CHECK_report_torch.json"
 
 
 def engine_spec(engine: str, shards: int, chunk_size: int = 0,
@@ -210,8 +209,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "mesh): the CLI spawns them itself, one card a "
                          "rank over NCCL on the card, gloo processes with "
                          "--device cpu; --shards must divide over them")
-    # the JAX CLI's flag whose part is not ported yet: refused in main
-    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check", action="store_true",
+                    help="run the port's contract checker instead of a fit "
+                         "(python -m repro_torch.analysis.check, its "
+                         "runtime pass on --device), writing "
+                         f"{CHECK_REPORT}; exits non-zero on any "
+                         "unsuppressed violation")
     return ap.parse_args(argv)
 
 
@@ -233,9 +236,10 @@ def _data(args):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refused = _unported_flags(args)
-    if refused:
-        raise NotImplementedError(f"{refused[0]} is not ported yet")
+    if args.check:
+        from repro_torch.analysis import check
+        raise SystemExit(check.main(["--report", CHECK_REPORT,
+                                     "--device", args.device]))
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
     if args.quick:

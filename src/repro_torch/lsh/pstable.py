@@ -102,6 +102,7 @@ def hash_queries(q: torch.Tensor, proj: torch.Tensor, bias: torch.Tensor,
     the salt projection is recomputed here rather than emitted by the hash
     kernel."""
     keys = hash_points(q, proj, bias, seg_len, backend)
+    # analysis: allow(private-matmul): the salt projection recomputed beside the hash kernel, the twin of the pragma at repro/lsh/pstable.py:158
     z = (torch.einsum("nd,lmd->lnm", q.float(), proj.float())
          + bias.float()[:, None, :])
     return keys, _mix_fold(to_uint32(z.view(torch.int32)))

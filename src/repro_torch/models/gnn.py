@@ -248,6 +248,7 @@ def apply_layer(lp: dict, cfg: GNNConfig, h: torch.Tensor,
                                       backend=backend, mesh=mesh)
         h = torch.relu(L.dense(h, lp["w_self"]) + L.dense(agg, lp["w_nbr"])
                        + lp["b"])
+        # analysis: allow(private-distance): SAGE l2-normalizes activations row-wise, not a pairwise distance; the twin of the pragma at repro/models/gnn.py:192
         h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True),
                             min=1e-6)
     else:  # mgn / graphcast

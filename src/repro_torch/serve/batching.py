@@ -601,6 +601,7 @@ class ClusterServer:
             if q:
                 batch = [q.popleft()
                          for _ in range(min(len(q), self.batch_slots))]
+                # analysis: allow(unlocked-mutation): _next_batch's contract is "caller holds self._lock" (its docstring); the twin of the pragma at repro/serve/batching.py:610
                 self._pending -= len(batch)
                 # popped requests are the worker's responsibility until it
                 # explicitly resolves them — the supervisor fails whatever

@@ -1335,3 +1335,39 @@ def test_bf16_fits_bitwise_across_engines_and_backends(dev, tmp_path):
         np.testing.assert_array_equal(got.densities, want.densities,
                                       err_msg=name)
         assert got.n_rounds == want.n_rounds, name
+
+
+# ------------------------------------------- the contract checker, golden --
+@pytest.mark.cuda
+def test_contract_check_on_card(dev):
+    """The checker's runtime pass on the card: all ten ops shape-checked
+    ref against kernel, the ten poison scenarios on both backends, and
+    every kernel's dynamic + static shared bytes within the 232,448 a block
+    at the main path's full-width shapes."""
+    from repro_torch.analysis import check, contracts
+    from repro_torch.kernels import _build
+    ops.reset_launch_counts()
+    report = check.run_checks(check.find_repo_root(), passes=("contracts",),
+                              device=dev)
+    assert report.ok, "\n" + report.summary()
+    info = report.pass_info["contracts"]
+    assert info["ops_shape_checked"] == 10
+    assert info["poison_runs_by_backend"] == {"ref": 10, "kernel": 10}
+    assert set(info["static_smem_by_source"]) == set(
+        _build.STATIC_SMEM_SOURCES)
+    assert all(b <= contracts.SMEM_BUDGET
+               for b in info["smem_bytes_by_op"].values())
+    assert all(n > 0 for n in ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_golden_ops_and_small_fit_on_card(dev):
+    """The kernels' ops and the small fit + predict through them hold to
+    the JAX package's golden outputs (tests/golden_torch)."""
+    from repro_torch.core.alid import EngineSpec
+    from repro_torch.utils import golden
+    assert golden.check_ops(dev, backend="kernel") == {
+        c: [] for c in golden.load("ops")[1]["cases"]}
+    for spec in (EngineSpec(), EngineSpec(engine="sharded", n_shards=5)):
+        problems, _ = golden.check_fit("fit_small", spec, device=dev)
+        assert problems == []

@@ -127,3 +127,27 @@ def test_torch_palid_pipeline_on_two_gloo_ranks(capsys, monkeypatch):
     np.testing.assert_array_equal(mesh.labels, serial.labels)
     np.testing.assert_array_equal(mesh.densities, serial.densities)
     assert mesh.n_rounds == serial.n_rounds
+
+
+def test_torch_serve_lm_runs_on_the_cpu(capsys):
+    """examples/torch_serve_lm.py serves the JAX example's ten requests
+    (gemma2-27b's smoke config, the same keys, prompts and sampling) and
+    generates the JAX example's tokens."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", EXAMPLES / "torch_serve_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    results = mod.main(["--device", "cpu"])
+    ours = capsys.readouterr().out
+    jspec = importlib.util.spec_from_file_location(
+        "serve_lm", EXAMPLES / "serve_lm.py")
+    jmod = importlib.util.module_from_spec(jspec)
+    jspec.loader.exec_module(jmod)
+    jmod.main()
+    theirs = capsys.readouterr().out
+    assert len(results) == 10
+    assert all(len(v) == 12 for v in results.values())
+    assert re.search(r"10 requests -> 120 tokens", ours)
+    lines = [ln for ln in ours.splitlines() if "generated" in ln]
+    assert len(lines) == 4
+    assert lines == [ln for ln in theirs.splitlines() if "generated" in ln]

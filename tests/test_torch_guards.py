@@ -3,12 +3,14 @@ jax, its entry points run on the card unless the caller asks for the CPU,
 and a kernel backend never falls back to the plain version."""
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import check
 from repro_torch.core import alid as talid
 from repro_torch.core import baselines
 from repro_torch.core.engine import fit, make_engine
@@ -85,9 +87,19 @@ def _tiny_clustering(d=4, cap=3):
         support_v=rng.normal(size=(2, cap, d)).astype(np.float32))
 
 
+def _serve_lm_example():
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", ROOT / "examples" / "torch_serve_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_entry_points_default_to_the_card():
     """Without device=, fit, make_engine, predict, the serving layer
-    (Tenant, ClusterService, ClusterServer, run_palid), the full-matrix
+    (Tenant, ClusterService, ClusterServer, run_palid), the contract
+    checker's runtime pass (`analysis.check`, `run_palid --check`),
+    `examples/torch_serve_lm.py`, the full-matrix
     baselines (sea_detect, affinity_propagation, kmeans,
     spectral_clustering, mean_shift, full_matrix), LM serving
     (init_params, init_cache, generate, BatchServer, launch.serve), BST
@@ -96,8 +108,10 @@ def test_entry_points_default_to_the_card():
     state (lm_params_from_numpy, bst_params_from_numpy,
     gnn_params_from_numpy, lsh_tables_from_numpy, lid_state_from_numpy)
     run on CUDA; where there is no card they raise instead of running on
-    the CPU."""
+    the CPU (the checker's runtime pass fails its report instead)."""
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    serve_lm = _serve_lm_example()
+    report = check.run_checks(str(ROOT), passes=("contracts",))
     res = _tiny_clustering()
     lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
     lm_params = init_params(PRNGKey(0), lm, device="cpu")
@@ -126,7 +140,12 @@ def test_entry_points_default_to_the_card():
         assert BatchServer(lm_params, lm).device.type == "cuda"
         with pytest.raises(ValueError, match="params lie on cpu"):
             generate(lm_params, lm, np.zeros((1, 3), np.int32))
+        assert report.pass_info["contracts"]["device"].startswith("cuda")
+        assert report.pass_info["contracts"]["ops_shape_checked"] == 10
+        assert len(serve_lm.main([])) == 10
         return
+    assert not report.ok
+    assert [v.rule for v in report.violations] == ["no-device"]
     calls = [lambda: make_engine(talid.EngineSpec()),
              lambda: fit(pts, talid.ALIDConfig(max_rounds=1)),
              lambda: res.predict(pts),
@@ -134,6 +153,7 @@ def test_entry_points_default_to_the_card():
              lambda: ClusterService(res),
              lambda: ClusterServer(start=False),
              lambda: run_palid.main(["--quick"]),
+             lambda: serve_lm.main([]),
              lambda: baselines.sea_detect(pts, 0.5),
              lambda: baselines.affinity_propagation(pts),
              lambda: baselines.kmeans(pts, 3),

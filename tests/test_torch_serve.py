@@ -12,8 +12,10 @@ not to the expectations of `test_submit_serve_batch` and
 """
 
 import functools
+import json
 import re
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -249,10 +251,39 @@ def test_run_palid_quick_serve_bench_prints_the_jax_lines(capsys,
         == serve.fullmatch(_palid_line(ours, "[palid] serve")).group(1)
 
 
-@pytest.mark.parametrize("flags,item", [(["--check"], "A15")])
-def test_run_palid_refuses_unported_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_palid.main(["--quick", "--device", "cpu", *flags])
+def test_run_palid_check_writes_the_port_report(tmp_path, monkeypatch):
+    """--check runs the port's checker (its runtime pass on --device),
+    exits with its code, and writes CHECK_report_torch.json in the working
+    directory; the JAX package's CHECK_report.json is never touched."""
+    jax_report = Path(__file__).resolve().parents[1] / "CHECK_report.json"
+    before = jax_report.read_bytes()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as exit_:
+        run_palid.main(["--check", "--device", "cpu"])
+    assert exit_.value.code == 0
+    report = json.loads((tmp_path / "CHECK_report_torch.json").read_text())
+    assert report["ok"] is True
+    assert set(report["passes"]) == {"dispatch", "concurrency", "contracts"}
+    assert report["passes"]["contracts"]["kernel_side"].startswith("not run")
+    assert not (tmp_path / "CHECK_report.json").exists()
+    assert jax_report.read_bytes() == before
+
+
+def test_run_palid_check_fails_on_a_bad_tree(tmp_path, monkeypatch):
+    """In a tree whose port computes a distance privately, --check exits
+    non-zero and its report names the finding."""
+    bad = tmp_path / "src" / "repro_torch" / "serve"
+    bad.mkdir(parents=True)
+    (bad / "bad.py").write_text(
+        "import torch\n\ndef f(a, b):\n    return torch.cdist(a, b)\n")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as exit_:
+        run_palid.main(["--check", "--device", "cpu"])
+    assert exit_.value.code == 1
+    report = json.loads((tmp_path / "CHECK_report_torch.json").read_text())
+    assert report["ok"] is False
+    assert [v["rule"] for v in report["violations"]] == ["private-distance"]
+    assert report["violations"][0]["path"] == "src/repro_torch/serve/bad.py"
 
 
 def test_run_palid_devices_past_the_card_count(monkeypatch):
