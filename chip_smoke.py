@@ -73,12 +73,10 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    kernels launched, the fit's peak device memory below phase 4's, no
    fallback taken (as in 3b); wall time and the `PipelineStats` report
    printed;
-4d. fault tolerance: the streamed fit of 3b under FaultySource transient
-   faults (rate 0.1), forced scratch corruption (`PipelineFaults`) and a
-   killed reader, each bit-identical to 3b's clean run (labels, rounds,
-   densities) with its counter in `PipelineStats` > 0 and no other
-   fallback; crash at round 3 and resume, bit-identical, on the streamed
-   engine at n = 20,000 (the resumed run taking no fallback) and on the
+4d. fault tolerance: crash at round 3 and resume, bit-identical, on the
+   streamed engine at 3b's data, n = 20,000 (the resumed run taking no
+   fallback; the streamed fault arms there are the CPU tests' since
+   phase 12 needed their time) and on the
    replicated engine at full width against phase 4's labels; `run_palid
    --quick` on the card with `--engine sharded --shards 4`, `--engine
    streamed --shards 4 --inject-faults transient:0.1` (fault-parity=True),
@@ -263,13 +261,45 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    fixtures (tests/golden_torch, read with numpy): every op through the
    kernels against the reference's outputs (`lsh_hash` under its
    key-flip rule, `flash_attention` under its kernel rule), the small fit
-   + predict through the kernels, and the fit at phase 3b's data on the
-   replicated, sharded (8 shards), streamed (default pipeline) and mesh
-   (world size 1, NCCL) engines, each compared with the reference and
-   printed; that fit differs from the reference's (ROADMAP C4), so the
-   gate there is the four engines equal to one another and to 3b's fit,
-   and the reference's round count; phase 11's launches are added to the
-   kernel table's;
+   + predict through the kernels, and the fits at phase 3b's data
+   (fit_parity) and at its shape on data where every LID of the
+   reference converges within t_lid (fit_converged) on the replicated,
+   sharded (8 shards), streamed (default pipeline) and mesh (world size
+   1, NCCL) engines, each compared with the reference and printed;
+   fit_parity differs from the reference's (ROADMAP C4), so the gate
+   there is the four engines equal to one another and to 3b's fit, and
+   the reference's round count; fit_converged is held to the reference
+   in full on each engine (`utils.golden.check_fit`); phase 11's
+   launches are added to the kernel table's;
+12. MoE serving (ROADMAP A16): (a) the attention kernel at the MoE
+   models' shapes, bf16, dh 128: llama4-scout's GQA rep 5 (40 / 8 heads)
+   prefill of a 9,216-token row and three left-padded short rows in its
+   chunked layer (chunk 8,192) and its NoPE full layer, and a decode step
+   at slot 9,216; kimi-k2's rep 8 (64 / 8 heads) 5,120-token prefill and
+   a decode step; each against its plain version by the stated rule, two
+   calls bitwise equal, the prefills on the wgmma kernel, with the plan,
+   the kernel's, the plain version's and SDPA's times and the bound;
+   (b) llama4-scout at full width and 4 layers (one group of its 3:1
+   pattern), (c) kimi-k2 at full width and 1 layer, bf16, random weights
+   from the port's threefry drawn in slices (the init timed): from launch
+   counts at 0, launch.serve's mix and a batch packing the long prompt
+   with three short ones on BatchServer, with the parameter bytes, peak
+   memory, prefill seconds, decode ms a step, tokens/s and the
+   flash_attention launches by kernel (wgmma among them); (d) 7c's
+   teacher-forced check of each batch, with every layer's routing
+   recorded in the kernel run and in the plain run (whose rows attending
+   nothing are zeroed as the kernel's are, since under MoE pad tokens
+   take capacity): a token's ordered top-k may change only where the
+   plain logit gap at the first position they part is within twice the
+   bound its measured input difference allows, each layer's capacity and
+   drops printed, and
+   logits within (layers + 1) bf16 ulps on the rows whose routing agreed
+   in every layer; (e) llama4 at full width, 1 layer, over two gloo ranks
+   sharing the card with a ("model",) axis of 2 (8 experts a rank): a
+   4 x 1,024-token prefill forward held to the one-process forward whose
+   MoE dispatches the same token shards, with the all-to-all's bytes and
+   seconds; phase 12's launches are added to the kernel table's
+   flash_attention rows;
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -1384,67 +1414,27 @@ def full_fit_streamed(dev, spec, lshp, rep_info, sharded) -> tuple:
 
 def check_fault_tolerance(dev, spec, cfg, clean, full_spec, full_lshp,
                           rep) -> dict:
-    """Phase 4d: the streamed fit at n = 20,000 under transient source
-    faults, forced scratch corruption and a killed reader, each
-    bit-identical to the clean run with its counter > 0; crash at round 3
-    and resume on the streamed engine, and on the replicated engine at
+    """Phase 4d: crash at round 3 and resume on the streamed engine at
+    n = 20,000 against 3b's clean run, and on the replicated engine at
     full width against phase 4's labels; run_palid's sharded, faulty
-    streamed and checkpoint / resume runs. Returns the launches of the
-    runs at n = 20,000 and those of the full-width crash and resume, each
-    read on its own (run_palid's toy fits are in neither)."""
+    streamed (transient source faults, fault parity) and checkpoint /
+    resume runs. The streamed fault arms at n = 20,000 (transient faults,
+    forced scratch corruption, a killed reader) are the CPU tests'
+    (tests/test_torch_resilience.py, test_torch_pipeline.py): their
+    ~40 s went to phase 12. Returns the launches of the run at n = 20,000
+    and those of the full-width crash and resume, each read on its own
+    (run_palid's toy fits are in neither)."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
     from repro_torch.core.engine import fit, make_engine
-    from repro_torch.core.resilience import (FaultySource, PipelineFaults,
-                                             ResilientSource, RetryPolicy)
-    from repro_torch.core.source import InMemorySource
     from repro_torch.kernels import ops
     from repro_torch.launch import full_width, run_palid
     from repro_torch.random import PRNGKey
-    fast = RetryPolicy(base_delay=0.001, max_delay=0.05)
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="alid_faults_") as tmp:
         stream = EngineSpec(engine="streamed", n_shards=N_SHARDS,
                             scratch_dir=tmp)
-        arms = {
-            "transient": (stream, None, 0.1),
-            "corrupt": (stream._replace(cache_bytes=0),
-                        dict(corrupt_rate=0.3, seed=2), 0.0),
-            "kill-reader": (stream._replace(cache_bytes=0),
-                            dict(kill_reader_at=3), 0.0),
-        }
-        counter = {"transient": "read_retries", "corrupt": "tier_fallbacks",
-                   "kill-reader": "reader_deaths"}
-        # the fallbacks each arm may take: its own, and no other
-        allowed = {"transient": {"read_retries"},
-                   "corrupt": {"corruptions", "tier_fallbacks"},
-                   "kill-reader": {"reader_deaths", "shards_inline"}}
-        for name, (espec, faults, rate) in arms.items():
-            engine = make_engine(espec, device=dev)
-            if faults is not None:
-                engine.faults = PipelineFaults(**faults)
-            faulty = FaultySource(InMemorySource(spec.points), rate=rate,
-                                  seed=1)
-            src = ResilientSource(faulty, fast)
-            t0 = time.perf_counter()
-            res = fit(src, cfg._replace(spec=espec), PRNGKey(0),
-                      engine=engine, retry_policy=fast)
-            wall = time.perf_counter() - t0
-            stats = engine.stats.snapshot()
-            fell = engine.stats.fallbacks(prefetched=espec.prefetch_depth > 0)
-            engine.close()
-            same = (np.array_equal(res.labels, clean.labels)
-                    and res.n_rounds == clean.n_rounds
-                    and np.array_equal(res.densities, clean.densities))
-            print(f"[faults] {name}: {wall:.2f}s bit-identical={same} "
-                  f"injected={faulty.injected} source_retries={src.retries} "
-                  f"{counter[name]}={stats[counter[name]]} fallbacks={fell}")
-            need(same, f"4d: the {name} fit differs from the clean run")
-            need(stats[counter[name]] > 0, f"4d: {counter[name]} is 0")
-            need(set(fell) <= allowed[name], f"4d: the {name} fit took "
-                 f"fallbacks other than its own: {fell}")
-
         ckpt = str(Path(tmp) / "stream_ckpt")
         scfg = cfg._replace(spec=stream)
         try:
@@ -4124,9 +4114,10 @@ def check_analysis(dev) -> dict:
 def check_golden(dev, fits_3b) -> dict:
     """11(b): the JAX package's golden outputs (tests/golden_torch) on the
     card: the ops through the kernels, the small fit + predict through
-    them, and the fit at phase 3b's data on the replicated, sharded (8
-    shards), streamed (default pipeline) and mesh (world size 1, NCCL)
-    engines. Returns the phase's launches."""
+    them, and the fits at phase 3b's data (fit_parity) and at its shape
+    on data where every LID converges (fit_converged) on the replicated,
+    sharded (8 shards), streamed (default pipeline) and mesh (world size
+    1, NCCL) engines. Returns the phase's launches."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
@@ -4147,33 +4138,43 @@ def check_golden(dev, fits_3b) -> dict:
           f"{'hold' if not problems else problems}")
     need(not problems, f"11b: fit_small differs from the JAX package's: "
          f"{problems}")
-    _, _, want = golden.fit_data("fit_parity")
     fits = {}
     with tempfile.TemporaryDirectory(prefix="alid_golden_") as tmp:
-        for name, espec in (
-                ("replicated", EngineSpec()),
-                ("sharded", EngineSpec(engine="sharded", n_shards=N_SHARDS)),
-                ("streamed", EngineSpec(engine="streamed",
-                                        n_shards=N_SHARDS,
-                                        scratch_dir=tmp)),
-                ("mesh", EngineSpec(engine="mesh"))):
-            t1 = time.perf_counter()
-            with (nccl_world1(dev) if name == "mesh"
-                  else contextlib.nullcontext()):
-                engine = make_engine(espec, device=dev)
-                problems, res = golden.check_fit(
-                    "fit_parity", espec, device=dev, engine=engine)
-                torch.cuda.synchronize()
-                if name == "streamed":
-                    need_clean(engine, "11b streamed")
-                engine.close()
-            fits[name] = res
-            print(f"[golden] fit_parity {name}: {time.perf_counter() - t1:.2f}"
-                  f"s clusters {res.n_clusters} rounds {res.n_rounds} k "
-                  f"{res.k!r}; against the JAX package (clusters "
-                  f"{want['densities'].size}, rounds "
-                  f"{int(want['n_rounds'])}, k {float(want['k'])!r}): "
-                  f"{'holds' if not problems else problems}")
+        for fixture in ("fit_parity", "fit_converged"):
+            _, _, want = golden.fit_data(fixture)
+            for name, espec in (
+                    ("replicated", EngineSpec()),
+                    ("sharded", EngineSpec(engine="sharded",
+                                           n_shards=N_SHARDS)),
+                    ("streamed", EngineSpec(engine="streamed",
+                                            n_shards=N_SHARDS,
+                                            scratch_dir=tmp)),
+                    ("mesh", EngineSpec(engine="mesh"))):
+                t1 = time.perf_counter()
+                with (nccl_world1(dev) if name == "mesh"
+                      else contextlib.nullcontext()):
+                    engine = make_engine(espec, device=dev)
+                    problems, res = golden.check_fit(
+                        fixture, espec, device=dev, engine=engine)
+                    torch.cuda.synchronize()
+                    if name == "streamed":
+                        need_clean(engine, f"11b {fixture} streamed")
+                    engine.close()
+                print(f"[golden] {fixture} {name}: "
+                      f"{time.perf_counter() - t1:.2f}s clusters "
+                      f"{res.n_clusters} rounds {res.n_rounds} k {res.k!r};"
+                      f" against the JAX package (clusters "
+                      f"{want['densities'].size}, rounds "
+                      f"{int(want['n_rounds'])}, k {float(want['k'])!r}): "
+                      f"{'holds' if not problems else problems}")
+                if fixture == "fit_parity":
+                    fits[name] = res
+                    continue
+                # every LID of the reference converges here (ROADMAP C4):
+                # each engine is held to the JAX package in full
+                need(not problems, f"11b: fit_converged on {name} differs "
+                     f"from the JAX package's: {problems}")
+    _, _, want = golden.fit_data("fit_parity")
     # the JAX package's fit at this data is not reproduced (ROADMAP C4):
     # the port's engines must agree with each other and with phase 3b,
     # and with the reference's round count
@@ -4191,6 +4192,615 @@ def check_golden(dev, fits_3b) -> dict:
     for name in FIT_KERNELS + ("assign",):
         need(launches[name] > 0, f"11b: kernel {name} was never launched")
     return launches
+
+
+
+# ------------------------------------------------------------ MoE serving --
+MOE_ARCHS = ("llama4-scout-17b-16e", "kimi-k2-1t-a32b")
+# depth cut to what one card holds: llama4 one group of its 3:1 pattern
+# (chunked and NoPE layers both), kimi one layer; width never cut
+MOE_LAYERS = {"llama4-scout-17b-16e": 4, "kimi-k2-1t-a32b": 1}
+# the packed batch's long prompt: multiples of the plain version's q blocks
+# (kernels/ref.py), llama4's past its chunk of 8,192
+MOE_LONG = {"llama4-scout-17b-16e": 9216, "kimi-k2-1t-a32b": 5120}
+MOE_MESH_TOKENS = (4, 1024)
+# 12d: per batch, the steps whose plain top-2 gap must clear twice the
+# step's kernel-plain difference among the rows compared
+MOE_MIN_CLEAR_STEPS = 8
+
+
+def moe_config(arch: str, n_layers: int | None = None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).CONFIG
+    n = MOE_LAYERS[arch] if n_layers is None else n_layers
+    if n % len(cfg.pattern):
+        cfg = dataclasses.replace(cfg, pattern=cfg.pattern[:1])
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def moe_flash_shapes():
+    """12a's cases: (name, B, H, Hkv, Sq, Sk, dh, q_offsets, kv_start, mask
+    keywords, dtype, q as the model's view): each model's packed batch
+    (its long row and three left-padded short rows), the prefill and a
+    decode step at the long prompt's slot, llama4's chunked layer and its
+    NoPE full layer."""
+    from repro_torch.models.transformer import _attn_kwargs
+    out = []
+    for arch in MOE_ARCHS:
+        cfg = moe_config(arch)
+        long = MOE_LONG[arch]
+        sk = long + MAX_NEW + 1
+        ks = [0] + [long - n for n in SHORT_PROMPTS]
+        short = arch.split("-")[0]
+        for kind in dict.fromkeys(cfg.pattern):
+            kw = _attn_kwargs(cfg, kind)
+            shape = (4, cfg.n_heads, cfg.n_kv_heads)
+            tag = f"{short} {kind} rep {cfg.n_heads // cfg.n_kv_heads}"
+            out += [(f"{tag} prefill", *shape, long, sk, cfg.head_dim, [0],
+                     ks, kw, cfg.dtype, True),
+                    (f"{tag} decode", *shape, 1, sk, cfg.head_dim, [long],
+                     ks, kw, cfg.dtype, True)]
+    return out
+
+
+def device_inputs(dev, b, h, hkv, sq, sk, dh, dtype, seed):
+    """q as the model's (B, S, H, dh) projection's transposed view, k, v:
+    standard normal draws made on the device from `seed` (12a's 9,216-row
+    slabs take seconds to draw on the host)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+    return (t((b, sq, h, dh)).transpose(1, 2), t((b, hkv, sk, dh)),
+            t((b, hkv, sk, dh)))
+
+
+def sdpa_expanded(q, k, v, mask):
+    """SDPA with the same boolean mask on kv repeated to every head, on
+    the memory-efficient backend (no logits tensor): a yardstick the port
+    never calls."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rep = q.shape[1] // k.shape[1]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+            attn_mask=mask[:, None])
+
+
+def check_moe_attention(dev, out) -> None:
+    """12a: the attention kernel against its plain version at the MoE
+    models' shapes (GQA rep 5 and 8 at dh 128, llama4's chunk of 8,192 and
+    NoPE layer), by the stated rule, two calls bitwise equal; the bf16
+    prefills on the wgmma kernel; each case timed with its bound, the
+    plain version and SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import compare_with_plain, \
+        flash_attention_cuda, kernel_plan, wgmma_plan
+    cases = {}
+    for seed, (name, b, h, hkv, sq, sk, dh, offs, ks, kw, dt, _) in \
+            enumerate(moe_flash_shapes(), start=100):
+        off = offs[0]
+        mask_kw = {x: kw[x] for x in ("causal", "window", "chunk")
+                   if kw.get(x) is not None}
+        plan = kernel_plan(b, h, hkv, sq, sk, dh, off, **mask_kw,
+                           bf16=dt == torch.bfloat16)
+        desc = (f"wgmma {wgmma_plan(dh, h // hkv, sq)}"
+                if plan.kernel == "wgmma" else
+                f"split n_split={plan.n_split} from slot {plan.split_lo}, "
+                f"{plan.split_len} slots a chunk" if plan.kernel == "split"
+                else plan.kernel)
+        if sq > 1:
+            need(plan.kernel == "wgmma", f"12a {name}: the bf16 prefill "
+                 f"plans {plan.kernel}, not the wgmma kernel")
+        q, k, v = device_inputs(dev, b, h, hkv, sq, sk, dh, dt, seed)
+        kv_start = torch.tensor(ks, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return flash_attention_cuda(q, k, v, off, kv_start=kv_start,
+                                        **kw)
+
+        def plain():
+            return ref.attention_ref(q, k, v, q_offset=off,
+                                     kv_start=kv_start, **kw)
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        need(torch.equal(got, again), f"12a {name}: two calls differ")
+        mask = ref.attention_mask(sq, sk, off, kv_start, device=dev,
+                                  **mask_kw)
+        rows = mask.any(-1)
+        res = compare_with_plain(got, want, rows)
+        print(f"[moe-flash] {name}: B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
+              f"dh={dh} q_offset={off} kv_start={ks} {kw} q a view; plan: "
+              f"{desc}; two calls bitwise equal; compared rows "
+              f"{int(rows.sum())} of {b * sq}, outside the rule "
+              f"{res['bad']}, max_abs_err={res['max_abs_err']:.3e}, "
+              f"nonzero on rows attending nothing {res['masked_nonzero']}")
+        need(res["bad"] == 0, f"12a {name}: {res['bad']} entries differ "
+             "from the plain version beyond the rule")
+        need(res["masked_nonzero"] == 0, f"12a {name}: rows that attend "
+             "nothing are not 0")
+        pairs = int(mask.sum()) * h
+        slots = int(mask.any(1).sum())
+        b_ms, b_by = bound(q.element_size() * (2 * b * h * sq * dh
+                                               + 2 * hkv * slots * dh),
+                           4 * dh * pairs, BF16_FLOP_PER_S)
+        runs = 5 if sq > 1 else TIMED_RUNS
+        t = dict(ms=graph_ms(kernel, runs=runs), call_ms=call_ms(kernel),
+                 plain_ms=graph_ms(plain, runs=1 if sq > 1 else runs,
+                                   replays=3),
+                 plain_in_graph=True, max_abs_err=res["max_abs_err"],
+                 bound_ms=b_ms, bound_by=b_by, pairs=pairs, plan=desc)
+        try:
+            lib = sdpa_expanded(q, k, v, mask)
+            lib_note = (f"its max_abs_err "
+                        f"{compare_with_plain(lib, want, rows)['max_abs_err']:.3e}")
+            t["library_ms"] = graph_ms(
+                lambda: sdpa_expanded(q, k, v, mask), runs=runs)
+            del lib
+        except RuntimeError as exc:   # the yardstick only: no port path
+            t["library_ms"] = None
+            lib_note = f"not run: {str(exc).splitlines()[0][:120]}"
+            torch.cuda.empty_cache()
+        cases[name] = t
+        lib_ms = ("none" if t["library_ms"] is None
+                  else f"{t['library_ms']:.4f}")
+        print(f"[moe-flash] {name}: {time_line(t)} bound_ms={b_ms:.4f} "
+              f"({b_by}) library_ms={lib_ms} (SDPA, memory-efficient "
+              f"backend, kv repeated to {h} heads, same mask; {lib_note});"
+              f" {t['ms'] / b_ms:.2f}x the bound")
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    out["flash_attention"]["moe"] = cases
+
+
+def moe_param_check(cfg, params) -> int:
+    """The weights are the configuration's parameters: bf16 but the f32
+    norms and routers. Returns their bytes."""
+    from repro_torch.models import transformer as lm_m
+    w_bytes = lm_m.param_bytes(params)
+    n_f32 = ((2 * cfg.n_layers + 1) * cfg.d_model
+             + cfg.n_layers * cfg.d_model * cfg.moe.n_experts)
+    need(w_bytes == 2 * (cfg.param_count() - n_f32) + 4 * n_f32,
+         f"{cfg.name}: the weights are not the configuration's parameters")
+    return w_bytes
+
+
+def moe_init_timed(dev, cfg, experts=None):
+    from repro_torch.models import transformer as lm_m
+    from repro_torch.random import PRNGKey
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm_m.init_params(PRNGKey(0), cfg, device=dev, experts=experts)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def moe_capacity_line(log, cfg) -> str:
+    return "; ".join(
+        f"layer {i % cfg.n_layers}: capacity {r['capacity']}, dropped "
+        f"{r['dropped']} of {r['eidx'].numel()}"
+        for i, r in enumerate(log[:cfg.n_layers]))
+
+
+def serve_moe(dev, arch: str):
+    """12b / 12c: one MoE model at full width (depth MOE_LAYERS) on
+    BatchServer, from launch counts at 0: launch.serve's own mix, then a
+    batch packing the long prompt with three short ones."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import BatchServer, ServeConfig
+    cfg = moe_config(arch)
+    params, init_s = moe_init_timed(dev, cfg)
+    w_bytes = moe_param_check(cfg, params)
+    e = cfg.moe
+    full = get_arch(arch).CONFIG
+    print(f"[moe] {arch} CONFIG at {cfg.n_layers} of {full.n_layers} "
+          f"layers ({cfg.pattern}): d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, {e.n_experts}"
+          f" experts top-{e.top_k} ({e.router}) x d_ff {e.d_ff} + "
+          f"{e.n_shared} shared, vocab {cfg.vocab}, {cfg.dtype}; "
+          f"{cfg.param_count()} parameters, {w_bytes} bytes; the sliced "
+          f"init on the card {init_s:.2f}s")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mix = serve_cli.run(params, cfg, requests=MIX_REQUESTS, max_new=MAX_NEW,
+                        slots=MIX_SLOTS, device=dev)
+    need(mix["tokens"] == MIX_REQUESTS * MAX_NEW and all(
+        r.shape == (MAX_NEW,) and ((r >= 0) & (r < cfg.vocab)).all()
+        for r in mix["results"].values()), f"12 {arch}: launch.serve mix")
+    print(f"[moe] {arch} launch.serve mix: {mix['tokens']} tokens, "
+          f"{mix['tokens'] / mix['seconds']:.1f} tok/s (host clock); "
+          f"batches {mix['batch_stats']}")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (MOE_LONG[arch], *SHORT_PROMPTS)]
+    srv = BatchServer(params, cfg, batch_slots=4,
+                      scfg=ServeConfig(max_new_tokens=MAX_NEW), device=dev)
+    ids = [srv.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    paths = ops.path_counts()["flash_attention"]
+    st = srv.batch_stats[0]
+    gen = np.stack([res[i] for i in ids])
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    print(f"[moe] {arch} packed batch (prompts {[len(p) for p in prompts]},"
+          f" {MAX_NEW} new tokens each, greedy): wall {wall:.3f}s, "
+          f"{gen.size / wall:.1f} tok/s, prefill {st['prefill_s']:.4f}s, "
+          f"decode {step_ms:.3f} ms/step over {st['decode_steps']} steps "
+          f"(host clock, each ending in a synchronise); "
+          f"max_memory_allocated={peak} (weights {w_bytes}); launches="
+          f"{counts}; flash_attention launches by kernel {paths}")
+    need(gen.shape == (4, MAX_NEW) and ((gen >= 0) & (gen < cfg.vocab)).all(),
+         f"12 {arch}: packed batch output")
+    need(counts["flash_attention"] > 0, f"12 {arch}: serving never launched "
+         "the flash_attention kernel")
+    need(paths["wgmma"] > 0, f"12 {arch}: the prefill never launched the "
+         "wgmma kernel")
+    counts = {"flash_attention": counts["flash_attention"] - paths["wgmma"],
+              "flash_attention_wgmma": paths["wgmma"]}
+    summary = dict(params_bytes=w_bytes, peak=peak, init_s=init_s,
+                   prefill_s=st["prefill_s"], decode_ms=step_ms,
+                   tok_s=gen.size / wall, launches=counts)
+    mix_served = [mix["results"][i] for i in mix["ids"]]
+    return cfg, params, prompts, gen, mix_served, summary
+
+
+def moe_routing_diff(params, cfg, klog, plog):
+    """The routing of the kernel run against the plain run, call by call
+    and layer by layer: every token whose ordered top-k or kept entries
+    differ. Where a token's top-k lists first differ at position j, the
+    plain run's expert a there and the kernel's b satisfy l(a) >= l(b) in
+    the plain logits and the reverse in the kernel's, so the plain gap
+    between its j-th and (j+1)-th logit is at most |d l_a| + |d l_b|; the
+    router's product bounds each change by ||dx||_2 max_e ||W_r[:, e]||_2
+    (dx the token's measured MoE-input difference), plus the f32
+    product's rounding, taken as 2**-20 of the token's largest |logit|.
+    Each flip must lie within twice that. Returns (flips, keep changes
+    without a flip, rows rerouted per call, worst flip (gap, bound)),
+    raising need() on a flip outside the rule."""
+    n_pos = cfg.n_layers
+    flips, keeps, worst = [], [], (0.0, 0.0)
+    rerouted = []
+    for j, (kr, pr) in enumerate(zip(klog, plog)):
+        layer = j % n_pos
+        g, i = divmod(layer, len(cfg.pattern))
+        k = cfg.moe.top_k
+        ke, pe = kr["eidx"], pr["eidx"]
+        kx, px = kr["x"].float(), pr["x"].float()
+        flip = (ke != pe).any(-1)
+        kept = (kr["keep"] != pr["keep"]).view(-1, k).any(-1)
+        moved = flip | kept
+        rerouted.append(moved)
+        if bool(flip.any()):
+            w = params["blocks"][f"layer{i}"]["moe"]["router"][g].float()
+            logits = px[flip] @ w
+            top = logits.sort(-1, descending=True).values
+            first = (ke[flip] != pe[flip]).int().argmax(-1, keepdim=True)
+            gap = (top.gather(1, first) - top.gather(1, first + 1))[:, 0]
+            lim = 2 * ((kx[flip] - px[flip]).norm(dim=-1)
+                       * w.norm(dim=0).max()
+                       + 2.0 ** -20 * logits.abs().amax(-1))
+            need(bool((gap <= lim).all()), f"12d: layer {layer} call "
+                 f"{j // n_pos}: {int((gap > lim).sum())} routing flips "
+                 "where the plain run's gap exceeds the bound")
+            flips.append((j // n_pos, layer, int(flip.sum()),
+                          float(gap.max()), float(lim.max())))
+            if float(gap.max()) > worst[0]:
+                worst = (float(gap.max()), float(lim.max()))
+        if bool((kept & ~flip).any()):
+            keeps.append((j // n_pos, layer, int((kept & ~flip).sum())))
+    return flips, keeps, rerouted, worst
+
+
+@contextlib.contextmanager
+def plain_rows_attending_nothing_zero():
+    """The plain attention with the rows that attend no key written 0, as
+    the kernel writes them (the plain version writes the mean of V there:
+    ROADMAP C's accepted divergence). Those rows are a packed batch's pad
+    slots; in a MoE layer the pads are routed and take capacity, so their
+    values decide which real tokens an expert drops, and the kernel and
+    plain runs are compared on equal pads."""
+    from unittest import mock
+
+    from repro_torch.kernels import ref
+    plain = ref.attention_ref
+
+    def zeroed(q, k, v, *, causal=True, window=None, chunk=None,
+               q_offset=0, kv_start=None, **kw):
+        out = plain(q, k, v, causal=causal, window=window, chunk=chunk,
+                    q_offset=q_offset, kv_start=kv_start, **kw)
+        mask = ref.attention_mask(q.shape[2], k.shape[2], q_offset, kv_start,
+                                  causal=causal, window=window, chunk=chunk,
+                                  device=q.device)
+        rows = mask.any(-1).expand(q.shape[0], q.shape[2])
+        return out * rows[:, None, :, None].to(out.dtype)
+    with mock.patch.object(ref, "attention_ref", zeroed):
+        yield
+
+
+def teacher_forced_moe(dev, cfg, params, name, toks, lens, gen) -> dict:
+    """12d for one batch: 7c's check (the served tokens fed back through
+    the model with the kernel and with the plain attention, whose rows
+    attending nothing are zeroed as the kernel's are:
+    `plain_rows_attending_nothing_zero`) with every layer's routing
+    recorded in both runs: flips must obey `moe_routing_diff`'s rule, and
+    logits are compared only on rows whose every token kept its routing
+    in every layer (their prompt tokens and their decode steps up to each
+    step)."""
+    from repro_torch.models import moe as moe_m
+    from repro_torch.models import transformer as lm_m
+    b, p = toks.shape
+    toks = torch.as_tensor(toks, device=dev).long()
+    pad = torch.as_tensor(p - lens, dtype=torch.int32, device=dev)
+    g = torch.as_tensor(gen, device=dev).long()
+    logits, logs = {}, {}
+    for backend in ("kernel", "ref"):
+        t0 = time.perf_counter()
+        with moe_m.recording(keep_inputs=True) as log, (
+                plain_rows_attending_nothing_zero() if backend == "ref"
+                else contextlib.nullcontext()):
+            cache = lm_m.init_cache(cfg, b, p + MAX_NEW + 1, device=dev)
+            step, cache = lm_m.prefill_with_cache(params, cfg, cache, toks,
+                                                  pad, backend=backend)
+            steps = [step]
+            for t in range(MAX_NEW - 1):
+                step, cache = lm_m.decode_step(params, cfg, cache,
+                                               g[:, t:t + 1], p + t, pad,
+                                               backend=backend)
+                steps.append(step)
+        logits[backend] = torch.stack(steps, dim=1)
+        logs[backend] = log
+        torch.cuda.synchronize()
+        print(f"[moe] teacher-forced {name} {backend}: "
+              f"{time.perf_counter() - t0:.2f}s")
+        del cache
+        torch.cuda.empty_cache()
+    kern, plain = logits["kernel"], logits["ref"]
+    need(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
+         f"12d {name}: logits are not finite")
+    same_tokens = torch.equal(kern.argmax(-1).cpu(), g.cpu())
+    need(same_tokens, f"12d {name}: the kernel's argmax is not the served "
+         "tokens")
+    flips, keeps, rerouted, worst = moe_routing_diff(
+        params, cfg, logs["kernel"], logs["ref"])
+    n_pos = cfg.n_layers
+    # a row stays clean up to step s if none of its tokens routed
+    # differently in any layer of the prefill (call 0) or of steps 1..s
+    clean = torch.ones((b, MAX_NEW), dtype=torch.bool, device=dev)
+    for j, moved in enumerate(rerouted):
+        call = j // n_pos
+        hit = moved.view(b, -1).any(-1)
+        clean[hit, call:] = False
+    delta = (kern - plain).abs()
+    top_ulp = 2.0 ** (math.floor(math.log2(float(plain.abs().max()))) - 7)
+    limit = (cfg.n_layers + 1) * top_ulp
+    diff = float(delta[clean].max()) if bool(clean.any()) else 0.0
+    top2 = plain.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    clear = clean & (gap > 2 * delta.amax(-1))
+    agree = kern.argmax(-1) == plain.argmax(-1)
+    caps = moe_capacity_line(logs["kernel"], cfg)
+    print(f"[moe] teacher-forced {name} ({b} rows x {MAX_NEW} steps x "
+          f"{cfg.vocab}): the served tokens reproduced {same_tokens}; "
+          f"prefill routing {caps}; top-k flips (call, layer, tokens, "
+          f"largest plain gap, largest bound) {flips or 'none'}, worst gap "
+          f"{worst[0]:.4e} against its bound {worst[1]:.4e}; kept-set "
+          f"changes without a flip (call, layer, tokens) {keeps or 'none'};"
+          f" steps compared {int(clean.sum())} of {clean.numel()}; max "
+          f"|kernel - plain| there {diff:.4e} = {diff / top_ulp:g} bf16 "
+          f"ulps at the logits' scale (limit {limit:.4e}: {cfg.n_layers} "
+          f"layers + 1); argmax equal on {int((agree & clear).sum())} of "
+          f"{int(clear.sum())} clear steps")
+    need(diff <= limit, f"12d {name}: kernel and plain logits differ by "
+         f"{diff} > {limit} where the routing agreed")
+    need(int(clear.sum()) >= MOE_MIN_CLEAR_STEPS, f"12d {name}: only "
+         f"{int(clear.sum())} compared steps have a clear top-2 gap")
+    need(bool(agree[clear].all()), f"12d {name}: kernel and plain argmax "
+         "differ where the routing agreed and the plain top-2 gap exceeds "
+         "twice the step's largest difference")
+    return dict(flips=len(flips), diff=diff, compared=int(clean.sum()))
+
+
+def teacher_force_moe(dev, cfg, params, prompts, gen, mix_served) -> None:
+    """12d: the packed batch and launch.serve's batches (each generated
+    again through the kernel, its real rows equal to what the server
+    returned)."""
+    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve.engine import pack_prompts
+    toks, lens = pack_prompts(prompts, len(prompts))
+    teacher_forced_moe(dev, cfg, params, f"{cfg.name} packed batch", toks,
+                       lens, gen)
+    for i, (toks, lens) in enumerate(mix_batches(cfg.vocab)):
+        full = generate(params, cfg, toks, ServeConfig(max_new_tokens=MAX_NEW),
+                        prompt_lens=lens, device=dev).cpu().numpy()
+        served = np.stack(mix_served[i * MIX_SLOTS:(i + 1) * MIX_SLOTS])
+        need(np.array_equal(full[:len(served)], served), f"12d mix batch "
+             f"{i}: generate again differs from what the server returned")
+        teacher_forced_moe(dev, cfg, params, f"{cfg.name} mix batch {i}",
+                           toks, lens, full)
+
+
+def _shard_dispatch(moe_m, shards):
+    """moe_apply with every token shard of the mesh run dispatched on its
+    own over all experts (no collectives): what the all-to-all computes,
+    in one process."""
+    def apply(params, cfg, x):
+        b, s, d = x.shape
+        out = torch.empty_like(x)
+        aux = []
+        for bsl, ssl in shards(b, s):
+            xs = x[bsl, ssl]
+            o, a = moe_m._dispatch_combine(params, cfg, xs.reshape(-1, d))
+            out[bsl, ssl] = o.view(xs.shape)
+            aux.append(a)
+        out = out + moe_m._shared_ffn(params, x)
+        return out, torch.stack(aux).mean()
+    return apply
+
+
+def moe_mesh_rank(rank, world, tokens, ref_path) -> dict:
+    """12e on one of two gloo ranks sharing the card: llama4 at full width,
+    one layer, this rank's 8 of the 16 experts; the prefill forward over a
+    ("model",) mesh of 2, its logits against the one-process reference."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.context import (collective_stats,
+                                                 mesh_context,
+                                                 reset_collective_stats,
+                                                 timed_collectives)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import model_context
+    from repro_torch.models import transformer as lm_m
+    same_flags()
+    dev = torch.device(DEVICE)
+    cfg = moe_config(MOE_ARCHS[0], 1)
+    per = cfg.moe.n_experts // world
+    params, init_s = moe_init_timed(dev, cfg, (rank * per, (rank + 1) * per))
+    toks = torch.as_tensor(tokens, device=dev).long()
+    ctx = model_context(dev.type)
+    ops.reset_launch_counts()
+    reset_collective_stats()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mesh_context(ctx), timed_collectives():
+        logits, aux = lm_m.forward(params, cfg, toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths = ops.path_counts()["flash_attention"]
+    launches = ops.launch_counts()
+    want = torch.load(ref_path, map_location=dev)
+    # the reference's logits from its final hidden state, through this
+    # rank's head (the same weights)
+    ref_logits = lm_m._head(params, cfg, want["hidden"])
+    return dict(backend=dist.get_backend(), init_s=init_s, wall=wall,
+                experts=params["blocks"]["layer0"]["moe"]["w_gate"].shape[1],
+                bitwise=torch.equal(logits, ref_logits),
+                diff=float((logits - ref_logits).abs().max()),
+                top=float(ref_logits.abs().max()), aux=float(aux),
+                aux_ref=float(want["aux"]), collectives=collective_stats(),
+                launches=launches, paths=paths,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def check_moe_mesh(dev) -> dict:
+    """12e: llama4 at full width, one layer, over two gloo ranks sharing
+    the card with a model axis of 2 (8 experts a rank): a 4 x 1,024-token
+    prefill forward. Every rank passes the whole batch; each takes half
+    the sequence, and the all-to-all carries the dispatch buffers to the
+    experts' owner and back. Held to the one-process forward whose MoE
+    dispatches each of those token shards on its own (the capacity is a
+    shard's, as in the JAX package's shard_map), bitwise where that holds,
+    else within (layers + 1) bf16 ulps at the logits' scale (the experts'
+    batched products then run at other shapes: 8 experts x 2 shards' slots
+    a rank against 16 x one shard's)."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_m
+    from repro_torch.models import transformer as lm_m
+    cfg = moe_config(MOE_ARCHS[0], 1)
+    tokens = np.random.default_rng(16).integers(
+        0, cfg.vocab, MOE_MESH_TOKENS).astype(np.int32)
+    b, s = MOE_MESH_TOKENS
+
+    def shards(bb, ss):
+        half = ss // 2
+        return [(slice(0, bb), slice(0, half)), (slice(0, bb),
+                                                 slice(half, ss))]
+    params, init_s = moe_init_timed(dev, cfg)
+    head, hidden = lm_m._head, []
+
+    def keep_hidden(p, c, x):
+        hidden.append(x)
+        return head(p, c, x)
+    toks = torch.as_tensor(tokens, device=dev).long()
+    with mock.patch.object(lm_m, "moe_apply", _shard_dispatch(
+            moe_m, shards)), mock.patch.object(lm_m, "_head", keep_hidden):
+        logits, aux = lm_m.forward(params, cfg, toks)
+    whole, _ = lm_m.forward(params, cfg, toks)
+    torch.cuda.synchronize()
+    whole_diff = float((whole - logits).abs().max())
+    del params, whole, logits
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="alid_moe_mesh_") as tmp:
+        ref_path = str(Path(tmp) / "ref.pt")
+        torch.save({"hidden": hidden[0], "aux": aux}, ref_path)
+        del hidden
+        t0 = time.perf_counter()
+        outs = run_ranks(moe_mesh_rank, 2, tokens, ref_path,
+                         devices=[DEVICE] * 2, backend="gloo", timeout=600)
+        spawn_wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        top_ulp = 2.0 ** (math.floor(math.log2(o["top"])) - 7)
+        limit = 2 * top_ulp
+        a2a = o["collectives"].get("all_to_all", {})
+        print(f"[moe-mesh] rank {r} ({o['backend']}): {o['experts']} "
+              f"experts, init {o['init_s']:.2f}s, forward {o['wall']:.3f}s "
+              f"(collectives timed, a sync around each), all_to_all "
+              f"{a2a.get('calls')} calls {a2a.get('bytes')} bytes "
+              f"{a2a.get('seconds', 0.0):.4f}s; collectives "
+              f"{o['collectives']}; logits bitwise the one-process shard "
+              f"dispatch's {o['bitwise']}, max |diff| {o['diff']:.4e} = "
+              f"{o['diff'] / top_ulp:g} bf16 ulps at the logits' scale "
+              f"(limit {limit:.4e}); aux {o['aux']!r} against "
+              f"{o['aux_ref']!r}; launches {o['launches']} (flash by kernel "
+              f"{o['paths']}); peak {o['peak']}")
+        need(o["backend"] == "gloo", f"12e: rank {r}'s group is not gloo")
+        need(a2a.get("calls", 0) == 2, f"12e: rank {r} made "
+             f"{a2a.get('calls', 0)} all_to_all calls, not 2")
+        need(o["diff"] <= limit, f"12e: rank {r}'s logits differ from the "
+             f"one-process forward by {o['diff']} > {limit}")
+        need(abs(o["aux"] - o["aux_ref"]) <= 1e-6 * max(1.0, o["aux_ref"]),
+             f"12e: rank {r}'s aux differs")
+        need(o["launches"]["flash_attention"] > 0, f"12e: rank {r} never "
+             "launched flash_attention")
+    print(f"[moe-mesh] two ranks spawned, run and joined in "
+          f"{spawn_wall:.2f}s; the one-process reference's init "
+          f"{init_s:.2f}s; the whole-batch forward (one capacity for all "
+          f"{b * s} tokens) differs from the shard dispatch by "
+          f"{whole_diff:.4e} (the capacity and drops differ)")
+    wgmma = sum(o["paths"]["wgmma"] for o in outs)
+    return {"flash_attention": sum(o["launches"]["flash_attention"]
+                                   for o in outs) - wgmma,
+            "flash_attention_wgmma": wgmma}
+
+
+def check_moe(dev, stats) -> dict:
+    """Phase 12: MoE serving. Returns the phase's flash_attention
+    launches (the serving runs (b), (c) and (e)'s forwards) by table
+    row."""
+    check_moe_attention(dev, stats)
+    stamp("phase 12a")
+    counts = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    summary = {}
+    for arch in MOE_ARCHS:
+        cfg, params, prompts, gen, mix_served, s = serve_moe(dev, arch)
+        for k2, v in s.pop("launches").items():
+            counts[k2] += v
+        summary[arch] = s
+        teacher_force_moe(dev, cfg, params, prompts, gen, mix_served)
+        del params, gen
+        torch.cuda.empty_cache()
+        stamp(f"phase 12 {arch}")
+    mesh = check_moe_mesh(dev)
+    stamp("phase 12e")
+    print(f"[moe] phase 12e launches (both ranks) {mesh}")
+    for k2, v in mesh.items():
+        counts[k2] += v
+    stats["flash_attention"]["moe"]["serving"] = summary
+    print(f"[moe] phase 12 launches {counts}; serving {summary}")
+    return counts
 
 
 def _leaves(tree):
@@ -4353,6 +4963,12 @@ def main() -> int:
         counts[name] += check_counts[name] + golden_counts[name]
     stamp("phase 11")
 
+    moe_counts = check_moe(dev, stats)
+    for name, n in moe_counts.items():
+        counts[name] += n
+    stats["flash_attention"]["moe"]["launches"] = moe_counts
+    stamp("phase 12")
+
     table = []
     for name, s in stats.items():
         table.append({
@@ -4368,7 +4984,8 @@ def main() -> int:
                                        "probe", "one_step_ms",
                                        "converged_ms", "general_ms",
                                        "general_bound_ms",
-                                       "general_bound_by", "gnn", "bf16")
+                                       "general_bound_by", "gnn", "bf16",
+                                       "moe")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,9 +1,8 @@
 """Architecture registry: the JAX package's ten assigned archs by id.
 
 `get_arch(id)` returns the config module (`CONFIG`, `SMOKE_CONFIG`) of an
-arch the port runs: the dense LMs, BST and the four GNNs. The MoE archs
-raise NotImplementedError naming the ROADMAP item they wait for. The
-recsys and GNN shape sets (`RECSYS_SHAPES`, `GNN_SHAPES`, `pad_to`) are
+arch the port runs: all ten, the dense and MoE LMs, BST and the four
+GNNs. The recsys and GNN shape sets (`RECSYS_SHAPES`, `GNN_SHAPES`, `pad_to`) are
 copied as data, and a GNN arch's cells (`Cell`, `gnn_input_specs`,
 `make_gnn_cell`) are ported: `input_specs()` gives `(shape, torch dtype)`
 pairs where the JAX package gives `ShapeDtypeStruct`s. The rest of the
@@ -36,6 +35,8 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "deepseek-7b": "deepseek_7b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "llama4-scout-17b-16e": "llama4_scout_17b_16e",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "gin-tu": "gin_tu",
     "graphcast": "graphcast",
     "meshgraphnet": "meshgraphnet",
@@ -43,10 +44,6 @@ _MODULES = {
     "bst": "bst",
 }
 
-_WAITING = {
-    "llama4-scout-17b-16e": "the MoE layers (ROADMAP A16)",
-    "kimi-k2-1t-a32b": "the MoE layers (ROADMAP A16)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +75,6 @@ RECSYS_SHAPES = {
 
 
 def get_arch(arch_id: str):
-    if arch_id in _WAITING:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: it waits for {_WAITING[arch_id]}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; expected one of "
                        f"{ARCH_IDS}")

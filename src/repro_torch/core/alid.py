@@ -9,11 +9,14 @@ is the lanes of every tensor, each lane with its own done mask, and each
 outer iteration runs only on the lanes still going. The peel-reduce driver
 lives in `repro_torch.core.engine`; `assign_labels` is the one assignment
 path of `Clustering.predict` and the serving layer (`repro_torch.serve`).
+`detect_clusters` and `detect_clusters_sharded` are the JAX package's
+deprecated shims over `engine.fit`.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -123,7 +126,13 @@ class ALIDConfig(NamedTuple):
 
     @property
     def backend(self) -> str:
+        """Kernel backend (EngineSpec.backend — one knob for every op)."""
         return self.spec.backend
+
+    @property
+    def dtype(self) -> str:
+        """Point storage dtype (EngineSpec.dtype): float32 | bfloat16."""
+        return self.spec.dtype
 
 
 class SeedResult(NamedTuple):
@@ -360,3 +369,37 @@ def _sample_seeds(active: torch.Tensor, bsizes: torch.Tensor,
     g = trandom.gumbel(rng, logw.shape, device=active.device)
     vals, seeds = top_k(logw + g, cfg.seeds_per_round)
     return seeds.to(torch.int32), vals > float("-inf"), any_eligible
+
+
+# --------------------------------------------------------------------------
+# Deprecated entry points — thin shims over repro_torch.core.engine.fit, as
+# the JAX package keeps them. New code sets ALIDConfig.spec and calls fit().
+# --------------------------------------------------------------------------
+
+def detect_clusters(points, cfg: ALIDConfig, rng, n_shards: int = 0,
+                    device="cuda") -> Clustering:
+    """Deprecated: use `repro_torch.core.engine.fit` with
+    `ALIDConfig.spec`. A replicated fit, or a sharded one on `n_shards`
+    shards when n_shards > 0; the rest of cfg.spec is replaced, as in the
+    JAX package."""
+    warnings.warn(
+        "detect_clusters is deprecated; use repro_torch.core.engine.fit "
+        "with ALIDConfig(spec=EngineSpec(engine='replicated'|'sharded', "
+        "...))", DeprecationWarning, stacklevel=2)
+    from repro_torch.core.engine import fit
+    spec = (EngineSpec(engine="sharded", n_shards=int(n_shards))
+            if n_shards > 0 else EngineSpec(engine="replicated"))
+    return fit(points, cfg._replace(spec=spec), rng, device=device)
+
+
+def detect_clusters_sharded(points, cfg: ALIDConfig, rng, n_shards: int = 8,
+                            device="cuda") -> Clustering:
+    """Deprecated: use `repro_torch.core.engine.fit` with
+    engine="sharded" (at least one shard)."""
+    warnings.warn(
+        "detect_clusters_sharded is deprecated; use "
+        "repro_torch.core.engine.fit with ALIDConfig(spec=EngineSpec("
+        "engine='sharded', n_shards=...))", DeprecationWarning, stacklevel=2)
+    from repro_torch.core.engine import fit
+    spec = EngineSpec(engine="sharded", n_shards=max(1, int(n_shards)))
+    return fit(points, cfg._replace(spec=spec), rng, device=device)

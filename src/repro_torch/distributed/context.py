@@ -16,6 +16,8 @@ the group in the same order, its pieces in rank order:
   reduce_scatter   sum, tiled along dim 0 (rank r keeps block r)
   broadcast        from the group rank that owns the tensor
   all_reduce_max   an elementwise MAX of a mask (bool in, bool out)
+  all_to_all       tiled along dim 0: block j of every rank to rank j,
+                   stacked in rank order
 
 The backend is the caller's (`init_process_group`): gloo or NCCL, CUDA or
 CPU tensors. Nothing here switches it or moves a tensor through the host
@@ -138,7 +140,8 @@ _TIMED = False
 def collective_stats() -> dict:
     """{op: {"calls", "bytes", "seconds"}} since the last reset; bytes are
     those this rank sends (all_gather / broadcast from the owner: its
-    tensor; reduce_scatter: its full input; all_reduce_max: its mask);
+    tensor; reduce_scatter: its full input; all_reduce_max: its mask;
+    all_to_all: its tensor, its own block included);
     seconds only of the calls made inside `timed_collectives()`."""
     return {k: dict(v) for k, v in _STATS.items()}
 
@@ -209,6 +212,25 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     _timed("reduce_scatter", src, _nbytes(src), lambda: (
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                    group=group)))
+    return out
+
+
+def all_to_all(t: torch.Tensor, group,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`t` (same shape on every rank, dim 0 divisible by the group size
+    m) cut along dim 0 into m blocks, block j sent to group rank j; the
+    result stacks the blocks received, rank i's at rows [i*n/m,
+    (i+1)*n/m): jax.lax.all_to_all(split_axis=0, concat_axis=0,
+    tiled=True). Written into `out` (contiguous, t's shape) if given."""
+    size = dist.get_world_size(group)
+    src = t.contiguous()
+    if src.shape[0] % size:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(src.shape)} does "
+                         f"not divide over {size} ranks")
+    if out is None:
+        out = torch.empty_like(src)
+    _timed("all_to_all", src, _nbytes(src), lambda: (
+        dist.all_to_all_single(out, src, group=group)))
     return out
 
 

@@ -71,6 +71,14 @@ def make_small_context(n_data: int = 4, n_model: int = 2,
     return MeshContext(mesh=mesh, data_axes=("data",), model_axis="model")
 
 
+def model_context(device_type: Optional[str] = None) -> MeshContext:
+    """The one-axis ("model",) mesh over the whole world, no data axis:
+    expert parallelism alone (`models.moe`)."""
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    mesh = _mesh((world,), ("model",), device_type)
+    return MeshContext(mesh=mesh, data_axes=(), model_axis="model")
+
+
 def data_context(device_type: Optional[str] = None) -> MeshContext:
     """The one-axis ("data",) mesh over the whole world: the mesh engine's
     default (model_axis is "data", as the JAX engine's default has it)."""

@@ -1,4 +1,4 @@
-"""Models of the JAX package's zoo ported so far: the dense decoder-only
-LMs (`transformer`), BST (`bst`, serving), the four GNNs (`gnn`, forward)
-and their building blocks (`layers`). The MoE models wait for ROADMAP
-A16."""
+"""Models of the JAX package's zoo: the decoder-only LMs (`transformer`),
+dense and MoE (`moe`, serving), BST (`bst`, serving), the four GNNs
+(`gnn`, forward) and their building blocks (`layers`). Training waits for
+ROADMAP A16."""

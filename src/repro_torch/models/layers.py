@@ -27,10 +27,34 @@ def he_init(key: torch.Tensor, shape, dtype, fan_in=None,
             * (2.0 / fan_in) ** 0.5).to(dtype)
 
 
+# elements a weight draw makes at a time: its int64 counters and f32 draws
+# stay a few GB however large the leaf (kimi-k2's expert leaf is 5.6e9)
+DRAW_CHUNK = 1 << 26
+
+
 def normal_init(key: torch.Tensor, shape, dtype, stddev: float = 0.02,
-                device="cpu") -> torch.Tensor:
-    """`jax.random.normal(key, shape) * stddev` in f32, cast to dtype."""
-    return (trandom.normal(key, tuple(shape), device) * stddev).to(dtype)
+                device="cpu", out: torch.Tensor | None = None,
+                start: int = 0) -> torch.Tensor:
+    """`jax.random.normal(key, shape) * stddev` in f32, cast to dtype,
+    drawn DRAW_CHUNK elements at a time into one tensor of dtype: `out`
+    (a contiguous tensor of `shape`, e.g. one group's slice of a stacked
+    leaf) or a new one on `device`. Each slice is the whole draw's
+    (`random.normal`'s `start`), so the bits do not depend on the
+    chunking. `start` places the leaf at that flat offset of a larger
+    draw: experts [a, b) of an (E, ...) leaf start at a * its row size."""
+    shape = tuple(shape)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if tuple(out.shape) != shape or not out.is_contiguous():
+        raise ValueError(f"normal_init: out {tuple(out.shape)} is not a "
+                         f"contiguous {shape}")
+    flat = out.view(-1)
+    n = flat.numel()
+    for lo in range(0, n, DRAW_CHUNK):
+        m = min(DRAW_CHUNK, n - lo)
+        flat[lo:lo + m] = (trandom.normal(key, (m,), out.device, start + lo)
+                           * stddev).to(dtype)
+    return out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,

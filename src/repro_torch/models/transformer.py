@@ -1,5 +1,6 @@
-"""Config-driven decoder-only transformer: the dense LMs of the JAX
-package's zoo (h2o-danube-1.8b, deepseek-7b, gemma2-27b), ported from its
+"""Config-driven decoder-only transformer: the LMs of the JAX package's
+zoo, dense (h2o-danube-1.8b, deepseek-7b, gemma2-27b) and MoE
+(llama4-scout-17b-16e, kimi-k2-1t-a32b: `models/moe.py`), ported from its
 `models/transformer.py` with the same parameter tree, cast points and
 cache layout.
 
@@ -14,8 +15,13 @@ What has no counterpart here: the JAX package's sharding constraints
 (identity without a mesh, so `training=True` computes what
 `training=False` does), its `remat` field and the layer-group `scan` (a
 Python loop over the groups; there is no backward pass to checkpoint),
-and `models/flags.py`, which only steers XLA's cost probe. MoE layers
-(llama4-scout, kimi-k2) are not ported yet (ROADMAP A16).
+and `models/flags.py`, which only steers XLA's cost probe.
+
+Weights are drawn in slices straight into their stacked leaves
+(`layers.normal_init`), so a leaf larger than the card's room for
+counters (kimi-k2's (384, 7,168, 2,048) experts) draws in bounded
+memory; `init_params(experts=(a, b))` draws an expert-parallel rank's
+share of every MoE layer.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch import random as trandom
 from repro_torch.core.alid import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,19 +53,13 @@ class LMConfig:
     chunk: int = 8192
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     embed_scale: bool = False            # gemma: scale embeddings by sqrt(d)
     post_norms: bool = False             # gemma2: post-attn/post-ffn RMSNorms
     dtype: Any = torch.bfloat16
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers (models/moe.py) are not ported "
-                "yet (ROADMAP A16)")
 
     @property
     def n_groups(self) -> int:
@@ -71,37 +72,62 @@ class LMConfig:
         d, h, kv, dh, f, v = (self.d_model, self.n_heads, self.n_kv_heads,
                               self.head_dim, self.d_ff, self.vocab)
         attn = d * h * dh + 2 * d * kv * dh + h * dh * d
-        ffn = 3 * d * f
+        if self.moe:
+            ffn = (3 * d * self.moe.d_ff * self.moe.n_experts
+                   + 3 * d * self.moe.d_ff * self.moe.n_shared
+                   + d * self.moe.n_experts)
+        else:
+            ffn = 3 * d * f
         norms = 2 * d + (2 * d if self.post_norms else 0)
         emb = v * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * (attn + ffn + norms) + emb + d
 
     def active_param_count(self) -> int:
-        """Every parameter is active in a dense model."""
-        return self.param_count()
+        """Parameters a token runs through: every one in a dense model; in
+        a MoE model attention, the top-k and shared experts and the
+        embeddings, as the JAX package counts them (no norms, no
+        router)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        attn = (d * self.n_heads * self.head_dim
+                + 2 * d * self.n_kv_heads * self.head_dim
+                + self.n_heads * self.head_dim * d)
+        ffn = 3 * d * self.moe.d_ff * (self.moe.top_k + self.moe.n_shared)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ffn) + emb
 
 
 # ----------------------------------------------------------------- params --
-def _layer_init(key, cfg: LMConfig, device) -> dict:
+def _layer_init(key, cfg: LMConfig, alloc, experts=None) -> dict:
+    """One layer's leaves, each drawn into `alloc(path, shape, dtype)`;
+    a MoE layer's `moe` in place of `ffn`, as in the JAX package."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dtype = cfg.dtype
     ks = trandom.split(key, 8)
 
-    def zeros():
-        return torch.zeros((d,), dtype=torch.float32, device=device)
+    def zeros(name):
+        return alloc((name,), (d,), torch.float32).zero_()
 
-    def normal(i, shape):
-        return L.normal_init(ks[i], shape, dtype, device=device)
+    def normal(i, path, shape):
+        return L.normal_init(ks[i], shape, dtype,
+                             out=alloc(path, shape, dtype))
 
-    p = {"ln_attn": zeros(), "wq": normal(0, (d, h * dh)),
-         "wk": normal(1, (d, kv * dh)), "wv": normal(2, (d, kv * dh)),
-         "wo": normal(3, (h * dh, d)), "ln_ffn": zeros()}
+    p = {"ln_attn": zeros("ln_attn"), "wq": normal(0, ("wq",), (d, h * dh)),
+         "wk": normal(1, ("wk",), (d, kv * dh)),
+         "wv": normal(2, ("wv",), (d, kv * dh)),
+         "wo": normal(3, ("wo",), (h * dh, d)), "ln_ffn": zeros("ln_ffn")}
     if cfg.post_norms:
-        p["ln_attn_post"] = zeros()
-        p["ln_ffn_post"] = zeros()
-    p["ffn"] = {"w_gate": normal(5, (d, cfg.d_ff)),
-                "w_up": normal(6, (d, cfg.d_ff)),
-                "w_down": normal(7, (cfg.d_ff, d))}
+        p["ln_attn_post"] = zeros("ln_attn_post")
+        p["ln_ffn_post"] = zeros("ln_ffn_post")
+    if cfg.moe is not None:
+        p["moe"] = moe_init(ks[4], cfg.moe, d, dtype, experts=experts,
+                            alloc=lambda path, shape, dt: alloc(
+                                ("moe", *path), shape, dt))
+    else:
+        p["ffn"] = {"w_gate": normal(5, ("ffn", "w_gate"), (d, cfg.d_ff)),
+                    "w_up": normal(6, ("ffn", "w_up"), (d, cfg.d_ff)),
+                    "w_down": normal(7, ("ffn", "w_down"), (cfg.d_ff, d))}
     return p
 
 
@@ -111,17 +137,27 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _stacked_tree(layer: dict, stacked: dict, path=()) -> dict:
+    """The layer tree's structure over the stacked leaves, keyed by path."""
+    return {k: (_stacked_tree(v, stacked, (*path, k)) if isinstance(v, dict)
+                else stacked[(*path, k)]) for k, v in layer.items()}
+
+
 def take_group(tree: dict, g: int) -> dict:
     """Layer group g of a stacked block tree (views, no copy)."""
     return _tree_map(lambda t: t[g], tree)
 
 
-def init_params(rng, cfg: LMConfig, device="cuda") -> dict:
+def init_params(rng, cfg: LMConfig, device="cuda",
+                experts: Optional[tuple[int, int]] = None) -> dict:
     """The JAX package's `init_params(rng, cfg)`, drawn with the port's
     threefry on `device`: the same keys, the same weights (normal draws
     within the ulps of `random.normal`, then rounded to cfg.dtype). Each
-    layer group is drawn from `fold_in(k_layers[i], g)` and written into
-    its slice of the stacked leaves, one group at a time."""
+    layer group is drawn from `fold_in(k_layers[i], g)` straight into its
+    slice of the stacked leaves, one group at a time, each leaf in slices
+    of `layers.DRAW_CHUNK` elements. `experts=(a, b)` keeps experts
+    [a, b) of every MoE layer (an expert-parallel rank's share, the same
+    bits as those rows of the whole draw)."""
     dev = resolve_device(device)
     dtype = cfg.dtype
     keys = trandom.split(rng, 2 + len(cfg.pattern))
@@ -137,15 +173,16 @@ def init_params(rng, cfg: LMConfig, device="cuda") -> dict:
                                           dtype, device=dev)
     blocks = {}
     for i in range(len(cfg.pattern)):
-        stacked = None
+        stacked: dict = {}
         for g in range(cfg.n_groups):
-            layer = _layer_init(trandom.fold_in(k_layers[i], g), cfg, dev)
-            if stacked is None:
-                stacked = _tree_map(lambda t: torch.empty(
-                    (cfg.n_groups, *t.shape), dtype=t.dtype, device=dev),
-                    layer)
-            _tree_map(lambda full, t: full[g].copy_(t), stacked, layer)
-        blocks[f"layer{i}"] = stacked
+            def alloc(path, shape, dt, g=g):
+                if path not in stacked:
+                    stacked[path] = torch.empty((cfg.n_groups, *shape),
+                                                dtype=dt, device=dev)
+                return stacked[path][g]
+            layer = _layer_init(trandom.fold_in(k_layers[i], g), cfg, alloc,
+                                experts)
+        blocks[f"layer{i}"] = _stacked_tree(layer, stacked)
     params["blocks"] = blocks
     return params
 
@@ -202,10 +239,13 @@ def _block(p, cfg: LMConfig, kind: str, x, positions, cache=None,
         a_out = L.rms_norm(a_out, p["ln_attn_post"], cfg.norm_eps)
     x = x + a_out
     f_in = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-    f_out = _dense_ffn(p["ffn"], f_in)
+    if cfg.moe is not None:
+        f_out, aux = moe_apply(p["moe"], cfg.moe, f_in)
+    else:
+        f_out, aux = _dense_ffn(p["ffn"], f_in), None
     if cfg.post_norms:
         f_out = L.rms_norm(f_out, p["ln_ffn_post"], cfg.norm_eps)
-    return x + f_out
+    return x + f_out, aux
 
 
 def _embed(params, cfg: LMConfig, tokens):
@@ -229,18 +269,22 @@ def _head(params, cfg: LMConfig, x):
 def forward(params: dict, cfg: LMConfig, tokens, training: bool = True,
             backend: str = "auto"):
     """Training/prefill forward. tokens: (B, S) -> (logits (B, S, V) f32,
-    aux 0.0: a dense model has no auxiliary loss). `training` changes
-    nothing here (see the module docstring)."""
+    aux f32: the MoE layers' load-balance losses summed over the layers
+    and divided by n_layers, as in the JAX package; 0.0 in a dense
+    model). `training` changes nothing here (see the module
+    docstring)."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         group = take_group(params["blocks"], g)
         for i, kind in enumerate(cfg.pattern):
-            x = _block(group[f"layer{i}"], cfg, kind, x, positions,
-                       backend=backend)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+            x, a = _block(group[f"layer{i}"], cfg, kind, x, positions,
+                          backend=backend)
+            if a is not None:
+                aux = aux + a
+    return _head(params, cfg, x), aux / cfg.n_layers
 
 
 # ----------------------------------------------------------------- decode --
@@ -269,7 +313,9 @@ def _cache_forward(params: dict, cfg: LMConfig, cache: dict, tokens,
     packed serving batch: row i's cache slots [0, pad[i]) hold pad tokens.
     RoPE positions shift to logical positions (slot - pad[i]) and attention
     masks those slots out (ops.flash_attention kv_start), so every row
-    computes what it would solo. None = unpadded."""
+    computes what it would solo. None = unpadded. A MoE layer routes every
+    position of the call, so a prefill's capacity is that of all B x T
+    tokens, pads included, as in the JAX package."""
     b, t = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = (pos + torch.arange(t, device=x.device))[None, :].expand(b, t)
@@ -281,9 +327,9 @@ def _cache_forward(params: dict, cfg: LMConfig, cache: dict, tokens,
         for i, kind in enumerate(cfg.pattern):
             layer_cache = {"k": cache[f"layer{i}"]["k"][g],
                            "v": cache[f"layer{i}"]["v"][g]}
-            x = _block(group[f"layer{i}"], cfg, kind, x, positions,
-                       cache=layer_cache, cache_pos=pos, kv_start=pad,
-                       backend=backend)
+            x, _ = _block(group[f"layer{i}"], cfg, kind, x, positions,
+                          cache=layer_cache, cache_pos=pos, kv_start=pad,
+                          backend=backend)
     if last_only:
         x = x[:, -1:]
     return _head(params, cfg, x), cache

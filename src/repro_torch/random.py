@@ -11,10 +11,12 @@ clicks and dense features (`randint`, `bernoulli`, `normal`). Labels and
 weights can only match the reference if the port draws the same numbers,
 so this module ports that generator instead of using `torch.Generator`.
 
-A key is an int64 tensor of shape (2,) holding two uint32 words. Torch has
-no uint32 shift on the CPU, so all 32-bit words live in int64 tensors whose
-values stay in [0, 2**32): every add is masked back to 32 bits, and the
-logical right shift of a non-negative int64 is the uint32 one.
+A key is an int64 tensor of shape (2,) holding two uint32 words. The
+cipher runs on int32 tensors holding the uint32 bits (torch has no uint32
+arithmetic on the CPU): an int32 add wraps as a uint32 add does, and the
+logical right shift is the arithmetic one masked to the bits shifted in.
+Half the bytes of int64 words, which matters where a draw is billions of
+elements (the MoE experts' weights).
 """
 
 from __future__ import annotations
@@ -39,73 +41,104 @@ def _words(key: torch.Tensor) -> tuple[int, int]:
     return int(k[0]), int(k[1])
 
 
+def _i32(v: int) -> int:
+    """The int32 holding the uint32 word v."""
+    v &= _M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _M32) | (x >> (32 - r))
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
 
 
 def _rounds(x0, x1, rot):
     for r in rot:
-        x0 = (x0 + x1) & _M32
+        x0 = x0 + x1
         x1 = x0 ^ _rotl(x1, r)
     return x0, x1
 
 
-def threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
+def _threefry32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
     """The Threefry-2x32 block cipher (20 rounds), as `jax._src.prng`
-    computes it, on int64 tensors holding uint32 words."""
+    computes it, on int32 tensors holding uint32 words."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
+    x0 = x0 + _i32(ks[0])
+    x1 = x1 + _i32(ks[1])
     for i in range(5):
         x0, x1 = _rounds(x0, x1, _ROT0 if i % 2 == 0 else _ROT1)
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+        x0 = x0 + _i32(ks[(i + 1) % 3])
+        x1 = x1 + _i32(ks[(i + 2) % 3] + i + 1)
     return x0, x1
 
 
-def _counts(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """`iota_2x32_shape`: the row-major flat index as (hi, lo) words."""
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words as int64 values in [0, 2**32)."""
+    return x.to(torch.int64) & _M32
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values (any) -> the int32 holding their low 32 bits."""
+    return (((x & _M32) + (1 << 31)) & _M32).sub_(1 << 31).to(torch.int32)
+
+
+def _counts(shape, device, start: int = 0) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """`iota_2x32_shape`: the row-major flat index as (hi, lo) int32
+    words, from `start` on: the counters of elements [start, start +
+    prod(shape)) of a larger draw. Past 2**32 elements the high word is
+    nonzero."""
     n = math.prod(shape)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    return lo >> 32, lo & _M32
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    return _to_i32(idx >> 32), _to_i32(idx)
 
 
-def _bits_pair(key, shape, device):
+def _bits_pair(key, shape, device, start: int = 0):
+    """The cipher's two int32 words for each element."""
     k1, k2 = _words(key)
-    hi, lo = _counts(shape, device)
-    return threefry2x32(k1, k2, hi, lo)
+    hi, lo = _counts(shape, device, start)
+    return _threefry32(k1, k2, hi, lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split` (fold-like, partitionable): (num, 2) keys."""
     b1, b2 = _bits_pair(key, (num,), key.device)
-    return torch.stack([b1, b2], dim=-1)
+    return torch.stack([_u32(b1), _u32(b2)], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """`jax.random.fold_in`: the cipher of `key` applied to the counter
     (0, data mod 2**32), as `jax._src.prng.threefry_fold_in` computes it."""
     k1, k2 = _words(key)
-    x0 = torch.zeros(1, dtype=torch.int64)
-    x1 = torch.tensor([int(data) & _M32], dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, x0, x1)
-    return torch.cat([b1, b2])
+    x0 = torch.zeros(1, dtype=torch.int32)
+    x1 = torch.tensor([_i32(int(data))], dtype=torch.int32)
+    b1, b2 = _threefry32(k1, k2, x0, x1)
+    return torch.cat([_u32(b1), _u32(b2)])
 
 
-def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
-    """32 random bits per element (int64 in [0, 2**32)), jax's
-    `_threefry_random_bits_partitionable` with bit_width=32."""
-    b1, b2 = _bits_pair(key, tuple(shape), device)
+def _bits32(key, shape, device, start: int = 0) -> torch.Tensor:
+    b1, b2 = _bits_pair(key, tuple(shape), device, start)
     return (b1 ^ b2).reshape(tuple(shape))
 
 
+def random_bits(key: torch.Tensor, shape, device="cpu",
+                start: int = 0) -> torch.Tensor:
+    """32 random bits per element (int64 in [0, 2**32)), jax's
+    `_threefry_random_bits_partitionable` with bit_width=32. With `start`,
+    elements [start, start + prod(shape)) of the row-major flat draw: the
+    partitionable threefry's counter is that index, so a slice of a draw
+    is a draw from an offset, bit for bit."""
+    return _u32(_bits32(key, shape, device, start))
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+            maxval: float = 1.0, device="cpu",
+            start: int = 0) -> torch.Tensor:
     """`jax.random.uniform` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled into [minval, maxval)."""
-    bits = random_bits(key, shape, device)
-    fbits = (bits >> 9) | 0x3F800000
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    exponent of 1.0, minus 1, scaled into [minval, maxval). `start` as in
+    `random_bits`."""
+    bits = _bits32(key, shape, device, start)
+    fbits = ((bits >> 9) & 0x7FFFFF) | 0x3F800000
+    floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
@@ -140,11 +173,12 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), out)
 
 
-def normal(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+def normal(key: torch.Tensor, shape, device="cpu",
+           start: int = 0) -> torch.Tensor:
     """`jax.random.normal` in float32: sqrt(2) * erf_inv(u) with u uniform
-    on [nextafter(-1, 0), 1)."""
+    on [nextafter(-1, 0), 1). `start` as in `random_bits`."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device)
+    u = uniform(key, shape, lo, 1.0, device, start)
     return torch.tensor(np.sqrt(2), dtype=torch.float32,
                         device=device) * erf_inv(u)
 

@@ -12,13 +12,21 @@ docstring; each file records the jax version and the seed):
   stored);
 - "fit_parity": a fit at chip_smoke.py phase 3b's data (200 blobs of 40 and
   12,000 noise points in d = 128; the points are made here from the seed
-  and held to the fixture's sha256).
+  and held to the fixture's sha256);
+- "fit_converged": a fit at phase 3b's shape and configuration on data
+  where every LID the reference runs converges within t_lid (blobs of
+  variance up to 1, no overlapping pairs; ROADMAP C4), points as for
+  fit_parity.
 
 The parity contract (ROADMAP "Parity contract"): integer and bool outputs
 equal (LSH keys, labels, ids, masks); f32 outputs within rtol 1e-6 of the
 reference (`RTOL`), non-finite entries equal; end to end, canonical labels
 and `n_rounds` equal, sorted densities within rtol 1e-6, and k within the
-rtol 1e-5 of ROADMAP C ("k differs by ~1e-6 relative"). Two ops are held
+rtol 1e-5 of ROADMAP C ("k differs by ~1e-6 relative"), unless the
+fixture's meta states its own `rtol` and `k_rtol`: fit_converged does,
+from an f64 witness of how far one f32 rounding in the distance
+expansion moves k at its tight blobs (tests/torch_golden_gen.py). Two ops
+are held
 to the rules the repo already states for them, since they sum in their own
 orders: `flash_attention` to rtol 1e-5 + atol 2e-6 on the plain version
 (tests/test_torch_attention.py) and, through the kernel, to the kernel's
@@ -49,7 +57,7 @@ ATTN_RTOL, ATTN_ATOL = 1e-5, 2e-6
 
 def load(name: str, directory=None) -> tuple[dict, dict]:
     """(arrays, meta) of fixture `name` ("ops", "fit_small",
-    "fit_parity")."""
+    "fit_parity", "fit_converged")."""
     path = Path(directory or GOLDEN_DIR) / f"{name}.npz"
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files if k != "meta"}
@@ -148,9 +156,11 @@ def check_ops(device="cuda", backend: str = "auto",
 
 
 # ----------------------------------------------------------------- fits ----
-def fit_problems(res, arrays: dict) -> list[str]:
+def fit_problems(res, arrays: dict, meta: dict) -> list[str]:
     """A port Clustering against a fixture's fit: canonical labels and
-    n_rounds equal, sorted densities within RTOL, k within K_RTOL."""
+    n_rounds equal, sorted densities within the meta's `rtol` and k within
+    its `k_rtol` (RTOL and K_RTOL where it states none)."""
+    rtol, k_rtol = meta.get("rtol", RTOL), meta.get("k_rtol", K_RTOL)
     from repro_torch.utils.metrics import canonical_labels
     out = []
     got = canonical_labels(np.asarray(res.labels))
@@ -164,11 +174,11 @@ def fit_problems(res, arrays: dict) -> list[str]:
         out.append(f"{dens.size} clusters, the reference "
                    f"{arrays['densities'].size}")
     else:
-        why = _float_problem(dens, arrays["densities"], RTOL)
+        why = _float_problem(dens, arrays["densities"], rtol)
         if why:
             out.append(f"densities: {why}")
     k, want_k = float(res.k), float(arrays["k"])
-    if abs(k - want_k) > K_RTOL * abs(want_k):
+    if abs(k - want_k) > k_rtol * abs(want_k):
         out.append(f"k {k!r} against {want_k!r}")
     return out
 
@@ -181,8 +191,8 @@ def _config(meta: dict):
 
 def fit_data(name: str, directory=None):
     """(points, config, arrays) of a fit fixture: "fit_small" stores its
-    points; "fit_parity"'s are made here from the seed and must match the
-    fixture's sha256."""
+    points; "fit_parity"'s and "fit_converged"'s are made here from the
+    seed and must match the fixture's sha256."""
     arrays, meta = load(name, directory)
     if "points" in arrays:
         points = arrays["points"]
@@ -210,7 +220,7 @@ def check_fit(name: str, spec=None, device="cuda", engine=None,
     cfg = cfg._replace(spec=spec or (engine.spec if engine is not None
                                      else EngineSpec()))
     res = fit(points, cfg, PRNGKey(0), engine=engine, device=device)
-    problems = fit_problems(res, arrays)
+    problems = fit_problems(res, arrays, load(name, directory)[1])
     if "predict" in arrays:
         pred = res.predict(arrays["queries"], backend=cfg.spec.backend,
                            device=device)

@@ -156,13 +156,6 @@ def test_gnn_configs_and_shapes_match_jax():
     assert get_arch("graphcast").CONFIG.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "kimi-k2-1t-a32b"])
-def test_moe_archs_still_raise(arch):
-    with pytest.raises(NotImplementedError,
-                       match=r"the MoE layers \(ROADMAP A16\)"):
-        get_arch(arch)
-
-
 # -------------------------------------------------------------- parameters --
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_match_jax(arch):

@@ -46,7 +46,7 @@ def test_committed_fixture_equals_a_fresh_run(name):
 
 def test_fixtures_stay_small():
     sizes = [p.stat().st_size for p in golden.GOLDEN_DIR.glob("*.npz")]
-    assert len(sizes) == 3 and sum(sizes) < 1 << 20
+    assert len(sizes) == 4 and sum(sizes) < 1 << 20
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from repro_torch.launch import full_matrix, run_palid
 from repro_torch.models import bst as bst_m
 from repro_torch.models import gnn as gnn_m
 from repro_torch.launch import serve as lm_serve
+from repro_torch.models.moe import moe_init
 from repro_torch.models.transformer import init_cache, init_params
 from repro_torch.random import PRNGKey
 from repro_torch.serve import BatchServer, ClusterServer, ClusterService, \
@@ -32,6 +33,7 @@ from repro_torch.serve import BatchServer, ClusterServer, ClusterService, \
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+MOE_ARCHS = ("llama4-scout-17b-16e", "kimi-k2-1t-a32b")
 
 
 def _port_files():
@@ -102,7 +104,8 @@ def test_entry_points_default_to_the_card():
     `examples/torch_serve_lm.py`, the full-matrix
     baselines (sea_detect, affinity_propagation, kmeans,
     spectral_clustering, mean_shift, full_matrix), LM serving
-    (init_params, init_cache, generate, BatchServer, launch.serve), BST
+    (init_params, init_cache, generate, BatchServer, launch.serve; the
+    MoE archs' init_params, moe_init and launch.serve --arch), BST
     (init_params, bst_batch), the GNNs (init_params, synth_graph,
     molecule_batch, synth_full_graph_batch) and the converters of JAX
     state (lm_params_from_numpy, bst_params_from_numpy,
@@ -114,6 +117,7 @@ def test_entry_points_default_to_the_card():
     report = check.run_checks(str(ROOT), passes=("contracts",))
     res = _tiny_clustering()
     lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
+    moe_lms = [get_arch(a).SMOKE_CONFIG for a in MOE_ARCHS]
     lm_params = init_params(PRNGKey(0), lm, device="cpu")
     bst = get_arch("bst").SMOKE_CONFIG
     gnn = get_arch("gin-tu").SMOKE_CONFIG
@@ -137,6 +141,11 @@ def test_entry_points_default_to_the_card():
         with ClusterServer() as server:
             assert server.device.type == "cuda"
         assert init_params(PRNGKey(0), lm)["embed"].device.type == "cuda"
+        for cfg in moe_lms:
+            moe = init_params(PRNGKey(0), cfg)["blocks"]["layer0"]["moe"]
+            assert moe["w_gate"].is_cuda and moe["router"].is_cuda
+            assert moe_init(PRNGKey(0), cfg.moe, 8, torch.float32)[
+                "w_up"].is_cuda
         assert BatchServer(lm_params, lm).device.type == "cuda"
         with pytest.raises(ValueError, match="params lie on cpu"):
             generate(lm_params, lm, np.zeros((1, 3), np.int32))
@@ -165,6 +174,10 @@ def test_entry_points_default_to_the_card():
              lambda: generate(lm_params, lm, np.zeros((1, 3), np.int32)),
              lambda: BatchServer(lm_params, lm),
              lambda: lm_serve.main([]),
+             *[lambda a=a: lm_serve.main(["--arch", a]) for a in MOE_ARCHS],
+             *[lambda c=c: init_params(PRNGKey(0), c) for c in moe_lms],
+             *[lambda c=c: moe_init(PRNGKey(0), c.moe, 8, torch.float32)
+               for c in moe_lms],
              lambda: bst_m.init_params(PRNGKey(0), bst),
              lambda: bst_batch(0, batch=2, seq_len=3, item_vocab=9,
                                cat_vocab=4),

@@ -206,20 +206,24 @@ def test_pattern_kinds_match_jax(kind):
 
 
 def test_moe_and_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        tm.LMConfig(name="moe", n_layers=1, d_model=8, n_heads=1,
-                    n_kv_heads=1, head_dim=8, d_ff=8, vocab=8,
-                    moe=object())
+    """Every arch resolves (the MoE ones since their slice: a MoE
+    LMConfig builds); an unknown id raises KeyError."""
+    from repro_torch.models.moe import MoEConfig
+    cfg = tm.LMConfig(name="moe", n_layers=1, d_model=8, n_heads=1,
+                      n_kv_heads=1, head_dim=8, d_ff=8, vocab=8,
+                      moe=MoEConfig(n_experts=4, top_k=1, d_ff=8))
+    # attention 4 x 64, experts 3 x 8 x 8 x 4, router 8 x 4, norms 2 x 8,
+    # the tied embedding 8 x 8, the final norm 8
+    assert cfg.param_count() == 4 * 64 + 3 * 8 * 8 * 4 + 8 * 4 + 2 * 8 \
+        + 8 * 8 + 8
+    assert cfg.active_param_count() == 4 * 64 + 3 * 8 * 8 + 8 * 8
     assert len(ARCH_IDS) == 10
     ported = set(ARCHS) | {"bst", "gin-tu", "graphsage-reddit",
-                           "meshgraphnet", "graphcast"}
+                           "meshgraphnet", "graphcast",
+                           "llama4-scout-17b-16e", "kimi-k2-1t-a32b"}
     for arch in ARCH_IDS:
-        if arch in ported:
-            assert get_arch(arch).CONFIG.name == arch
-        else:
-            with pytest.raises(NotImplementedError,
-                               match=r"the MoE layers \(ROADMAP A16\)"):
-                get_arch(arch)
-    assert len(ported) == 8
+        assert get_arch(arch).CONFIG.name == arch
+    assert ported == set(ARCH_IDS)
+    assert len(ported) == 10
     with pytest.raises(KeyError):
         get_arch("gpt-5")

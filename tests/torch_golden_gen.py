@@ -4,7 +4,7 @@ host has none): `repro_torch.utils.golden` reads them with numpy alone.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/torch_golden_gen.py
 
-writes three files (the JAX package's backend="ref" on the CPU):
+writes four files (the JAX package's backend="ref" on the CPU):
 
 - ops.npz: every case of `repro.analysis.contracts.OP_CASES`, its inputs
   and its outputs;
@@ -17,7 +17,29 @@ writes three files (the JAX package's backend="ref" on the CPU):
   128 and seg_scale 1, so that probe 128 covers every bucket; a_cap 72,
   delta 128, 32 seeds a round, 64 rounds). The points are not stored:
   both packages make them with numpy from the seed, and the fixture keeps
-  their sha256, so a drift in the generator fails loudly.
+  their sha256, so a drift in the generator fails loudly. Some of its
+  seeds' LIDs are cut short by t_lid = 256 (ROADMAP C4);
+- fit_converged.npz: one fit at phase 3b's shape and configuration (200
+  blobs of 40 and 12,000 noise points in d = 128, seed 0, the same LSH
+  arguments and ALIDConfig) on data where every LID the fit runs
+  converges within t_lid: blobs of variance up to 1 (not 10) and no
+  overlapping pairs (not 2). The generator records
+  every LID solve's exit (`jax.debug.callback` on a wrapped
+  `repro.core.alid.lid_solve`; src/repro is not edited) and refuses to
+  write the file if one was cut short; the meta keeps the count of
+  solves, the most iterations one took and the largest table-0 bucket
+  (<= the probe). Points as for fit_parity. Its meta also holds the gates
+  the port is held to (`rtol` for the densities, `k_rtol` for k) and the
+  f64 witness they come from (`k_witness`, `k_sensitivity`): k is
+  calibrated on nearest-neighbour distances ~1/30 of the points' norms,
+  where one f32 rounding of a squared norm in the distance expansion
+  moves a distance, and so k, by `k_scale` relative; the expansion rounds
+  three such terms and the packages sum them in their own orders, so
+  k_rtol = 2 k_scale; the densities move with k by at most
+  `k_sensitivity` times as much, so rtol = 1e-6 + k_rtol k_sensitivity
+  (both rounded up to two digits). Measured (jax 0.9.0, CPU): the JAX
+  package's k is 0.52 k_scale below `k_f64`, the port's 1.11 k_scale
+  below it, so the two are 0.59 k_scale apart.
 
 Each file records the jax version and the seed it was made with.
 
@@ -41,8 +63,10 @@ test module (no `test_` prefix): tests/test_torch_golden.py calls
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -68,6 +92,8 @@ PARITY_DATA = dict(n_clusters=200, cluster_size=40, n_noise=12_000, d=128,
                    seed=0)
 PARITY_LSH = dict(probe=128, seg_scale=1.0)
 PARITY_CFG = dict(a_cap=72, delta=128, seeds_per_round=32, max_rounds=64)
+# phase 3b's shape on data where every seed's LID converges within t_lid
+CONVERGED_DATA = dict(PARITY_DATA, overlap_pairs=0, cov_max=1.0)
 
 
 def points_sha256(points: np.ndarray) -> str:
@@ -143,8 +169,118 @@ def gen_fit_parity() -> dict:
                           points_sha256=points_sha256(spec.points))}
 
 
+@contextlib.contextmanager
+def lid_exits():
+    """Record the exit of every LID solve of the fits traced inside: a
+    list of (converged, n_iters) per lane. The JAX package's ALID run is
+    jitted and vmapped, so the record is a debug callback on a wrapped
+    `lid_solve`; jax's caches are cleared first, so that the fit retraces
+    through the wrapper."""
+    from repro.core import alid as jalid
+    orig, exits = jalid.lid_solve, []
+
+    def record(conv, iters):
+        exits.append((bool(np.asarray(conv)), int(np.asarray(iters))))
+
+    def solve(state, k, **kw):
+        out = orig(state, k, **kw)
+        jax.debug.callback(record, out.converged, out.n_iters)
+        return out
+
+    jax.clear_caches()
+    jalid.lid_solve = solve
+    try:
+        yield exits
+    finally:
+        jalid.lid_solve = orig
+        jax.clear_caches()
+
+
+def _ceil2(x: float) -> float:
+    """x rounded up to two significant digits."""
+    e = math.floor(math.log10(x)) - 1
+    return float(f"{math.ceil(x / 10.0 ** e)}e{e}")
+
+
+def k_witness(points, sample: int = 512, target: float = 0.95,
+              percentile: float = 10.0) -> tuple[float, float]:
+    """`estimate_k` in f64 over the same strided rows: (k, scale), where
+    scale is u (|q|^2 + |c|^2) / (2 d^2), u = 2**-24, the larger at the
+    two nearest-neighbour pairs the percentile interpolates: the relative
+    error one f32 rounding of the squared norms puts on such a distance,
+    and so on k. The f64 expansion is exact to ~1e-13 relative here."""
+    n = len(points)
+    m = min(sample, n)
+    s = np.asarray(points, np.float64)[(np.arange(m, dtype=np.int64) * n)
+                                       // m]
+    sq = (s * s).sum(1)
+    d = np.sqrt(np.maximum(sq[:, None] + sq[None] - 2.0 * (s @ s.T), 0.0))
+    np.fill_diagonal(d, np.inf)
+    j = d.argmin(1)
+    nn = d[np.arange(m), j]
+    pos = percentile / 100.0 * (m - 1)
+    pair = np.argsort(nn)[[math.floor(pos), math.ceil(pos)]]
+    scale = np.max(2.0 ** -24 * (sq[pair] + sq[j[pair]])
+                   / (2.0 * nn[pair] ** 2))
+    k = np.log(1.0 / target) / np.percentile(nn, percentile)
+    return float(f"{k:.10g}"), float(f"{scale:.4g}")
+
+
+def k_sensitivity(points, res) -> float:
+    """The most any cluster's density x'Ax moves with k, relative to k's
+    move: max over clusters of (sum w_i w_j a_ij k d_ij) / (sum w_i w_j
+    a_ij), a_ij = exp(-k d_ij) off the diagonal, in f64 on the fit's
+    supports."""
+    k, out = float(res.k), 0.0
+    for idx, w in zip(np.asarray(res.support_idx),
+                      np.asarray(res.support_w, np.float64)):
+        w = w[idx >= 0]
+        v = np.asarray(points, np.float64)[idx[idx >= 0]]
+        sq = (v * v).sum(1)
+        d = np.sqrt(np.maximum(sq[:, None] + sq[None] - 2.0 * (v @ v.T),
+                               0.0))
+        a = np.exp(-k * d)
+        np.fill_diagonal(a, 0.0)
+        ww = np.outer(w, w) * a
+        out = max(out, float((ww * k * d).sum() / ww.sum()))
+    return float(f"{out:.4g}")
+
+
+def gen_fit_converged() -> dict:
+    from repro.lsh.pstable import bucket_sizes, build_lsh
+    spec = make_blobs_with_noise(**CONVERGED_DATA)
+    lshp = auto_lsh_params(spec.points, **PARITY_LSH)
+    cfg = _cfg(lshp, **PARITY_CFG)
+    with lid_exits() as exits:
+        res = fit(spec.points, cfg, jax.random.PRNGKey(SEED))
+    cut = sum(1 for conv, _ in exits if not conv)
+    if not exits or cut:
+        raise RuntimeError(f"fit_converged: {cut} of {len(exits)} LID "
+                           f"solves cut short by t_lid {cfg.t_lid}")
+    _, kb = jax.random.split(jax.random.PRNGKey(SEED))
+    biggest = int(np.asarray(bucket_sizes(build_lsh(
+        jax.numpy.asarray(spec.points), lshp, kb, "ref"))).max())
+    if biggest > lshp.probe:
+        raise RuntimeError(f"fit_converged: a bucket of {biggest} > probe "
+                           f"{lshp.probe}")
+    k64, k_scale = k_witness(spec.points)
+    sens = k_sensitivity(spec.points, res)
+    k_rtol = _ceil2(2.0 * k_scale)
+    return {**_fit_arrays(res),
+            "meta": _meta(data=CONVERGED_DATA, lsh_args=PARITY_LSH,
+                          cfg=PARITY_CFG, lsh=list(lshp),
+                          points_sha256=points_sha256(spec.points),
+                          lid_solves=len(exits), lid_cut_short=cut,
+                          lid_most_iters=max(i for _, i in exits),
+                          t_lid=cfg.t_lid, max_bucket=biggest,
+                          k_f64=k64, k_scale=k_scale, k_sensitivity=sens,
+                          k_rtol=k_rtol,
+                          rtol=_ceil2(1e-6 + k_rtol * sens))}
+
+
 GENERATORS = {"ops": gen_ops, "fit_small": gen_fit_small,
-              "fit_parity": gen_fit_parity}
+              "fit_parity": gen_fit_parity,
+              "fit_converged": gen_fit_converged}
 
 
 def _direct_distance(q, c, p=2.0):

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-device tests (tests/test_torch_mesh.py,
-test_torch_gnn_mesh.py, test_torch_distributed.py): module-level
+test_torch_gnn_mesh.py, test_torch_distributed.py, test_torch_moe.py):
+module-level
 functions, so that `distributed.spawn.run_ranks` can start them in fresh
 gloo processes. This module imports no JAX: the JAX side of each test is
 computed in the test process."""
@@ -23,8 +24,9 @@ from repro_torch.core.source import as_source
 from repro_torch.distributed import context as C
 from repro_torch.distributed.shardings import P, placements
 from repro_torch.launch.mesh import (data_context, make_context,
-                                     make_small_context)
+                                     make_small_context, model_context)
 from repro_torch.models import gnn as tm
+from repro_torch.models import moe as moe_m
 
 
 def fit_cases(rank, world, cases, ckpt_root=None):
@@ -170,4 +172,35 @@ def collective_cases(rank, world):
     out["prod"] = (tuple(prod.mesh.mesh_dim_names),
                    tuple(prod.mesh.mesh.shape), prod.n_data, prod.n_model,
                    prod.fsdp)
+    return out
+
+
+def moe_cases(rank, world, cases, mesh_shape):
+    """Each case (name, MoEConfig fields, params, x (B, S, D), share): the
+    port's `moe_apply` under a mesh context of `mesh_shape` ((m,) over
+    ("model",), or (n_data, n_model)); with `share` the rank holds only its
+    model rank's E/m experts. Returns per case (out f32 numpy, aux,
+    all_to_all stats), the same on every rank, or the error text where
+    the call raises."""
+    ctx = (model_context("cpu") if len(mesh_shape) == 1
+           else make_small_context(*mesh_shape, device_type="cpu"))
+    m = ctx.n_model
+    mr = dist.get_rank(C.axis_group(ctx.mesh, ctx.model_axis))
+    out = {}
+    with C.mesh_context(ctx):
+        for name, fields, params, x, share in cases:
+            cfg = moe_m.MoEConfig(**fields)
+            if share:
+                per = cfg.n_experts // m
+                params = {k: (v[mr * per:(mr + 1) * per].clone()
+                              if k in moe_m.EXPERT_LEAVES else v)
+                          for k, v in params.items()}
+            C.reset_collective_stats()
+            try:
+                y, aux = moe_m.moe_apply(params, cfg, x)
+            except ValueError as exc:
+                out[name] = str(exc)
+                continue
+            out[name] = (y.float().numpy(), float(aux),
+                         C.collective_stats().get("all_to_all"))
     return out
