@@ -3,9 +3,14 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels of `src/repro_torch/csrc/` (nvcc, at
-first use), then runs, in order, failing with a non-zero exit on any error:
+first use), then runs the phases below, failing with a non-zero exit on
+any error. The late library (`kernels._build.LATE_SOURCES`,
+affinity_matvec.cu: minutes of nvcc) builds on a thread of its own from
+the start, so phases 7, 8, 9, 12 and 13, which need none of its kernels,
+run first, in that order, then phases 2-6, 10 and 11:
 
-1. environment: torch / CUDA versions, the kernel build time, the card's
+1. environment: torch / CUDA versions, the kernel build time (and how
+   long after phase 13 the late library was still awaited), the card's
    name and power limit (nvidia-smi);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path (lsh_hash at 1,000,000 x 128 and at the CIVS
@@ -74,14 +79,13 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    fallback taken (as in 3b); wall time and the `PipelineStats` report
    printed;
 4d. fault tolerance: crash at round 3 and resume, bit-identical, on the
-   streamed engine at 3b's data, n = 20,000 (the resumed run taking no
-   fallback; the streamed fault arms there are the CPU tests' since
-   phase 12 needed their time) and on the
-   replicated engine at full width against phase 4's labels; `run_palid
-   --quick` on the card with `--engine sharded --shards 4`, `--engine
-   streamed --shards 4 --inject-faults transient:0.1` (fault-parity=True),
-   `--checkpoint-dir` and then `--resume`; the launches of 4b, 4c, 4d's
-   runs at n = 20,000 and 4d's full-width crash and resume, each read on
+   replicated engine at full width against phase 4's labels (the
+   streamed engine's crash and resume and its fault arms at n = 20,000
+   are the CPU tests' since phases 12 and 13 needed their time);
+   `run_palid --quick` on the card with `--engine sharded --shards 4`,
+   `--engine streamed --shards 4 --inject-faults transient:0.1`
+   (fault-parity=True), `--checkpoint-dir` and then `--resume`; the
+   launches of 4b, 4c and 4d's full-width crash and resume, each read on
    its own, are added to the kernel table's (run_palid's toy fits are
    not);
 4e. the full-width fit at bf16 storage (`EngineSpec(dtype="bfloat16")`,
@@ -230,8 +234,8 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    full-width fit on the mesh engine at world size 1 over NCCL in this
    process, on the replicated store and on 8 shards, bit-identical to
    phase 4's and 4b's fits, with the all-gather's seconds and bytes a
-   round (the fits of (a)-(c) and (d)'s second forwards time their
-   collectives, `timed_collectives`, a device sync around each); then
+   round (the fits of (a)-(c) time their collectives,
+   `timed_collectives`, a device sync around each); then
    two gloo ranks sharing the one card (NCCL refuses two
    ranks on one device), spawned once: (b) the full-width fit from a .npy
    through MemmapSource on the replicated store, bit-identical to phase
@@ -300,6 +304,41 @@ first use), then runs, in order, failing with a non-zero exit on any error:
    MoE dispatches the same token shards, with the all-to-all's bytes and
    seconds; phase 12's launches are added to the kernel table's
    flash_attention rows;
+13. training (ROADMAP A16): (a) the three backward kernels, the port's
+   own (the JAX package differentiates its plain versions), against
+   their plain versions on the card: the attention backward
+   (`csrc/flash_attention_bwd.cu`) at danube's 32 / 8 heads x 80 over a
+   5,120-token row (window 4,096), a gemma2 global layer (32 / 16 x 128,
+   4,096, softcap 50), a llama4 chunked layer past one chunk (40 / 8 x
+   128, 9,216, chunk 8,192), all bf16, lm-100m's (8 x 12 / 4 x 64, 256)
+   and BST's (65,536 x 8 x 21 x 21 x 4, the small route) in f32, dq / dk
+   / dv by `compare_with_plain`'s rule and two calls bitwise equal, each
+   with its device time, per-call time, the plain version's, the bound
+   and SDPA's forward + backward where SDPA can express the mask; the
+   segment_matmul backward at ogb_products' shape and the embedding_bag
+   backward at BST train_batch's bags, bitwise, beside index_select /
+   index_add_; (b) h2o-danube-1.8b's CONFIG at full width and depth
+   (24 layers, bf16, remat, AdamW with the f32 master) for 3 steps of
+   lm_batch at 4 x 4,096 from launch counts at 0: step seconds,
+   tokens/s, peak memory (< 80 GB), a finite loss, grad_norm, the
+   backward kernels' launches; at 2 layers (the width kept) and 1 x
+   5,120 tokens: the kernel route's loss and gradients against
+   backend="ref" (LOSS_TOL, GRAD_TOL, NORM_TOL) and each layer's
+   attention backward, recorded on the model's own inputs, against the
+   plain backward by `compare_with_plain`'s rule, three faults planted
+   in that backward each failing one of these gates
+   (PLANTED_BWD_FAULTS), remat on and off bit-equal, two runs of a train
+   step
+   bit-equal, and train_loop crashed at step 2 and resumed equal to the
+   uninterrupted 4 steps, params and optimizer state, bit for bit; (c)
+   GIN-TU and GraphSAGE-Reddit train steps at ogb_products, full batch,
+   f32, and (d) BST's CONFIG train step at 65,536 rows: the kernel
+   route's loss and gradients against backend="ref" (the loss within
+   1e-5 relative, each leaf's 2-norm gap within 5e-3), two train steps
+   bit-equal, step seconds and peak memory; (e) `launch.train --steps
+   20` on the card, the loss falling; phase 13's launches (b)-(d) are
+   added to the kernel table's, which gains the three backward kernels'
+   rows (port_only);
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -347,6 +386,11 @@ REPLACES = {
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:102",
     "embedding_bag": "src/repro/kernels/embedding_bag.py:56",
     "segment_matmul": "src/repro/kernels/segment_matmul.py:72",
+    # the backward kernels have no TPU kernel (port-only: the JAX package
+    # differentiates its plain versions); each names its forward's
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:102",
+    "segment_matmul_bwd": "src/repro/kernels/segment_matmul.py:72",
+    "embedding_bag_bwd": "src/repro/kernels/embedding_bag.py:56",
 }
 # the kernels of the fit (phase 4); serving and the full-matrix path run
 # the others
@@ -356,7 +400,9 @@ FIT_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep")
 FLASH_KERNELS = ("flash_kernel", "flash_split_kernel", "flash_combine_kernel",
                  "flash_small_kernel", "flash_wgmma_kernel")
 # the source of a kernel table row where it is not csrc/<name>.cu
-SOURCES = {"flash_attention_wgmma": "src/repro_torch/csrc/flash_wgmma.cu"}
+SOURCES = {"flash_attention_wgmma": "src/repro_torch/csrc/flash_wgmma.cu",
+           "segment_matmul_bwd": "src/repro_torch/csrc/segment_bwd.cu",
+           "embedding_bag_bwd": "src/repro_torch/csrc/segment_bwd.cu"}
 BAG_KERNELS = ("bag_pass_kernel", "bag_sum_kernel")
 # serving: run_palid's defaults, and the bulk predict's rows
 SERVE_RATE = 2000.0
@@ -1151,9 +1197,8 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     pipeline configurations against the replicated fit, through the
     kernels, at n = 20,000 x 128, and the replicated fit through
     backend="ref" against the kernels' one; every streamed run takes no
-    fallback. Returns the kernel path's streamed default fit (4d's clean
-    run), its sharded fit (phase 10c's reference) and its replicated fit
-    (phase 11b's)."""
+    fallback. Returns the kernel path's sharded fit (phase 10c's
+    reference) and its replicated fit (phase 11b's)."""
     import tempfile
 
     from repro_torch.core.alid import EngineSpec
@@ -1199,8 +1244,7 @@ def check_engine_parity(dev, spec, cfg) -> dict:
     ok, why = same_fit(out[("replicated", "auto")], out[("replicated", "ref")])
     print(f"[parity] engines' data, kernel vs plain replicated: {why}")
     need(ok, "phase 3b: kernel and plain replicated fits differ")
-    return (out[("streamed-default", "auto")], out[("sharded", "auto")],
-            slim(out[("replicated", "auto")]))
+    return out[("sharded", "auto")], slim(out[("replicated", "auto")])
 
 
 def bitwise_fit(a, b) -> tuple[bool, str]:
@@ -1412,56 +1456,24 @@ def full_fit_streamed(dev, spec, lshp, rep_info, sharded) -> tuple:
     return counts, res
 
 
-def check_fault_tolerance(dev, spec, cfg, clean, full_spec, full_lshp,
-                          rep) -> dict:
-    """Phase 4d: crash at round 3 and resume on the streamed engine at
-    n = 20,000 against 3b's clean run, and on the replicated engine at
+def check_fault_tolerance(dev, full_spec, full_lshp, rep) -> dict:
+    """Phase 4d: crash at round 3 and resume on the replicated engine at
     full width against phase 4's labels; run_palid's sharded, faulty
     streamed (transient source faults, fault parity) and checkpoint /
-    resume runs. The streamed fault arms at n = 20,000 (transient faults,
-    forced scratch corruption, a killed reader) are the CPU tests'
-    (tests/test_torch_resilience.py, test_torch_pipeline.py): their
-    ~40 s went to phase 12. Returns the launches of the run at n = 20,000
-    and those of the full-width crash and resume, each read on its own
-    (run_palid's toy fits are in neither)."""
+    resume runs. The streamed engine's crash and resume at n = 20,000 and
+    its fault arms there (transient faults, forced scratch corruption, a
+    killed reader) are the CPU tests' (tests/test_torch_resilience.py,
+    test_torch_pipeline.py): their time went to phases 12 and 13.
+    Returns the launches of the full-width crash and resume (run_palid's
+    toy fits are not in them)."""
     import tempfile
 
-    from repro_torch.core.alid import EngineSpec
-    from repro_torch.core.engine import fit, make_engine
+    from repro_torch.core.engine import fit
     from repro_torch.kernels import ops
     from repro_torch.launch import full_width, run_palid
     from repro_torch.random import PRNGKey
     ops.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="alid_faults_") as tmp:
-        stream = EngineSpec(engine="streamed", n_shards=N_SHARDS,
-                            scratch_dir=tmp)
-        ckpt = str(Path(tmp) / "stream_ckpt")
-        scfg = cfg._replace(spec=stream)
-        try:
-            fit(spec.points, scfg, PRNGKey(0), checkpoint_dir=ckpt,
-                crash_at_round=3, device=dev)
-            need(False, "4d: the injected crash did not happen")
-        except RuntimeError as exc:
-            need("injected crash at round 3" in str(exc), f"4d: {exc}")
-        engine = make_engine(stream, device=dev)
-        res = fit(spec.points, scfg, PRNGKey(0), checkpoint_dir=ckpt,
-                  resume=True, engine=engine)
-        need_clean(engine, "4d streamed resume")
-        engine.close()
-        same = (np.array_equal(res.labels, clean.labels)
-                and res.n_rounds == clean.n_rounds
-                and np.array_equal(res.densities, clean.densities))
-        print(f"[faults] streamed crash at round 3, then resume: "
-              f"bit-identical={same}")
-        need(same, "4d: the resumed streamed fit differs")
-        counts = ops.launch_counts()
-        print(f"[faults] launches of 4d at n = {spec.points.shape[0]}: "
-              f"{counts}")
-        for name in FIT_KERNELS:
-            need(counts[name] > 0, f"4d: kernel {name} was never launched")
-
-        ops.reset_launch_counts()
-
         ckpt = str(Path(tmp) / "full_ckpt")
         fcfg = full_width.config(full_lshp)
         t0 = time.perf_counter()
@@ -1508,7 +1520,7 @@ def check_fault_tolerance(dev, spec, cfg, clean, full_spec, full_lshp,
             if "--inject-faults" in flags:
                 need(any("fault-parity=True" in ln for ln in lines),
                      "4d: run_palid --inject-faults lost fault parity")
-    return counts, resume_counts
+    return resume_counts
 
 
 # ------------------------------------------------------------- serving ----
@@ -3782,8 +3794,7 @@ def _rank_gnn(rank, dev, ref_dir) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.distributed.context import (collective_stats,
                                                  mesh_context,
-                                                 reset_collective_stats,
-                                                 timed_collectives)
+                                                 reset_collective_stats)
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import data_context
     from repro_torch.models import gnn as gnn_m
@@ -3805,22 +3816,14 @@ def _rank_gnn(rank, dev, ref_dir) -> dict:
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
+            reset_collective_stats()
             t0 = time.perf_counter()
             y = gnn_m.forward(params, cfg, g)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = ops.launch_counts()["segment_matmul"]
-            # a second forward, warm, its collectives timed: its time and
-            # their share
-            reset_collective_stats()
-            t0 = time.perf_counter()
-            with timed_collectives():
-                again = gnn_m.forward(params, cfg, g)
-            torch.cuda.synchronize()
             res = dict(wall=wall, launches=launches,
-                       again=time.perf_counter() - t0,
                        collectives=collective_stats(),
-                       repeat=bool(torch.equal(again, y)),
                        peak=torch.cuda.max_memory_allocated(),
                 peak_above=torch.cuda.max_memory_allocated() - base,
                 split=None if split is None else split.size,
@@ -3834,7 +3837,7 @@ def _rank_gnn(rank, dev, ref_dir) -> dict:
                            scale=float(ref.abs().max()),
                            ref_shape=tuple(ref.shape))
             out[arch] = res
-            del y, again, params
+            del y, params
     return out
 
 
@@ -3993,19 +3996,17 @@ def check_mesh(dev, points, lshp, rep, shd, pspec, pcfg, shd_3b,
     for arch, _ in GNN_MESH_CASES:
         for r, out in enumerate(outs):
             o = out["d"][arch]
-            coll = {op: round(v["seconds"], 4)
+            coll = {op: (v["calls"], v["bytes"])
                     for op, v in o["collectives"].items()}
             line = (f"[mesh] 10d {arch} rank {r}/{MESH_RANKS}: split "
                     f"{o['split']} ways, {o['dtype']}, forward "
-                    f"{o['wall']:.4f}s (the first, warm-up included) then "
-                    f"{o['again']:.4f}s with its collectives timed, of "
-                    f"which collectives' seconds "
-                    f"{coll}; segment_matmul launches {o['launches']}, "
-                    f"peak device memory {o['peak']} ({o['peak_above']} "
-                    f"above its start), output {o['shape']}")
+                    f"{o['wall']:.4f}s (warm-up included), collectives' "
+                    f"(calls, bytes) {coll}; segment_matmul launches "
+                    f"{o['launches']}, peak device memory {o['peak']} "
+                    f"({o['peak_above']} above its start), output "
+                    f"{o['shape']}")
             need(o["split"] == MESH_RANKS and o["finite"],
                  f"10d {arch}: rank {r} did not split or is not finite")
-            need(o["repeat"], f"10d {arch}: rank {r}'s two forwards differ")
             need(o["launches"] > 0, f"10d {arch}: rank {r} never launched "
                  "segment_matmul")
             total["segment_matmul"] += o["launches"]
@@ -4803,6 +4804,730 @@ def check_moe(dev, stats) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ training ----
+# 13a: the attention backward at the training paths' shapes: (name, B, H,
+# Hkv, S, dh, dtype, mask); danube's train_4k layers over a 5,120-token
+# row, a gemma2 global layer, a llama4 chunked layer past one chunk,
+# lm-100m (examples/torch_train_lm_100m.py) and BST's block
+FLASH_BWD_CASES = (
+    ("danube", 1, 32, 8, 5120, 80, torch.bfloat16,
+     dict(causal=True, window=4096)),
+    ("gemma2_global", 1, 32, 16, 4096, 128, torch.bfloat16,
+     dict(causal=True, softcap=50.0)),
+    ("llama4_chunked", 1, 40, 8, 9216, 128, torch.bfloat16,
+     dict(causal=True, chunk=8192)),
+    ("lm_100m", 8, 12, 4, 256, 64, torch.float32, dict(causal=True)),
+    ("bst", 65_536, 8, 8, 21, 4, torch.float32, dict(causal=False)),
+)
+# 13b: h2o-danube-1.8b's CONFIG at full width and depth, its train_4k
+# sequence; the cell's global batch of 256 (a pod's) cut to 4 for one card
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
+# 13b's checks at the full width cut to 2 layers: one 5,120-token row
+CHECK_LAYERS, CHECK_SEQ = 2, 5120
+# 13b's 2-layer gates, kernel route against backend="ref" on one bf16
+# model: |loss_kernel - loss_ref| <= LOSS_TOL (5x the 1.02e-4 measured on
+# an H100); each gradient leaf's largest |g_kernel - g_ref| <= GRAD_TOL x
+# its largest |g_ref| and ||g_kernel - g_ref|| <= NORM_TOL x ||g_ref|| (2x
+# the 1.00e-2 and 1.023e-2 measured, both at the embedding: the kernel's
+# D = rowsum(dO o O) reads the bf16-rounded output); and each layer's
+# attention backward, on the inputs the model gave it, within
+# compare_with_plain's rule of the plain backward (one bf16 ulp). The
+# planted faults of PLANTED_BWD_FAULTS must each fail one of these gates.
+LOSS_TOL = 5e-4
+GRAD_TOL = 2e-2
+NORM_TOL = 2e-2
+# (name, what it does to the first backward call's (dq, dk, dv), i.e. the
+# last layer's): dk of one kv head zeroed; dq of one 64-row tile of one
+# head halved, as an lse off by ln 2 in that tile of the dq kernel gives;
+# dv of one 64-row kv tile of one kv head zeroed
+PLANTED_BWD_FAULTS = (
+    ("dk of kv head 0 zeroed", lambda dq, dk, dv: dk[:, 0].zero_()),
+    ("dq of head 0 rows 2048-2111 halved",
+     lambda dq, dk, dv: dq[:, 0, 2048:2112].mul_(0.5)),
+    ("dv of kv head 0 rows 2048-2111 zeroed",
+     lambda dq, dk, dv: dv[:, 0, 2048:2112].zero_()),
+)
+# 13c, 13d: each f32 leaf's ||g_kernel - g_ref|| <= F32_NORM_TOL x ||g_ref||
+# (2-norms), and the losses within F32_LOSS_TOL relative. Not the largest
+# entry: the kernel's and the plain attention's f32 roundings put a few of
+# BST's MLP pre-activations on the other side of leaky_relu's kink (8 of
+# 65,536 x 1,792 on an H100), which moves those rows' gradients whole,
+# and an embedding row that one such row alone names
+# then differs by up to 4.2e-2 of its table's largest entry, while each
+# leaf's norm moves <= 1.02e-3 (dense leaves <= 1.2e-4)
+F32_NORM_TOL = 5e-3
+F32_LOSS_TOL = 1e-5
+# the optimizer of every train step of phase 13 (AdamW, the f32 master for
+# bf16 params)
+TRAIN_LR = 3e-4
+
+
+def tree_equal(a, b) -> bool:
+    """Every leaf of two trees bit-equal (dtype, shape, bits)."""
+    from repro_torch.train.optimizers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def clone_tree(tree):
+    from repro_torch.train.optimizers import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def grad_gap(got, want) -> dict:
+    """Over the leaves, the largest max|got - want| / max|want| and the
+    largest ||got - want|| / ||want|| (0 where both are 0), each with the
+    leaf it is at."""
+    out = {"max": 0.0, "max_at": "", "norm": 0.0, "norm_at": ""}
+
+    def ratio(d, m):
+        return d / m if m > 0 else (0.0 if d == 0 else math.inf)
+
+    def walk(g, w, path):
+        if isinstance(g, dict):
+            for k in g:
+                walk(g[k], w[k], f"{path}/{k}")
+            return
+        if isinstance(g, list):
+            for i, (x, y) in enumerate(zip(g, w)):
+                walk(x, y, f"{path}/{i}")
+            return
+        if not g.numel():
+            return
+        d = g.float() - w.float()
+        for key, r in (("max", ratio(float(d.abs().max()),
+                                     float(w.float().abs().max()))),
+                       ("norm", ratio(float(d.norm()),
+                                      float(w.float().norm())))):
+            if r > out[key]:
+                out[key], out[f"{key}_at"] = r, path
+    walk(got, want, "")
+    return out
+
+
+def attended_pairs(b, h, sq, sk, mask_kw, dev) -> int:
+    """Query-key pairs the mask lets through, over the batch and q heads."""
+    from repro_torch.kernels import ref
+    kw = {k: mask_kw.get(k) for k in ("causal", "window", "chunk")}
+    kw["causal"] = bool(kw["causal"])
+    m = ref.attention_mask(sq, sk, causal=kw["causal"], window=kw["window"],
+                           chunk=kw["chunk"], device=dev)
+    return int(m.sum()) * b * h
+
+
+def sdpa_fwd_bwd(q, k, v, dout, mask_kw):
+    """SDPA forward + backward with the same mask, or None where SDPA has
+    no form of it (softcap): a yardstick the port never calls."""
+    from repro_torch.kernels import ref
+    if mask_kw.get("softcap"):
+        return None
+    sq, sk = q.shape[2], k.shape[2]
+    causal_only = mask_kw.get("causal") and not mask_kw.get("window") and \
+        not mask_kw.get("chunk")
+    mask = None
+    if not causal_only and (mask_kw.get("window") or mask_kw.get("chunk")):
+        mask = ref.attention_mask(sq, sk, causal=bool(mask_kw.get("causal")),
+                                  window=mask_kw.get("window"),
+                                  chunk=mask_kw.get("chunk"),
+                                  device=q.device)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def run():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask, is_causal=bool(causal_only),
+            enable_gqa=True)
+        out.backward(dout)
+    return run
+
+
+def check_flash_bwd(dev, out) -> None:
+    """13a, the attention backward: the kernel (`flash_attention_bwd_cuda`,
+    two launches or the small route's one) against its plain version
+    (`ref.attention_bwd_ref`) on the card, dq / dk / dv by
+    `compare_with_plain`'s rule, two calls bitwise equal, with its device
+    time, per-call time, the plain version's time, the bound and SDPA's
+    forward + backward where SDPA can express the mask."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import bwd_plan, \
+        compare_with_plain, flash_attention_bwd_cuda, flash_attention_cuda
+    cases, err = {}, 0.0
+    for seed, (name, b, h, hkv, s, dh, dt, kw) in enumerate(FLASH_BWD_CASES):
+        q, k, v = device_inputs(dev, b, h, hkv, s, s, dh, dt, 700 + seed)
+        gen = torch.Generator(device=dev).manual_seed(800 + seed)
+        dout = torch.randn((b, h, s, dh), generator=gen, device=dev).to(dt)
+        o = flash_attention_cuda(q, k, v, 0, **kw)
+        plan = bwd_plan(h, hkv, s, s, dh)
+
+        def kernel():
+            return flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+
+        def plain():
+            return ref.attention_bwd_ref(q, k, v, o, dout, **kw)
+        got, want = kernel(), plain()
+        again = kernel()
+        rows = torch.ones((b, s), dtype=torch.bool, device=dev)
+        bad = 0
+        for g, w in zip(got, want):
+            c = compare_with_plain(g, w, rows)
+            bad += c["bad"]
+            err = max(err, c["max_abs_err"])
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del got, want, again
+        pairs = attended_pairs(b, h, s, s, kw, dev)
+        esz = q.element_size()
+        # q, o, dout read and dq written; k, v read and dk, dv written
+        n_bytes = esz * 4 * (q.numel() + k.numel())
+        b_ms, b_by = bound(n_bytes, 10 * dh * pairs,
+                           BF16_FLOP_PER_S if dt == torch.bfloat16
+                           else F32_FLOP_PER_S)
+        runs = 2 if pairs > 1e8 else 5
+        t = dict(ms=graph_ms(kernel, runs=runs, replays=3),
+                 call_ms=call_ms(kernel, runs=3),
+                 plain_ms=graph_ms(plain, runs=1, replays=3),
+                 plain_in_graph=True)
+        fwd_ms = graph_ms(lambda: flash_attention_cuda(q, k, v, 0, **kw),
+                          runs=runs, replays=3)
+        lib = sdpa_fwd_bwd(q, k, v, dout, kw)
+        lib_ms = call_ms(lib, runs=3) if lib is not None else None
+        cases[name] = dict(
+            shape=f"{b} x {h}/{hkv} x {s} x {dh} {str(dt)[6:]} {kw}",
+            route=plan.kernel, ms=t["ms"], call_ms=t["call_ms"],
+            plain_ms=t["plain_ms"], forward_ms=fwd_ms, bound_ms=b_ms,
+            bound_by=b_by, sdpa_fwd_bwd_ms=lib_ms, pairs=pairs,
+            bad=bad, repeat_bitwise=same,
+            tflops=10 * dh * pairs / (t["ms"] * 1e9))
+        print(f"[train] 13a flash backward {name} ({cases[name]['shape']}, "
+              f"route {plan.kernel}, rp {plan.rp} bc {plan.bc} bk "
+              f"{plan.bk}): outside compare_with_plain's rule {bad}, "
+              f"repeat bitwise {same}; {time_line(t)} forward_ms="
+              f"{fwd_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {pairs} attended "
+              f"pairs x 10 dh FLOP) sdpa_fwd_bwd_ms="
+              f"{'n/a (softcap)' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"(per call, a yardstick the port never calls); "
+              f"{cases[name]['tflops']:.2f} TFLOP/s at 10 dh a pair",
+              flush=True)
+        need(bad == 0, f"flash_attention backward {name}: the kernel is "
+             "outside compare_with_plain's rule of its plain version")
+        need(same, f"flash_attention backward {name}: two calls differ")
+        del q, k, v, o, dout
+        torch.cuda.empty_cache()
+    head = cases["danube"]
+    out["flash_attention_bwd"] = dict(
+        max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["sdpa_fwd_bwd_ms"], cases=cases, port_only=True)
+
+
+def check_segment_bwd(dev, out) -> None:
+    """13a, the segment sums' backward: segment_matmul's (the row gather)
+    at ogb_products' shape and embedding_bag's (the table's segment sum)
+    at BST train_batch's multi-hot bags over the 131,072 x 32 table, each
+    bit-equal to its plain version, timed beside a library call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_cuda
+    from repro_torch.kernels.segment_matmul import segment_matmul_bwd_cuda
+    from repro_torch.models.bst import bag_inputs
+    seg, _ = ogb_segments(dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    d_out = torch.randn((OGB_NODES, OGB_DIM), generator=g, device=dev)
+
+    def kernel():
+        return segment_matmul_bwd_cuda(d_out, seg, OGB_PADDED)
+    got = kernel()
+    want = ref.segment_matmul_bwd_ref(d_out, seg, OGB_PADDED)
+    same = torch.equal(got, want)
+    pads_zero = bool((got[OGB_EDGES:] == 0).all())
+    del got, want
+    torch.cuda.empty_cache()
+    need(same and pads_zero, "segment_matmul backward: the kernel differs "
+         "from its plain version at ogb_products")
+    b_ms, b_by = bound(4 * OGB_PADDED * (OGB_DIM + 1)
+                       + 4 * OGB_NODES * OGB_DIM, 0)
+    t = dict(ms=graph_ms(kernel, runs=1, replays=3),
+             call_ms=call_ms(kernel, runs=2),
+             plain_ms=call_ms(lambda: ref.segment_matmul_bwd_ref(
+                 d_out, seg, OGB_PADDED), runs=1), plain_in_graph=False)
+    lib_ms = call_ms(lambda: d_out.index_select(0, seg[:OGB_EDGES].long()),
+                     runs=2)
+    print(f"[train] 13a segment_matmul backward {OGB_PADDED} x {OGB_DIM} "
+          f"f32 from {OGB_NODES} rows: bitwise_equal={same}, pad rows 0 "
+          f"{pads_zero}; {time_line(t)} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library_ms={lib_ms:.4f} (index_select of the valid rows, per "
+          "call; a yardstick the port never calls)", flush=True)
+    out["segment_matmul_bwd"] = dict(
+        max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, call_ms=t["call_ms"],
+        port_only=True)
+    del d_out, seg
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("bst").CONFIG
+    rows = RECSYS_SHAPES["train_batch"]["batch"]
+    batch = bst_batch(0, batch=rows, seq_len=cfg.seq_len,
+                      item_vocab=cfg.item_vocab, cat_vocab=cfg.cat_vocab,
+                      multi_vocab=cfg.multi_vocab, device=dev)
+    idx, bags, n_bags = bag_inputs(cfg, batch["multi_ids"])
+    d_bags = torch.randn((n_bags, cfg.embed_dim), generator=g, device=dev)
+
+    def bag_kernel():
+        return embedding_bag_bwd_cuda(d_bags, idx, bags, cfg.multi_vocab)
+    got = bag_kernel()
+    want = ref.embedding_bag_bwd_ref(d_bags, idx, bags, cfg.multi_vocab)
+    same = torch.equal(got, want)
+    need(same, "embedding_bag backward: the kernel differs from its plain "
+         "version at BST's train_batch bags")
+    rows_named = int(torch.unique(idx).numel())
+    b_ms, b_by = bound(8 * idx.numel() + 4 * n_bags * cfg.embed_dim
+                       + 4 * cfg.multi_vocab * cfg.embed_dim,
+                       idx.numel() * cfg.embed_dim)
+
+    def library():
+        return torch.zeros((cfg.multi_vocab, cfg.embed_dim),
+                           device=dev).index_add_(0, idx.long(),
+                                                  d_bags[bags.long()])
+    t = dict(ms=graph_ms(bag_kernel, runs=5), call_ms=call_ms(bag_kernel),
+             plain_ms=call_ms(lambda: ref.embedding_bag_bwd_ref(
+                 d_bags, idx, bags, cfg.multi_vocab), runs=1),
+             plain_in_graph=False)
+    lib_ms = graph_ms(library, runs=5)
+    print(f"[train] 13a embedding_bag backward: {idx.numel()} ids in "
+          f"{n_bags} bags of {cfg.multi_bag} into {cfg.multi_vocab} x "
+          f"{cfg.embed_dim} f32 ({rows_named} rows named): bitwise_equal="
+          f"{same}; {time_line(t)} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+          f"{lib_ms:.4f} (index_add_ of the gathered rows, atomics; device "
+          "time, CUDA graph; a yardstick the port never calls)", flush=True)
+    out["embedding_bag_bwd"] = dict(
+        max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, call_ms=t["call_ms"],
+        port_only=True)
+
+
+def train_counts() -> dict:
+    """The launches since the last reset, by kernel table row."""
+    from repro_torch.kernels import ops
+    c = ops.launch_counts()
+    wg = ops.path_counts()["flash_attention"]["wgmma"]
+    c["flash_attention_wgmma"] = wg
+    c["flash_attention"] -= wg
+    return c
+
+
+def timed_steps(step_fn, params, opt_state, batches, what: str):
+    """Run the steps; (params, opt_state, per-step seconds, last metrics)."""
+    secs, metrics = [], {}
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        print(f"[train] {what} step {i + 1}: {secs[-1]:.3f}s loss "
+              f"{float(metrics['loss']):.6f} grad_norm "
+              f"{float(metrics['grad_norm']):.6f}", flush=True)
+    return params, opt_state, secs, metrics
+
+
+def train_danube(dev) -> dict:
+    """13b: h2o-danube-1.8b's CONFIG at full width and depth (24 layers,
+    bf16, remat, AdamW with the f32 master) for TRAIN_STEPS steps of
+    lm_batch at TRAIN_BATCH x TRAIN_SEQ, from launch counts at 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.random import PRNGKey
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig
+    cfg = get_arch(TRAIN_ARCH).CONFIG
+    need(cfg.remat and cfg.dtype == torch.bfloat16, "danube's CONFIG is not "
+         "bf16 with remat")
+    opt = OptConfig(lr=TRAIN_LR, warmup=1, decay_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt_state = S.init_train_state(PRNGKey(0), "lm", cfg, opt,
+                                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _leaves(params))
+    state_bytes = torch.cuda.memory_allocated(dev)
+    print(f"[train] 13b {cfg.name} CONFIG: {n_par} params, {cfg.n_layers} "
+          f"layers, bf16, remat; params + AdamW state (m, v, f32 master) "
+          f"{state_bytes} bytes on the card; init {init_s:.2f}s; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} (train_4k's sequence; its global "
+          f"batch of 256 cut to {TRAIN_BATCH} for one card)", flush=True)
+    step_fn = S.make_lm_train_step(cfg, opt)
+    batches = [lm_batch(i, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        vocab=cfg.vocab, device=dev)
+               for i in range(TRAIN_STEPS)]
+    ops.reset_launch_counts()
+    params, opt_state, secs, metrics = timed_steps(
+        step_fn, params, opt_state, batches, "13b danube")
+    counts = train_counts()
+    bwd_paths = ops.path_counts()["flash_attention_bwd"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss = float(metrics["loss"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] 13b danube: step seconds {[round(x, 3) for x in secs]}, "
+          f"{tokens / min(secs):.1f} tokens/s (best step), peak memory "
+          f"{peak} bytes, last loss {loss:.6f}, grad_norm "
+          f"{float(metrics['grad_norm']):.6f}; launches {counts}; "
+          f"backward kernels {bwd_paths}", flush=True)
+    need(math.isfinite(loss), "13b: the loss is not finite")
+    need(peak < 80e9, "13b: the peak passed the card's 80 GB")
+    need(counts["flash_attention_bwd"] > 0 and counts["segment_matmul"] > 0,
+         "13b: the backward kernels were not launched")
+    need(counts["flash_attention_wgmma"] > 0, "13b: the forward did not "
+         "run the wgmma kernel")
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_s=secs, peak=peak, loss=loss,
+                tokens_per_s=tokens / min(secs))
+
+
+def danube_2layer(dev, remat: bool):
+    """danube's CONFIG at 2 of 24 layers (the width kept) and its params."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.random import PRNGKey
+    from repro_torch.models import transformer as lm_m
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).CONFIG,
+                              n_layers=CHECK_LAYERS, remat=remat)
+    return cfg, lm_m.init_params(PRNGKey(0), cfg, device=dev)
+
+
+@contextlib.contextmanager
+def recorded_attention_bwd(fault=None):
+    """Within: each call of the attention's backward kernel from
+    `ops.flash_attention`'s autograd Function keeps its inputs and a copy
+    of its (dq, dk, dv); `fault(dq, dk, dv)`, where given, changes the
+    first call's outputs in place before autograd reads them (a planted
+    fault). Yields the list of (inputs, kw, outputs)."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention_bwd_cuda
+    rec = []
+
+    def wrapped(q, k, v, out, dout, **kw):
+        grads = real(q, k, v, out, dout, **kw)
+        if fault is not None and not rec:
+            fault(*grads)
+        rec.append(((q, k, v, out, dout), kw,
+                    tuple(g.clone() for g in grads)))
+        return grads
+    ops.flash_attention_bwd_cuda = wrapped
+    try:
+        yield rec
+    finally:
+        ops.flash_attention_bwd_cuda = real
+
+
+def attention_bwd_outside_rule(rec) -> int:
+    """Entries of the recorded backward calls' dq, dk, dv outside
+    `compare_with_plain`'s rule of the plain backward on the same inputs
+    (every row of these causal or windowed calls attends its own key).
+    Each pair is first scaled by the power of 2 that brings the plain
+    tensor's largest |entry| into [0.5, 1), as 13a's unit-scale inputs
+    have it: exact in bf16, so the ulp test is unchanged and the rule's
+    atol of 1e-5 stays relative to the tensor's size (a model's gradients
+    are far below 1, where the bare atol would pass any entry)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import compare_with_plain
+    bad = 0
+    for inputs, kw, got in rec:
+        with torch.no_grad():
+            want = ref.attention_bwd_ref(*inputs, **kw)
+        for g, w in zip(got, want):
+            top = float(w.float().abs().max())
+            sc = 2.0 ** -math.frexp(top)[1] if top > 0 else 1.0
+            rows = torch.ones(g.shape[0], g.shape[2], dtype=torch.bool,
+                              device=g.device)
+            bad += compare_with_plain(g * sc, w * sc, rows)["bad"]
+        del want
+    return bad
+
+
+def check_planted_faults(grad_fn, g_r) -> list:
+    """Each of PLANTED_BWD_FAULTS planted in the kernel route's backward
+    must fail one of 13b's gradient gates: its readings, printed."""
+    out = []
+    for name, fault in PLANTED_BWD_FAULTS:
+        with recorded_attention_bwd(fault) as rec:
+            g_f = grad_fn()
+        gap = grad_gap(g_f, g_r)
+        bad = attention_bwd_outside_rule(rec)
+        caught = [w for w, hit in (("max", gap["max"] > GRAD_TOL),
+                                   ("norm", gap["norm"] > NORM_TOL),
+                                   ("layers", bad > 0)) if hit]
+        print(f"[train] 13b planted fault '{name}': largest max|dg| / "
+              f"max|g_ref| {gap['max']:.3e} at {gap['max_at']}, largest "
+              f"||dg|| / ||g_ref|| {gap['norm']:.3e} at {gap['norm_at']}, "
+              f"per-layer entries outside the rule {bad}; caught by "
+              f"{caught or 'no gate'}", flush=True)
+        need(bool(caught), f"13b: the planted fault '{name}' passed every "
+             "gate")
+        out.append(dict(name=name, gap=gap, bad=bad, caught=caught))
+        del g_f, rec
+    return out
+
+
+def check_train_2layer(dev) -> dict:
+    """13b's checks at 2 layers, the width kept, one 5,120-token row: the
+    kernel route's loss and gradients against backend="ref"'s; remat on
+    and off bit-equal; two runs of a train step bit-equal; train_loop
+    crashed at step 2 and resumed equal to the uninterrupted 4-step run,
+    params and optimizer state, bit for bit. Returns the launches of the
+    kernel route's runs."""
+    import dataclasses
+    import tempfile
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig, init_opt_state
+    from repro_torch.train.trainer import TrainerConfig, train_loop
+    cfg, params = danube_2layer(dev, remat=True)
+    tokens = lm_batch(0, batch=1, seq_len=CHECK_SEQ, vocab=cfg.vocab,
+                      device=dev)
+    ops.reset_launch_counts()
+    with recorded_attention_bwd() as rec:
+        (loss_k, _), g_k = S.value_and_grad(
+            lambda p: S.lm_loss(p, cfg, tokens), params)
+    counts = train_counts()
+    layers_bad = attention_bwd_outside_rule(rec)
+    n_calls = len(rec)
+    del rec
+    (loss_r, _), g_r = S.value_and_grad(
+        lambda p: S.lm_loss(p, cfg, tokens, backend="ref"), params)
+    gap = grad_gap(g_k, g_r)
+    dl = abs(float(loss_k) - float(loss_r))
+    print(f"[train] 13b 2 layers, 1 x {CHECK_SEQ}: loss kernel "
+          f"{float(loss_k):.6f} ref {float(loss_r):.6f} (|diff| {dl:.3e}, "
+          f"gate {LOSS_TOL}); largest leaf max|dg| / max|g_ref| "
+          f"{gap['max']:.3e} at {gap['max_at']} (gate {GRAD_TOL}), largest "
+          f"||dg|| / ||g_ref|| {gap['norm']:.3e} at {gap['norm_at']} (gate "
+          f"{NORM_TOL}); the {n_calls} backward calls' entries outside "
+          f"compare_with_plain's rule {layers_bad}", flush=True)
+    need(n_calls == CHECK_LAYERS, "13b: the backward kernel ran "
+         f"{n_calls} times for {CHECK_LAYERS} layers")
+    need(dl <= LOSS_TOL, "13b: the kernel route's loss is not the plain "
+         "route's within the gate")
+    need(gap["max"] <= GRAD_TOL and gap["norm"] <= NORM_TOL,
+         "13b: the kernel route's gradients are not the plain route's "
+         "within the gates")
+    need(layers_bad == 0, "13b: a layer's attention backward is outside "
+         "compare_with_plain's rule of the plain backward")
+    check_planted_faults(lambda: S.value_and_grad(
+        lambda p: S.lm_loss(p, cfg, tokens), params)[1], g_r)
+    del g_r
+    cfg_nr = dataclasses.replace(cfg, remat=False)
+    (loss_n, _), g_n = S.value_and_grad(
+        lambda p: S.lm_loss(p, cfg_nr, tokens), params)
+    remat_same = tree_equal(g_k, g_n) and torch.equal(loss_k, loss_n)
+    print(f"[train] 13b remat on == off, bitwise: {remat_same}", flush=True)
+    need(remat_same, "13b: remat changed the gradients' bits")
+    del g_n, g_k
+    opt = OptConfig(lr=TRAIN_LR, warmup=1, decay_steps=8)
+    state0 = init_opt_state(opt, params)
+    step_fn = S.make_lm_train_step(cfg, opt)
+    runs = []
+    for _ in range(2):
+        p, s = clone_tree(params), clone_tree(state0)
+        p, s, m = step_fn(p, s, tokens)
+        runs.append((p, s, float(m["loss"])))
+    repeat = tree_equal(runs[0][0], runs[1][0]) and \
+        tree_equal(runs[0][1], runs[1][1])
+    print(f"[train] 13b two runs of one train step bit-equal (params and "
+          f"AdamW state): {repeat}", flush=True)
+    need(repeat, "13b: two runs of one train step differ")
+    del runs
+
+    def batch_fn(step):
+        return lm_batch(step, batch=1, seq_len=CHECK_SEQ, vocab=cfg.vocab,
+                        device=dev)
+    t0 = time.perf_counter()
+    whole = train_loop(step_fn, batch_fn, clone_tree(params),
+                       clone_tree(state0),
+                       TrainerConfig(total_steps=4, log_every=4))
+    with tempfile.TemporaryDirectory(prefix="alid_train_") as tmp:
+        tc = TrainerConfig(total_steps=4, log_every=4, ckpt_every=2,
+                           ckpt_dir=tmp, keep=2, crash_at_step=2)
+        try:
+            train_loop(step_fn, batch_fn, clone_tree(params),
+                       clone_tree(state0), tc)
+            crashed = False
+        except RuntimeError:
+            crashed = True
+        tc = TrainerConfig(total_steps=4, log_every=4, ckpt_every=2,
+                           ckpt_dir=tmp, keep=2)
+        resumed = train_loop(step_fn, batch_fn, clone_tree(params),
+                             clone_tree(state0), tc)
+    exact = crashed and tree_equal(whole[0], resumed[0]) and \
+        tree_equal(whole[1], resumed[1])
+    print(f"[train] 13b train_loop crashed at step 2 ({crashed}) and "
+          f"resumed == the uninterrupted 4 steps, params and AdamW state "
+          f"bitwise: {exact} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    need(exact, "13b: the resumed run is not the uninterrupted one")
+    del whole, resumed, params, state0
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_train_step(dev, name, step_k, loss_k, loss_r, params, state,
+                     batch) -> dict:
+    """13c / 13d: the kernel route's loss and gradients against
+    backend="ref"'s (f32 gates), two runs of the kernel route's train step
+    bit-equal, its step seconds and peak memory. Returns its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps as S
+    # the plain route first, on a released cache: its autograd holds two
+    # (E, d) message gradients at once (SAGE at ogb_products: 2 x 31.7 GB)
+    torch.cuda.empty_cache()
+    (lr_, _), gr = S.value_and_grad(loss_r, params)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    (lk, _), gk = S.value_and_grad(loss_k, params)
+    counts = train_counts()
+    gap = grad_gap(gk, gr)
+    dl = abs(float(lk) - float(lr_)) / max(abs(float(lr_)), 1e-30)
+    del gk, gr
+    torch.cuda.empty_cache()
+    print(f"[train] {name}: loss kernel {float(lk):.7f} ref {float(lr_):.7f}"
+          f" (relative {dl:.3e}, gate {F32_LOSS_TOL}); largest leaf "
+          f"||dg|| / ||g_ref|| {gap['norm']:.3e} at {gap['norm_at']} (gate "
+          f"{F32_NORM_TOL}), largest max|dg| / max|g_ref| {gap['max']:.3e} "
+          f"at {gap['max_at']}", flush=True)
+    need(dl <= F32_LOSS_TOL and gap["norm"] <= F32_NORM_TOL,
+         f"{name}: the kernel route's gradients are not the plain route's "
+         "within the gates")
+    outs, secs = [], []
+    for _ in range(2):
+        p, s = clone_tree(params), clone_tree(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        p, s, m = step_k(p, s, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        outs.append((p, s))
+    same = tree_equal(outs[0][0], outs[1][0]) and \
+        tree_equal(outs[0][1], outs[1][1])
+    print(f"[train] {name}: two train steps bit-equal {same}; step seconds "
+          f"{[round(x, 4) for x in secs]}, peak memory above the state "
+          f"{peak} bytes", flush=True)
+    need(same, f"{name}: two runs of the train step differ")
+    del outs
+    torch.cuda.empty_cache()
+    return dict(counts=counts, step_s=secs, peak=peak, grad_gap=gap)
+
+
+def train_gnns(dev) -> dict:
+    """13c: GIN-TU and GraphSAGE-Reddit train steps at ogb_products, full
+    batch, f32 (the registry's `make_cell` configs, as phase 9)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.random import PRNGKey
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig
+    cfg = get_arch(GNN_OGB_ARCHS[0]).make_cell("ogb_products").model_cfg
+    _, batch = gnn_graph(dev, "ogb_products", cfg)
+    res = {}
+    for arch in GNN_OGB_ARCHS:
+        cell = get_arch(arch).make_cell("ogb_products")
+        cfg, kind = cell.model_cfg, "node_ce"
+        opt = OptConfig(lr=TRAIN_LR)
+        params, state = S.init_train_state(PRNGKey(0), "gnn", cfg, opt,
+                                           device=dev)
+        res[arch] = check_train_step(
+            dev, f"13c {arch} at ogb_products",
+            S.make_gnn_train_step(cfg, opt, kind),
+            lambda p: S.gnn_loss(p, cfg, batch, kind),
+            lambda p: S.gnn_loss(p, cfg, batch, kind, backend="ref"),
+            params, state, batch)
+        del params, state
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_bst(dev) -> dict:
+    """13d: BST's CONFIG train step at RECSYS_SHAPES["train_batch"]
+    (65,536 rows, f32), the same checks as 13c."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.random import PRNGKey
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig
+    cfg = get_arch("bst").CONFIG
+    batch = bst_batch(0, batch=RECSYS_SHAPES["train_batch"]["batch"],
+                      seq_len=cfg.seq_len, item_vocab=cfg.item_vocab,
+                      cat_vocab=cfg.cat_vocab, multi_vocab=cfg.multi_vocab,
+                      device=dev)
+    opt = OptConfig(lr=TRAIN_LR)
+    params, state = S.init_train_state(PRNGKey(0), "recsys", cfg, opt,
+                                       device=dev)
+    out = check_train_step(
+        dev, "13d BST at train_batch", S.make_bst_train_step(cfg, opt),
+        lambda p: S.bst_loss(p, cfg, batch),
+        lambda p: S.bst_loss(p, cfg, batch, backend="ref"),
+        params, state, batch)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli() -> None:
+    """13e: `python -m repro_torch.launch.train --steps 20` (the smoke
+    config) on the card, in this process."""
+    from repro_torch.launch import train as train_cli_m
+    hist = train_cli_m.main(["--steps", "20"])
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    print(f"[train] 13e launch.train --steps 20 on the card: loss {first:.4f}"
+          f" -> {last:.4f}", flush=True)
+    need(math.isfinite(last) and last < first, "13e: the smoke training's "
+         "loss did not fall")
+
+
+def check_training(dev, stats) -> dict:
+    """Phase 13: training. Returns the phase's launches by table row (13b,
+    13b's 2-layer kernel runs, 13c, 13d)."""
+    check_flash_bwd(dev, stats)
+    check_segment_bwd(dev, stats)
+    stamp("phase 13a")
+    danube = train_danube(dev)
+    stamp("phase 13b danube")
+    two = check_train_2layer(dev)
+    stamp("phase 13b 2-layer checks")
+    gnns = train_gnns(dev)
+    bst = train_bst(dev)
+    stamp("phase 13c, 13d")
+    train_cli()
+    stamp("phase 13e")
+    counts: dict = {}
+    for c in (danube["counts"], two, *(g["counts"] for g in gnns.values()),
+              bst["counts"]):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    for name in ("flash_attention_bwd", "segment_matmul_bwd",
+                 "embedding_bag_bwd", "embedding_bag", "segment_matmul"):
+        need(counts.get(name, 0) > 0, f"phase 13 never launched {name}")
+    stats["flash_attention_bwd"]["training"] = dict(
+        danube_step_s=danube["step_s"], danube_peak=danube["peak"],
+        danube_tokens_per_s=danube["tokens_per_s"],
+        danube_loss=danube["loss"],
+        gnn_step_s={k: v["step_s"] for k, v in gnns.items()},
+        gnn_peak={k: v["peak"] for k, v in gnns.items()},
+        bst_step_s=bst["step_s"], bst_peak=bst["peak"])
+    print(f"[train] phase 13 launches {counts}", flush=True)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4814,100 +5539,12 @@ def _leaves(tree):
         yield tree
 
 
-def main() -> int:
-    from repro_torch.kernels import _build
-    from repro_torch.launch import full_width
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device(DEVICE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # bf16 products accumulate in f32 and round once, as XLA's dot does
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    smi = nvidia_smi()
-    print(f"[env] nvidia-smi: {smi}")
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"[env] kernel build and load {time.perf_counter() - t0:.2f}s")
-    stamp("the build")
-    for line in (_build.BUILD_DIR / "ptxas.txt").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
-
-    spec, lshp = full_data()
-    stats: dict = {}
-    check_lsh_hash(dev, stats, (spec.points, lshp))
-    check_roi_filter(dev, stats)
-    check_affinity_matvec(dev, stats)
-    check_lid_sweep(dev, stats)
-    check_bf16_kernels(dev, stats, (spec.points, lshp))
-    stamp("phase 2")
-    check_parity_fit(dev)
-    pspec, pcfg = engine_parity_data()
-    clean, shd_3b, rep_3b = check_engine_parity(dev, pspec, pcfg)
-    bf16_counts = check_engine_parity_bf16(dev, pspec, pcfg)
-    stamp("phases 3, 3b")
-    res, counts, rep_info = full_fit(dev, spec, lshp)
-    sharded, ooc_counts, shd = full_fit_sharded(dev, spec, lshp, res,
-                                                rep_info)
-    sharded["labels"] = shd.labels
-    stm_counts, _ = full_fit_streamed(dev, spec, lshp, rep_info, sharded)
-    del sharded
-    stamp("phases 4-4c")
-    fault_counts, resume_counts = check_fault_tolerance(
-        dev, pspec, pcfg, clean, spec, lshp, res)
-    del clean
-    torch.cuda.empty_cache()
-    stamp("phase 4d")
-    res16, cfg16, fit16_counts = full_fit_bf16(dev, spec, lshp, res,
-                                               rep_info)
-    online16 = check_online_bf16(dev, res16, spec.points, cfg16)
-    check_cli_bf16(dev)
-    del res16
-    torch.cuda.empty_cache()
-    stamp("phase 4e")
-    print(f"[bf16] launches of the fit kernels at bf16 storage: 3b "
-          f"{ {k: bf16_counts[k] for k in FIT_KERNELS} }, + 4e "
-          f"{fit16_counts}, + the online arm "
-          f"{ {k: online16[k] for k in FIT_KERNELS} }")
-    for name in FIT_KERNELS:
-        stats[name]["bf16"]["launches"] = (bf16_counts[name]
-                                           + fit16_counts[name]
-                                           + online16[name])
-        counts[name] += stats[name]["bf16"]["launches"]
-    print(f"[ooc] launches of the fit kernels: replicated "
-          f"{ {k: counts[k] for k in FIT_KERNELS} }, + sharded "
-          f"{ {k: ooc_counts[k] for k in FIT_KERNELS} }, + streamed "
-          f"{ {k: stm_counts[k] for k in FIT_KERNELS} }, + faults at "
-          f"n = 20,000 { {k: fault_counts[k] for k in FIT_KERNELS} }, + "
-          f"full-width resume { {k: resume_counts[k] for k in FIT_KERNELS} }")
-    for name in FIT_KERNELS:
-        counts[name] += ooc_counts[name] + stm_counts[name] \
-            + fault_counts[name] + resume_counts[name]
-    mix = serving_mix(spec.points, BULK_ROWS)
-    sup = check_assign(dev, stats, res, mix)
-    counts["assign"] = check_serving(dev, res, spec.points, mix,
-                                     sup)["assign"]
-    online = check_online(dev, res, spec.points, full_width.config(lshp))
-    for name in ONLINE_KERNELS:
-        counts[name] += online[name]
-    # phase 10 holds its fits to phase 4's and 4b's, on phase 4's data
-    mesh_ref = (spec.points, lshp, slim(res), slim(shd))
-    del res, shd, sup, mix, spec
-    torch.cuda.empty_cache()
-    stamp("phases 5, 5b")
-
-    check_affinity(dev, stats)
-    check_lid_unfused(dev)
-    check_peel_parity(dev)
-    counts["affinity"] = full_matrix_run(dev)["affinity"]
-    check_baselines(dev)
-    torch.cuda.empty_cache()
-    stamp("phase 6")
-
+def model_zoo(dev, stats) -> tuple:
+    """Phases 7, 8, 9, 12 and 13, which need no kernel of the late library
+    (`kernels._build.LATE_SOURCES`): they run first, while it builds.
+    Returns their launches by kernel table row and phase 9's forwards
+    (phase 10's references)."""
+    counts: dict = {}
     check_flash_attention(dev, stats)
     cfg, params, prompts, gen, mix_served, lm_counts = serve_lm(dev)
     counts["flash_attention"] = lm_counts["flash_attention"]
@@ -4940,6 +5577,130 @@ def main() -> int:
     stats["flash_attention"]["bst"]["launches"] = \
         bst_counts["flash_attention"]
 
+    moe_counts = check_moe(dev, stats)
+    for name, n in moe_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    stats["flash_attention"]["moe"]["launches"] = moe_counts
+    stamp("phase 12")
+
+    train = check_training(dev, stats)
+    for name, n in train.items():
+        counts[name] = counts.get(name, 0) + n
+    for name in ("flash_attention", "flash_attention_wgmma", "embedding_bag",
+                 "segment_matmul"):
+        stats[name]["training_launches"] = train.get(name, 0)
+    torch.cuda.empty_cache()
+    stamp("phase 13")
+    return counts, gnn_ref
+
+
+def print_ptxas(report: Path) -> None:
+    for line in report.read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[ptxas] {line.strip()}")
+
+
+def main() -> int:
+    from repro_torch.kernels import _build
+    from repro_torch.launch import full_width
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device(DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 and round once, as XLA's dot does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    smi = nvidia_smi()
+    print(f"[env] nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    _build.start_background_build()
+    _build.library()
+    print(f"[env] kernel build and load {time.perf_counter() - t0:.2f}s "
+          f"(the late library, {', '.join(_build.LATE_SOURCES)}, builds "
+          "meanwhile)")
+    stamp("the build")
+    print_ptxas(_build.BUILD_DIR / "ptxas.txt")
+    stats: dict = {}
+    zoo_counts, gnn_ref = model_zoo(dev, stats)
+    t0 = time.perf_counter()
+    _build.library().affinity_matvec_launch
+    print(f"[env] the late library loaded {time.perf_counter() - t0:.2f}s "
+          "after phase 13")
+    stamp("the late library")
+    print_ptxas(_build.BUILD_DIR / "ptxas-late.txt")
+
+    spec, lshp = full_data()
+    check_lsh_hash(dev, stats, (spec.points, lshp))
+    check_roi_filter(dev, stats)
+    check_affinity_matvec(dev, stats)
+    check_lid_sweep(dev, stats)
+    check_bf16_kernels(dev, stats, (spec.points, lshp))
+    stamp("phase 2")
+    check_parity_fit(dev)
+    pspec, pcfg = engine_parity_data()
+    shd_3b, rep_3b = check_engine_parity(dev, pspec, pcfg)
+    bf16_counts = check_engine_parity_bf16(dev, pspec, pcfg)
+    stamp("phases 3, 3b")
+    res, counts, rep_info = full_fit(dev, spec, lshp)
+    for name, n in zoo_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    sharded, ooc_counts, shd = full_fit_sharded(dev, spec, lshp, res,
+                                                rep_info)
+    sharded["labels"] = shd.labels
+    stm_counts, _ = full_fit_streamed(dev, spec, lshp, rep_info, sharded)
+    del sharded
+    stamp("phases 4-4c")
+    resume_counts = check_fault_tolerance(dev, spec, lshp, res)
+    torch.cuda.empty_cache()
+    stamp("phase 4d")
+    res16, cfg16, fit16_counts = full_fit_bf16(dev, spec, lshp, res,
+                                               rep_info)
+    online16 = check_online_bf16(dev, res16, spec.points, cfg16)
+    check_cli_bf16(dev)
+    del res16
+    torch.cuda.empty_cache()
+    stamp("phase 4e")
+    print(f"[bf16] launches of the fit kernels at bf16 storage: 3b "
+          f"{ {k: bf16_counts[k] for k in FIT_KERNELS} }, + 4e "
+          f"{fit16_counts}, + the online arm "
+          f"{ {k: online16[k] for k in FIT_KERNELS} }")
+    for name in FIT_KERNELS:
+        stats[name]["bf16"]["launches"] = (bf16_counts[name]
+                                           + fit16_counts[name]
+                                           + online16[name])
+        counts[name] += stats[name]["bf16"]["launches"]
+    print(f"[ooc] launches of the fit kernels: replicated "
+          f"{ {k: counts[k] for k in FIT_KERNELS} }, + sharded "
+          f"{ {k: ooc_counts[k] for k in FIT_KERNELS} }, + streamed "
+          f"{ {k: stm_counts[k] for k in FIT_KERNELS} }, + full-width "
+          f"resume { {k: resume_counts[k] for k in FIT_KERNELS} }")
+    for name in FIT_KERNELS:
+        counts[name] += ooc_counts[name] + stm_counts[name] \
+            + resume_counts[name]
+    mix = serving_mix(spec.points, BULK_ROWS)
+    sup = check_assign(dev, stats, res, mix)
+    counts["assign"] = check_serving(dev, res, spec.points, mix,
+                                     sup)["assign"]
+    online = check_online(dev, res, spec.points, full_width.config(lshp))
+    for name in ONLINE_KERNELS:
+        counts[name] += online[name]
+    # phase 10 holds its fits to phase 4's and 4b's, on phase 4's data
+    mesh_ref = (spec.points, lshp, slim(res), slim(shd))
+    del res, shd, sup, mix, spec
+    torch.cuda.empty_cache()
+    stamp("phases 5, 5b")
+
+    check_affinity(dev, stats)
+    check_lid_unfused(dev)
+    check_peel_parity(dev)
+    counts["affinity"] = full_matrix_run(dev)["affinity"]
+    check_baselines(dev)
+    torch.cuda.empty_cache()
+    stamp("phase 6")
+
     points, lshp, rep, shd = mesh_ref
     w1 = mesh_w1(dev, points, lshp, Slim(rep), Slim(shd))
     ranks = check_mesh(dev, points, lshp, Slim(rep), Slim(shd), pspec,
@@ -4963,12 +5724,6 @@ def main() -> int:
         counts[name] += check_counts[name] + golden_counts[name]
     stamp("phase 11")
 
-    moe_counts = check_moe(dev, stats)
-    for name, n in moe_counts.items():
-        counts[name] += n
-    stats["flash_attention"]["moe"]["launches"] = moe_counts
-    stamp("phase 12")
-
     table = []
     for name, s in stats.items():
         table.append({
@@ -4985,7 +5740,9 @@ def main() -> int:
                                        "converged_ms", "general_ms",
                                        "general_bound_ms",
                                        "general_bound_by", "gnn", "bf16",
-                                       "moe")
+                                       "moe", "cases", "training",
+                                       "port_only", "call_ms",
+                                       "training_launches")
                if key in s}})
     print(json.dumps({"kernels": table}))
     print(smi)

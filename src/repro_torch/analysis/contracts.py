@@ -251,6 +251,14 @@ def _flash(b, h, hkv, sq, sk, dh, q_offset=0, bf16=False, **mask):
     return pl.kernel, fa.small_smem_bytes(dh), "flash_attention"
 
 
+def _flash_bwd(h, hkv, s, dh):
+    """(route, dynamic bytes of its larger kernel, source) of the attention
+    backward's launches at one training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    pl = fa.bwd_plan(h, hkv, s, s, dh)
+    return pl.kernel, max(pl.dq_smem, pl.dkdv_smem), "flash_attention_bwd"
+
+
 def _plan(module: str, *shape):
     """(route, dynamic bytes, source) of a kernel whose plan names them."""
     import importlib
@@ -314,6 +322,24 @@ SMEM_CASES = (
     ("segment_matmul", "case 64 x 16 into 16", _none("segment_matmul")),
     ("segment_matmul", "61,859,328 x 100 into 2,449,029",
      _none("segment_matmul")),
+    # the backward kernels at the training paths' shapes (chip_smoke.py
+    # phase 13) and the widest head the kernel takes
+    ("flash_attention_bwd", "danube 32 / 8 x 5,120 x 80",
+     lambda: _flash_bwd(32, 8, 5120, 80)),
+    ("flash_attention_bwd", "gemma2 global 32 / 16 x 4,096 x 128",
+     lambda: _flash_bwd(32, 16, 4096, 128)),
+    ("flash_attention_bwd", "llama4 chunked 40 / 8 x 9,216 x 128",
+     lambda: _flash_bwd(40, 8, 9216, 128)),
+    ("flash_attention_bwd", "lm-100m 12 / 4 x 256 x 64",
+     lambda: _flash_bwd(12, 4, 256, 64)),
+    ("flash_attention_bwd", "dh 256, 4 / 4 x 100",
+     lambda: _flash_bwd(4, 4, 100, 256)),
+    ("flash_attention_bwd", "BST 8 x 21 x 21 x 4",
+     lambda: _flash_bwd(8, 8, 21, 4)),
+    ("segment_matmul_bwd", "61,859,328 x 100 from 2,449,029",
+     _none("segment_bwd")),
+    ("embedding_bag_bwd", "BST train_batch bags into 131,072 x 32",
+     _none("segment_bwd")),
 )
 
 

@@ -17,5 +17,5 @@ SMOKE_CONFIG = LMConfig(
     name="deepseek-smoke",
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
     d_ff=160, vocab=512, pattern=("full",), tie_embeddings=False,
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )

@@ -23,5 +23,5 @@ SMOKE_CONFIG = LMConfig(
     pattern=("local", "full"), window=8,
     attn_softcap=50.0, final_softcap=30.0,
     post_norms=True, embed_scale=True, tie_embeddings=True,
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )

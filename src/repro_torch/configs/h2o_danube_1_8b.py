@@ -18,5 +18,5 @@ SMOKE_CONFIG = LMConfig(
     name="danube-smoke",
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=128, vocab=512, pattern=("local",), window=8,
-    tie_embeddings=False, dtype=torch.float32,
+    tie_embeddings=False, dtype=torch.float32, remat=False,
 )

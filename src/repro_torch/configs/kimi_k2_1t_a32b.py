@@ -27,5 +27,5 @@ SMOKE_CONFIG = LMConfig(
     d_ff=32, vocab=512, pattern=("full",),
     moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, n_shared=1,
                   router="softmax", norm_topk=True, capacity_factor=2.0),
-    tie_embeddings=False, dtype=torch.float32,
+    tie_embeddings=False, dtype=torch.float32, remat=False,
 )

@@ -31,5 +31,5 @@ SMOKE_CONFIG = LMConfig(
     pattern=("chunked", "chunked", "chunked", "full_nope"), chunk=8,
     moe=MoEConfig(n_experts=4, top_k=1, d_ff=96, n_shared=1,
                   router="sigmoid", norm_topk=False, capacity_factor=2.0),
-    tie_embeddings=False, dtype=torch.float32,
+    tie_embeddings=False, dtype=torch.float32, remat=False,
 )

@@ -130,3 +130,17 @@ def _first_leaf(t):
     while isinstance(t, dict):
         t = next(iter(t.values()))
     return t
+
+
+def opt_state_from_numpy(state, kind: str = "lm", device="cuda") -> dict:
+    """The JAX package's optimizer state (`train.optimizers.init_opt_state`'s
+    tree as numpy arrays: {"step", "leaves"}, each leaf's {"m", "v"[,
+    "master"]} | {"vr", "vc"} | {"v"} | {"m"}) -> the port's, for the
+    params of a model family `kind` ("lm", "recsys" or "gnn", whose
+    stacked layers become a list as `gnn_params_from_numpy` makes them),
+    so that a JAX train checkpoint continues in the port."""
+    dev = resolve_device(device)
+    conv = gnn_params_from_numpy if kind == "gnn" else lm_params_from_numpy
+    step = np.asarray(state["step"]).astype(np.int32)
+    return {"step": torch.tensor(step, device=dev),
+            "leaves": conv(state["leaves"], dev)}

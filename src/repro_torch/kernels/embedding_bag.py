@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import require_cuda
-from repro_torch.kernels.segment_matmul import _check_rows, lane_plan
+from repro_torch.kernels.segment_matmul import (_check_rows, lane_plan,
+                                              segment_layout)
 
 # entries a block of the layout's pass takes (csrc/embedding_bag.cu kTile)
 PASS_TILE = 4096
@@ -74,3 +75,62 @@ def embedding_bag_cuda(table: torch.Tensor, idx: torch.Tensor,
 
 
 embedding_bag_cuda.launches = 0
+
+
+def bag_counts(idx: torch.Tensor, bag_ids: torch.Tensor, n_bags: int,
+               v_rows: int) -> torch.Tensor:
+    """(n_bags,) f32: each bag's entries that the forward reads (id >= 0,
+    bag in [0, n_bags)), the mean's divisor, at least 1."""
+    keys = torch.where((idx >= 0) & (bag_ids >= 0) & (bag_ids < n_bags),
+                       bag_ids.long(), n_bags)
+    cnt = torch.bincount(keys, minlength=n_bags + 1)[:n_bags]
+    return cnt.clamp(min=1).to(torch.float32)
+
+
+def embedding_bag_bwd_cuda(d_out: torch.Tensor, idx: torch.Tensor,
+                           bag_ids: torch.Tensor, v_rows: int,
+                           mode: str = "sum") -> torch.Tensor:
+    """The gradient of `embedding_bag_cuda`'s table (`csrc/segment_bwd.cu`,
+    the port's own): d_out (n_bags, dim) f32 or bf16, idx and bag_ids (N,)
+    int on the card -> d_table (v_rows, dim) in d_out's dtype. Row v sums,
+    in f32 in input order, d_out[bag_ids[e]] (divided by the bag's count
+    for `mode="mean"`) over the entries e the forward read whose id is v;
+    an id at or past v_rows (read as row v_rows - 1 by the forward) adds
+    nothing, as in the JAX package, whose transpose of the clamped gather
+    skips out-of-bounds rows; rows no entry names are 0. The layout by
+    table row is `segment_layout`'s stable sort; then one launch."""
+    dev = require_cuda("embedding_bag backward", d_out, idx, bag_ids)
+    _check_rows("embedding_bag backward d_out", d_out)
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got "
+                         f"{mode!r}")
+    if idx.dim() != 1 or bag_ids.shape != idx.shape:
+        raise ValueError(f"embedding_bag backward: idx{tuple(idx.shape)} and "
+                         f"bag_ids{tuple(bag_ids.shape)} must be one (N,)")
+    n, dim = d_out.shape
+    v = int(v_rows)
+    d_table = torch.empty((v, dim), dtype=d_out.dtype, device=dev)
+    if v == 0 or dim == 0:
+        return d_table
+    if bag_ids.dtype not in (torch.int32, torch.int64):
+        bag_ids = bag_ids.long()
+    d_out, bag_ids = d_out.contiguous(), bag_ids.contiguous()
+    named = (idx >= 0) & (idx < v) & (bag_ids >= 0) & (bag_ids < n)
+    keys = torch.where(named, idx.long(), v)
+    perm, bounds = segment_layout(keys, v)
+    counts = bag_counts(idx, bag_ids, n, v) if mode == "mean" else None
+    vec, group = lane_plan(dim, d_out.element_size(),
+                           d_out.data_ptr() | d_table.data_ptr())
+    err = _build.library().embedding_bag_bwd_launch(
+        d_out.data_ptr(), bag_ids.data_ptr(),
+        0 if counts is None else counts.data_ptr(), perm.data_ptr(),
+        bounds.data_ptr(), d_table.data_ptr(), v, dim, n,
+        int(d_out.dtype == torch.bfloat16),
+        int(bag_ids.dtype == torch.int64), vec, group,
+        _build.stream_ptr(dev))
+    _build.check("embedding_bag backward", err)
+    embedding_bag_bwd_cuda.launches += 1
+    return d_table
+
+
+embedding_bag_bwd_cuda.launches = 0

@@ -1,7 +1,9 @@
 """CUDA wrapper of the attention kernels (`csrc/flash_attention.cu`,
 `csrc/flash_wgmma.cu`), which replace the TPU kernel
 `flash_attention_pallas` of the JAX package, and the plan that picks one
-of them by shape and dtype (`kernel_plan`)."""
+of them by shape and dtype (`kernel_plan`); and of their backward
+(`csrc/flash_attention_bwd.cu`, the port's own: the JAX package
+differentiates its plain attention), planned by `bwd_plan`."""
 
 from __future__ import annotations
 
@@ -261,6 +263,150 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.by_path = dict.fromkeys(_PATHS, 0)
+
+
+# ------------------------------------------------------------- backward --
+BWD_PATHS = ("tiles", "small")
+# launches of the backward kernels, counted apart: the tiles route's two
+# and the small route's one
+BWD_KERNELS = ("dq", "dkdv", "small")
+
+
+class BwdPlan(NamedTuple):
+    """The backward route of a call and, for "tiles", its tiles: hb q
+    heads times ppt positions (rp rows, padded to 4) a query tile, bc keys
+    a kv tile in the dQ kernel, bk keys a block in the dK / dV kernel, and
+    each kernel's dynamic shared bytes (the small route's in dq_smem)."""
+    kernel: str
+    hb: int = 0
+    ppt: int = 0
+    rp: int = 0
+    bc: int = 0
+    bk: int = 0
+    dq_smem: int = 0
+    dkdv_smem: int = 0
+
+
+def bwd_dq_smem(dh: int, rp: int, bc: int) -> int:
+    """Bytes of `flash_bwd_dq_kernel`'s layout: Q and dO transposed ([dh4]
+    rows of rp + 4), K and V transposed ([dh4] rows of bc + 4), the score /
+    dS tile, the dQ accumulators and three floats a row."""
+    dh4 = -(-dh // 4) * 4
+    return 4 * (2 * dh4 * (rp + 4) + 2 * dh4 * (bc + 4) + rp * (bc + 4)
+                + rp * dh4 + 3 * rp)
+
+
+def bwd_dkdv_smem(dh: int, rp: int, bk: int) -> int:
+    """Bytes of `flash_bwd_dkdv_kernel`'s layout: K and V transposed, Q and
+    dO transposed, the P and dS tiles, the dK and dV accumulators and two
+    floats a row."""
+    dh4 = -(-dh // 4) * 4
+    return 4 * (2 * dh4 * (bk + 4) + 2 * dh4 * (rp + 4) + 2 * rp * (bk + 4)
+                + 2 * bk * dh4 + 2 * rp)
+
+
+def bwd_small_smem(dh: int) -> int:
+    """A warp's K, V, Q and dO (32 rows of dh rounded up to 4, 8 or 16) and
+    its P and dS (32 x 33), for each of a block's 8 warps, as f32."""
+    dp = next(w for w in (4, 8, 16) if dh <= w)
+    return 4 * _WARPS * (4 * SMALL_S * dp + 2 * SMALL_S * (SMALL_S + 1))
+
+
+def bwd_plan(h: int, hkv: int, sq: int, sk: int, dh: int) -> BwdPlan:
+    """The backward's route: "small" where Sq and Sk are at most 32 and dh
+    at most 16 (BST), else "tiles" with the forward tile kernel's query
+    rows (all rep heads of a kv head times as many positions as fill 64
+    rows, 32 past dh = 96) and the largest key tiles of 64, 32 or 16 that
+    fit each kernel's shared memory."""
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention backward: head_dim {dh} > "
+                         f"{MAX_HEAD_DIM}")
+    if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH:
+        return BwdPlan("small", dq_smem=bwd_small_smem(dh))
+    rep = h // hkv
+    rows = 64 if dh <= 96 else 32
+    hb = min(rep, rows)
+    ppt = min(max(1, rows // hb), sq)
+    rp = -(-(hb * ppt) // 4) * 4
+    bc = next((c for c in (64, 32, 16)
+               if bwd_dq_smem(dh, rp, c) <= SMEM_MAX), None)
+    bk = next((c for c in (64, 32, 16)
+               if bwd_dkdv_smem(dh, rp, c) <= SMEM_MAX), None)
+    if bc is None or bk is None:
+        raise ValueError(f"flash_attention backward: no tile of head_dim "
+                         f"{dh} fits in {SMEM_MAX} bytes of shared memory")
+    return BwdPlan("tiles", hb, ppt, rp, bc, bk, bwd_dq_smem(dh, rp, bc),
+                   bwd_dkdv_smem(dh, rp, bk))
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window=None, chunk=None, softcap=None,
+                             scale=None):
+    """dQ, dK, dV of `flash_attention_cuda(q, k, v, 0, causal=, window=,
+    chunk=, softcap=, scale=)` with output `out` for its gradient `dout`:
+    (B, H, Sq, dh), (B, Hkv, Sk, dh) twice, in q's dtype, summed in f32 and
+    rounded once; dK and dV summed over each kv head's query heads in a
+    fixed order, so two calls give the same bits. q, k, v are read through
+    their strides (the last dim contiguous), `out` and `dout` made
+    contiguous. Training passes no q_offset and no kv_start, so neither
+    is taken. `bwd_plan`'s route: two launches ("tiles": dQ with lse and D,
+    then dK / dV) or one ("small"); `flash_attention_bwd_cuda.by_path`
+    counts each kernel's."""
+    dev = require_cuda("flash_attention backward", q, k, v, out, dout)
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in (k, v, out, dout)):
+        raise TypeError(f"flash_attention backward: q, k, v, out, dout must "
+                        f"all be float32 or all bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {out.dtype}, {dout.dtype}")
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, hkv, sk, dh) or v.shape != k.shape or \
+            out.shape != q.shape or dout.shape != q.shape or hkv == 0 or \
+            h % hkv != 0:
+        raise ValueError(f"flash_attention backward: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"out{tuple(out.shape)} dout{tuple(dout.shape)}")
+    if hkv > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention backward: Hkv={hkv} exceeds "
+                         f"{_MAX_GRID_YZ}")
+    dq = torch.empty((b, h, sq, dh), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, hkv, sk, dh), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    plan = bwd_plan(h, hkv, sq, sk, dh)
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out, dout = out.contiguous(), dout.contiguous()
+    scale = dh ** -0.5 if scale is None else scale
+    lse = dsum = None
+    if plan.kernel == "tiles":
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        dsum = torch.empty_like(lse)
+    err = _build.library().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
+        0 if dsum is None else dsum.data_ptr(), b, h, hkv, sq, sk, dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
+        int(window or 0), int(chunk or 0), float(softcap or 0.0),
+        float(scale), int(q.dtype == torch.bfloat16),
+        BWD_PATHS.index(plan.kernel), plan.hb, plan.ppt, plan.rp, plan.bc,
+        plan.bk, plan.dq_smem, plan.dkdv_smem, _build.stream_ptr(dev))
+    _build.check("flash_attention backward", err)
+    if plan.kernel == "tiles":
+        flash_attention_bwd_cuda.launches += 2
+        flash_attention_bwd_cuda.by_path["dq"] += 1
+        flash_attention_bwd_cuda.by_path["dkdv"] += 1
+    else:
+        flash_attention_bwd_cuda.launches += 1
+        flash_attention_bwd_cuda.by_path["small"] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.by_path = dict.fromkeys(BWD_KERNELS, 0)
 
 
 def _bf16_ordinal(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,19 @@ A CUDA tensor never falls back to the plain version: a kernel that does not
 build or launch raises, and so does a norm other than p = 2, which the
 kernels do not compute. Each kernel wrapper counts its launches
 (`launch_counts`), so a run can show that the fit went through the kernels.
+
+Gradients. On the "ref" route every op is plain torch, which autograd
+differentiates. On the kernel route the three ops that training runs,
+`flash_attention`, `segment_matmul` and `embedding_bag`, are each an
+`autograd.Function`: the forward kernel, then a backward kernel of the
+port's own (`csrc/flash_attention_bwd.cu`, `csrc/segment_bwd.cu`; the JAX
+package differentiates its plain versions), all free of atomics, so a
+step's gradients are the same bits from run to run. The other six kernels
+have no backward: called on the kernel route with an input that requires
+grad, they raise rather than return a result silently cut from the graph.
+`gather_rows` is `table[idx]` whose backward sums the rows' gradients by
+index through `segment_matmul` in input order, in place of the atomic
+scatter-add of torch's own indexing backward on the card.
 """
 
 from __future__ import annotations
@@ -29,12 +42,15 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.affinity import affinity_cuda
 from repro_torch.kernels.affinity_matvec import affinity_matvec_cuda
 from repro_torch.kernels.assign import assign_cuda
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.embedding_bag import (embedding_bag_bwd_cuda,
+                                               embedding_bag_cuda)
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.lid_sweep import lid_sweep_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.roi_filter import roi_filter_cuda
-from repro_torch.kernels.segment_matmul import segment_matmul_cuda
+from repro_torch.kernels.segment_matmul import (segment_matmul_bwd_cuda,
+                                                segment_matmul_cuda)
 
 BACKENDS = ("auto", "ref", "kernel")
 DTYPES = ("float32", "bfloat16")
@@ -95,6 +111,9 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "embedding_bag": embedding_bag_cuda,
     "segment_matmul": segment_matmul_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
+    "segment_matmul_bwd": segment_matmul_bwd_cuda,
+    "embedding_bag_bwd": embedding_bag_bwd_cuda,
 }
 
 
@@ -104,8 +123,8 @@ def launch_counts() -> dict[str, int]:
 
 def path_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel behind a wrapper that picks one of several
-    by a plan (`flash_attention`, `assign`, `affinity`, `lsh_hash`), by
-    the plan's name."""
+    by a plan (`flash_attention`, its backward, `assign`, `affinity`,
+    `lsh_hash`), by the plan's name."""
     return {name: dict(fn.by_path) for name, fn in KERNELS.items()
             if hasattr(fn, "by_path")}
 
@@ -130,6 +149,23 @@ def resolve_backend(backend: str, t: torch.Tensor) -> str:
     if backend == "auto":
         return "kernel" if on_card else "ref"
     return backend
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a graph through these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(op: str, *tensors: torch.Tensor) -> None:
+    """The kernel route of an op without a backward kernel refuses inputs
+    that require grad: its raw-pointer launch would give a result with no
+    grad_fn, silently cut from the graph."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{op}: the kernel has no backward; an input requires grad. Run "
+            "it under torch.no_grad() or detach the inputs (backend='ref' "
+            "differentiates the plain version)")
 
 
 def check_norm(mode: str, p: float, op: str) -> None:
@@ -160,6 +196,7 @@ def affinity(q, c, k_scale: float, p: float = 2.0, *, backend: str = "auto"):
     check_norm(mode, p, "affinity")
     if mode == "ref":
         return _ref.affinity_ref(q, c, k_scale, p)
+    no_backward("affinity", q, c)
     if q.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"affinity: the kernel takes float32 only, got "
                         f"{q.dtype} and {c.dtype} (bf16 rows in this "
@@ -178,6 +215,7 @@ def affinity_matvec(q, q_idx, c, c_idx, w, k_scale: float, p: float = 2.0,
     check_norm(mode, p, "affinity_matvec")
     if mode == "ref":
         return _ref.affinity_matvec_ref(q, q_idx, c, c_idx, w, k_scale, p)
+    no_backward("affinity_matvec", q, c, w)
     if q.dim() == 2:
         return affinity_matvec_cuda(q[None], q_idx[None], c[None],
                                     c_idx[None], w[None], k_scale)[0]
@@ -199,6 +237,7 @@ def lid_sweep(v_beta, beta_idx, beta_mask, x, ax, n_iters, converged,
                                   n_iters, converged, k_scale, n_steps,
                                   max_iters, tol, p, refresh_every,
                                   support_eps)
+    no_backward("lid_sweep", v_beta, x, ax)
     return lid_sweep_cuda(v_beta, beta_idx, beta_mask, x, ax, n_iters,
                           converged, k_scale, n_steps=n_steps,
                           max_iters=max_iters, tol=tol,
@@ -219,6 +258,8 @@ def roi_filter(vc, center, radius, valid, p: float = 2.0, *,
         return dist, ok, torch.where(ok, -dist, float("-inf"))
     if mode == "ref":
         return _ref.roi_filter_ref(vc, center, radius, valid)
+    no_backward("roi_filter", vc, center,
+                radius if torch.is_tensor(radius) else None)
     radius = torch.as_tensor(radius, dtype=torch.float32, device=vc.device)
     if vc.dim() == 2:
         dist, ok, neg = roi_filter_cuda(vc[None], center[None],
@@ -233,6 +274,7 @@ def lsh_hash(x, proj, bias, seg_len: float, *, backend: str = "auto"):
     mode = resolve_backend(backend, x)
     if mode == "ref":
         return _ref.lsh_hash_ref(x, proj, bias, seg_len)
+    no_backward("lsh_hash", x, proj, bias)
     return lsh_hash_cuda(x, proj, bias, seg_len)
 
 
@@ -259,6 +301,7 @@ def assign_clusters(q, sup_v, sup_w, dens, k_scale, threshold, valid=None,
                 torch.zeros((m,), dtype=torch.float32, device=q.device))
     if mode == "ref":
         return _ref.assign_ref(q, sup_v, sup_w, dens, k, thr, valid)
+    no_backward("assign_clusters", q, sup_v, sup_w, dens)
     return assign_cuda(q, sup_v, sup_w, dens, k, thr, valid)
 
 
@@ -275,13 +318,28 @@ def flash_attention(q, k, v, q_offset: int = 0, *, causal: bool = True,
     as the uniform average of V from the plain version, as in the JAX
     package; such rows are the pad slots of a packed batch, which no real
     row reads. `flat_gqa` only chooses the plain version's einsum form in
-    the JAX package; both compute the same products."""
+    the JAX package; both compute the same products.
+
+    Differentiable on both routes; on the kernel route the backward is
+    `csrc/flash_attention_bwd.cu`, which takes no `q_offset` and no
+    `kv_start` (training passes neither): a call with either whose inputs
+    require grad raises NotImplementedError."""
     mode = resolve_backend(backend, q)
     if mode == "ref":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   chunk=chunk, softcap=softcap,
                                   q_offset=int(q_offset), scale=scale,
                                   flat_gqa=flat_gqa, kv_start=kv_start)
+    if wants_grad(q, k, v):
+        if int(q_offset) != 0 or kv_start is not None:
+            raise NotImplementedError(
+                "flash_attention: the backward kernel takes no q_offset and "
+                "no kv_start (training passes neither); got q_offset="
+                f"{int(q_offset)}, kv_start "
+                f"{'given' if kv_start is not None else 'None'}")
+        return _FlashAttention.apply(q, k, v, dict(
+            causal=causal, window=window, chunk=chunk, softcap=softcap,
+            scale=scale))
     return flash_attention_cuda(q, k, v, int(q_offset), causal=causal,
                                 window=window, chunk=chunk, softcap=softcap,
                                 scale=scale, kv_start=kv_start)
@@ -299,6 +357,8 @@ def embedding_bag(table, idx, bag_ids, n_bags: int, mode: str = "sum", *,
     kmode = resolve_backend(backend, table)
     if kmode == "ref":
         return _ref.embedding_bag_ref(table, idx, bag_ids, n_bags, mode)
+    if wants_grad(table):
+        return _EmbeddingBag.apply(table, idx, bag_ids, int(n_bags), mode)
     return embedding_bag_cuda(table, idx, bag_ids, n_bags, mode)
 
 
@@ -310,4 +370,86 @@ def segment_matmul(msg, seg_ids, n_segments: int, *, backend: str = "auto"):
     mode = resolve_backend(backend, msg)
     if mode == "ref":
         return _ref.segment_matmul_ref(msg, seg_ids, n_segments)
+    if wants_grad(msg):
+        return _SegmentMatmul.apply(msg, seg_ids, int(n_segments))
     return segment_matmul_cuda(msg, seg_ids, n_segments)
+
+
+def gather_rows(table, idx, *, backend: str = "auto"):
+    """table[idx]: rows of table (V, ...) by idx (any shape, ids in [0,
+    V)). Its gradient with respect to the table sums the rows' gradients
+    into their ids through `segment_matmul` (each id's rows in input
+    order, from +0, in f32, rounded once), so it is the same bits from run
+    to run on the card, where torch's own indexing backward adds by
+    atomics. Without a graph to record it is plain indexing."""
+    if not wants_grad(table):
+        return table[idx]
+    return _GatherRows.apply(table, idx, backend)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The attention kernel and its backward kernel (kernel route)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out = flash_attention_cuda(q, k, v, 0, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.kw)
+        return dq, dk, dv, None
+
+
+class _SegmentMatmul(torch.autograd.Function):
+    """The segment-sum kernel and its backward, the row gather."""
+
+    @staticmethod
+    def forward(ctx, msg, seg_ids, n_segments):
+        ctx.save_for_backward(seg_ids)
+        ctx.n_rows = msg.shape[0]
+        return segment_matmul_cuda(msg, seg_ids, n_segments)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        seg_ids, = ctx.saved_tensors
+        return segment_matmul_bwd_cuda(d_out, seg_ids, ctx.n_rows), None, \
+            None
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The EmbeddingBag kernel and its backward, the table's segment sum."""
+
+    @staticmethod
+    def forward(ctx, table, idx, bag_ids, n_bags, mode):
+        ctx.save_for_backward(idx, bag_ids)
+        ctx.v_rows, ctx.mode = table.shape[0], mode
+        return embedding_bag_cuda(table, idx, bag_ids, n_bags, mode)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        idx, bag_ids = ctx.saved_tensors
+        return (embedding_bag_bwd_cuda(d_out, idx, bag_ids, ctx.v_rows,
+                                       ctx.mode), None, None, None, None)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[idx], its table gradient a segment sum keyed by idx."""
+
+    @staticmethod
+    def forward(ctx, table, idx, backend):
+        ctx.save_for_backward(idx)
+        ctx.v_rows, ctx.backend = table.shape[0], backend
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        width = grad.shape[idx.dim():]
+        flat = grad.reshape(idx.numel(), -1)
+        d_table = segment_matmul(flat, idx.reshape(-1), ctx.v_rows,
+                                 backend=ctx.backend)
+        return d_table.reshape(ctx.v_rows, *width), None, None

@@ -435,6 +435,60 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None, chunk=None,
                          **kw) for i in range(0, sq, block_q)], dim=2)
 
 
+def attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
+                      window=None, chunk=None, softcap=None, scale=None,
+                      block_q: int = 1024):
+    """The backward of `attention_ref` (q_offset 0, no kv_start: training's
+    calls), written out: (dq, dk, dv) in q's dtype, computed in f32 from
+    q, k, v, the forward's output `out` and its gradient `dout`. With S
+    the logits after scale and softcap, masked pairs excluded, P = exp(S -
+    lse), D = rowsum(dout o out),
+        dP = dout V^T, dS = P o (dP - D) o (1 - (S / c)^2 under softcap c),
+        dq = scale dS K, dk = scale sum_rep dS^T Q, dv = sum_rep P^T dout,
+    dk and dv summed over each kv head's query heads. This is the plain
+    version the backward kernels (`csrc/flash_attention_bwd.cu`) are held
+    to; torch's autograd of `attention_ref` computes the same function
+    (D from the softmax's own output). Rows of q are taken `block_q` at a
+    time, so the live logits are (B, H, block_q, Sk). A row that attends
+    nothing gets P = 0 here (the kernel's 0 output), not the plain
+    forward's uniform average."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = (dh ** -0.5) if scale is None else scale
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros((b, hkv, sk, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for i in range(0, sq, block_q):
+        n = min(block_q, sq - i)
+        qb = q[:, :, i:i + n].float().reshape(b, hkv, rep * n, dh)
+        ob = dout[:, :, i:i + n].float()
+        dsum = (ob * out[:, :, i:i + n].float()).sum(-1)
+        ob = ob.reshape(b, hkv, rep * n, dh)
+        s = torch.matmul(qb, kf.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.view(b, hkv, rep, n, sk)
+        mask = attention_mask(n, sk, i, causal=causal, window=window,
+                              chunk=chunk, device=q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dp = torch.matmul(ob, vf.transpose(-1, -2)).view(b, hkv, rep, n, sk)
+        ds = p * (dp - dsum.view(b, hkv, rep, n, 1))
+        if softcap is not None:
+            t = torch.where(mask, s / softcap, 0.0)
+            ds = ds * (1.0 - t * t)
+        ds = (ds * scale).view(b, hkv, rep * n, sk)
+        p = p.view(b, hkv, rep * n, sk)
+        dq[:, :, i:i + n] = torch.matmul(ds, kf).view(b, h, n, dh)
+        dk += torch.matmul(ds.transpose(-1, -2), qb)
+        dv += torch.matmul(p.transpose(-1, -2), ob)
+        del s, p, dp, ds
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 # ------------------------------------------- segment sums: bags, messages --
 def segment_sum_ref(rows, seg: torch.Tensor, valid: torch.Tensor, n: int,
                     d: int, mean: bool = False) -> torch.Tensor:
@@ -503,3 +557,45 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
     out = segment_sum_ref(lambda e: table[idx[e]], bags, valid, n_bags,
                           table.shape[1], mean=mode == "mean")
     return out.to(table.dtype)
+
+
+def segment_matmul_bwd_ref(d_out: torch.Tensor, seg_ids: torch.Tensor,
+                           n_rows: int) -> torch.Tensor:
+    """The gradient of `segment_matmul_ref`'s messages: (n_rows, d) in
+    d_out's dtype, row e = d_out[seg_ids[e]] where the id lies in [0,
+    n_segments), 0 for the rows the forward skipped."""
+    n = d_out.shape[0]
+    seg = seg_ids.to(torch.int64)
+    valid = (seg >= 0) & (seg < n)
+    if n == 0:
+        return d_out.new_zeros((int(n_rows), d_out.shape[1]))
+    return d_out[seg.clamp(0, n - 1)].masked_fill_(~valid[:, None], 0)
+
+
+def embedding_bag_bwd_ref(d_out: torch.Tensor, idx: torch.Tensor,
+                          bag_ids: torch.Tensor, v_rows: int,
+                          mode: str = "sum") -> torch.Tensor:
+    """The gradient of `embedding_bag_ref`'s table: (v_rows, dim) in
+    d_out's dtype. Row v sums d_out[bag_ids[e]] in f32 (divided by the
+    bag's count, at least 1, for `mode="mean"`) over the entries the
+    forward read (id >= 0, bag in [0, n_bags)) whose id is v; an id at or
+    past v_rows (read as the last row by the forward) adds nothing, as in
+    the JAX package, whose transpose of the clamped gather skips
+    out-of-bounds rows; in the order of `segment_sum_ref` (each row from
+    +0, its entries in input order), rounded once. Rows no entry names are
+    0."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got "
+                         f"{mode!r}")
+    n_bags = d_out.shape[0]
+    ids = idx.to(torch.int64)
+    bags = bag_ids.to(torch.int64)
+    read = (ids >= 0) & (bags >= 0) & (bags < n_bags)
+    g = d_out.float()
+    if mode == "mean":
+        cnt = torch.bincount(torch.where(read, bags, n_bags),
+                             minlength=n_bags + 1)[:n_bags]
+        g = g / cnt.clamp(min=1).float()[:, None]
+    out = segment_sum_ref(lambda e: g[bags[e]], ids, read & (ids < v_rows),
+                          v_rows, d_out.shape[1])
+    return out.to(d_out.dtype)

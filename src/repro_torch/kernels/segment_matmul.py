@@ -88,3 +88,38 @@ def segment_matmul_cuda(msg: torch.Tensor, seg_ids: torch.Tensor,
 
 
 segment_matmul_cuda.launches = 0
+
+
+def segment_matmul_bwd_cuda(d_out: torch.Tensor, seg_ids: torch.Tensor,
+                            n_rows: int) -> torch.Tensor:
+    """The gradient of `segment_matmul_cuda`'s messages (`csrc/
+    segment_bwd.cu`, the port's own): d_out (n_segments, d) f32 or bf16
+    and seg_ids (E,) int on the card -> d_msg (E, d) in d_out's dtype,
+    row e = d_out[seg_ids[e]] where the id lies in [0, n_segments), 0 for
+    the rows the forward skipped. A gather, so bit-equal to its plain
+    version. One launch."""
+    dev = require_cuda("segment_matmul backward", d_out, seg_ids)
+    _check_rows("segment_matmul backward d_out", d_out)
+    n, d = d_out.shape
+    e = int(n_rows)
+    if tuple(seg_ids.shape) != (e,):
+        raise ValueError(f"segment_matmul backward: seg_ids"
+                         f"{tuple(seg_ids.shape)} for {e} messages")
+    d_msg = torch.empty((e, d), dtype=d_out.dtype, device=dev)
+    if e == 0 or d == 0:
+        return d_msg
+    if seg_ids.dtype not in (torch.int32, torch.int64):
+        seg_ids = seg_ids.long()
+    d_out, seg_ids = d_out.contiguous(), seg_ids.contiguous()
+    vec, _ = lane_plan(d, d_out.element_size(),
+                       d_out.data_ptr() | d_msg.data_ptr())
+    err = _build.library().segment_matmul_bwd_launch(
+        d_out.data_ptr(), seg_ids.data_ptr(), d_msg.data_ptr(), e, n, d,
+        int(d_out.dtype == torch.bfloat16),
+        int(seg_ids.dtype == torch.int64), vec, _build.stream_ptr(dev))
+    _build.check("segment_matmul backward", err)
+    segment_matmul_bwd_cuda.launches += 1
+    return d_msg
+
+
+segment_matmul_bwd_cuda.launches = 0

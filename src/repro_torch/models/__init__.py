@@ -1,4 +1,4 @@
 """Models of the JAX package's zoo: the decoder-only LMs (`transformer`),
-dense and MoE (`moe`, serving), BST (`bst`, serving), the four GNNs
-(`gnn`, forward) and their building blocks (`layers`). Training waits for
-ROADMAP A16."""
+dense and MoE (`moe`), BST (`bst`), the four GNNs (`gnn`) and their
+building blocks (`layers`), each differentiable for the train steps of
+`train.steps`."""

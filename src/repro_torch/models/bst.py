@@ -12,8 +12,10 @@ candidate items as one batched forward, the user's inputs broadcast.
 Attention goes through `kernels.ops.flash_attention` (dh = 4, not causal)
 and the multi-hot fields through `kernels.ops.embedding_bag`; every entry
 point takes `backend` ("auto" | "ref" | "kernel") and hands it down to
-both. The sequence and target lookups stay plain indexing, as in the JAX
-package. Its sharding constraint (`constrain`) has no counterpart on one
+both. The sequence and target lookups are plain indexing, as in the JAX
+package, through `kernels.ops.gather_rows`, whose gradient sums each
+table row's entries in input order (`train.steps.bst_loss` trains the
+model; the attention's and the bags' backward are kernels too). Its sharding constraint (`constrain`) has no counterpart on one
 card, and dropout none in serving (the JAX model keeps it for config
 fidelity only).
 """
@@ -143,7 +145,8 @@ def forward(params: dict, cfg: BSTConfig, inp: BSTInputs,
     bsz = inp.seq_items.shape[0]
     items = torch.cat([inp.seq_items, inp.target_item[:, None]], dim=1)
     cats = torch.cat([inp.seq_cats, inp.target_cat[:, None]], dim=1)
-    x = (params["item_table"][items] + params["cat_table"][cats]
+    x = (ops.gather_rows(params["item_table"], items, backend=backend)
+         + ops.gather_rows(params["cat_table"], cats, backend=backend)
          + params["pos_embed"][None])
     x = x.to(cfg.dtype)
     for b in params["blocks"]:

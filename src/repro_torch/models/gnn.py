@@ -23,11 +23,16 @@ Under a mesh context the forward splits the nodes and edges over the
 ranks, as the JAX model's shard_map branch does (`forward`,
 `sharded_message_pass`).
 
-Forward only: training waits for backward kernels (ROADMAP A16). The JAX
-model's `lax.scan` over stacked layers is a loop here; `remat` is kept in
-the config and has no effect without a backward pass. The JAX model's
-sharding constraints (`constrain`) place tensors for XLA; here the split
-is explicit, so they have no counterpart.
+Training (`train.steps.make_gnn_train_step`) differentiates `forward`:
+the segment sums' backward is the row gather of `csrc/segment_bwd.cu`, and
+the gathers h[src] / h[dst] go through `kernels.ops.gather_rows`, whose
+backward is a segment sum keyed by the source in input order, not torch's
+atomic scatter-add, so a step's gradients are the same bits from run to
+run. The JAX model's `lax.scan` over stacked layers is a loop here;
+`cfg.remat` checkpoints each layer under autograd as its `jax.checkpoint`
+does. The JAX model's sharding constraints (`constrain`) place tensors for
+XLA; here the split is explicit, so they have no counterpart; training
+under a mesh waits for ROADMAP A16's dry-run.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
 from repro_torch.core.alid import resolve_device
@@ -70,8 +76,7 @@ class GNNConfig:
     d_edge_in: int = 4          # raw edge features (mgn/graphcast stub:
                                 # displacement)
     graph_level: bool = False   # pool to per-graph outputs (molecule shape)
-    remat: bool = True          # the JAX model's per-layer checkpoint; no
-                                # effect in a forward pass
+    remat: bool = True          # checkpoint each layer under autograd
     dtype: Any = torch.float32
 
 
@@ -167,10 +172,12 @@ def sharded_message_pass(h, edge_fn, src, dst, valid, n_nodes, aggregator,
          (`_aggregate`)."""
     if mesh is not None:
         h = all_gather(h, mesh.group)
+    hs = ops.gather_rows(h, src, backend=backend)
     if edge_fn is None:
-        msg, e_out = h[src], edge_feat
+        msg, e_out = hs, edge_feat
     else:
-        msg, e_out = edge_fn(h[src], h[dst], edge_feat)
+        msg, e_out = edge_fn(hs, ops.gather_rows(h, dst, backend=backend),
+                             edge_feat)
     return _aggregate(msg, dst, n_nodes, aggregator, valid, backend,
                       mesh), e_out
 
@@ -301,8 +308,13 @@ def forward(params: dict, cfg: GNNConfig, g: GraphBatch,
             (g.edge_src.shape[0], cfg.d_edge_in), dtype=cfg.dtype,
             device=h.device)
         e = L.mlp_apply(params["edge_encoder"], ef.to(cfg.dtype))
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        h, e = apply_layer(lp, cfg, h, e, edges, backend, mesh)
+        if remat:
+            h, e = checkpoint(apply_layer, lp, cfg, h, e, edges, backend,
+                              mesh, use_reentrant=False)
+        else:
+            h, e = apply_layer(lp, cfg, h, e, edges, backend, mesh)
     out = L.mlp_apply(params["decoder"], h)
     if cfg.graph_level:
         if gids is None:

@@ -96,7 +96,11 @@ _SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.gelu` with its default approximate=True (the tanh form),
     term for term: x * 0.5 * (1 + tanh(sqrt(2/pi) (x + 0.044715 x**3)))
-    with jax's constants rounded to f32 first, in one buffer beside x."""
+    with jax's constants rounded to f32 first, in one buffer beside x
+    (out of place, the same operations, where autograd records x)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        cdf = torch.tanh((x * x * x * 0.044715 + x) * _SQRT_2_OVER_PI)
+        return (cdf + 1.0) * 0.5 * x
     cdf = x * x
     cdf.mul_(x).mul_(0.044715).add_(x).mul_(_SQRT_2_OVER_PI).tanh_()
     cdf.add_(1.0).mul_(0.5)

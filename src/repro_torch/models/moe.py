@@ -29,6 +29,12 @@ Points the JAX package's numbers depend on, kept here:
   jnp.sum upcasts a bf16 sum to f32, and XLA's CPU reduce adds the k
   terms in order (tests/test_torch_moe.py holds the port to it bitwise
   on equal inputs).
+
+Under autograd (training) the one-process dispatch runs the same
+products without `out=`, so that the router, dispatch, experts, combine
+and aux loss are differentiable (tests/test_torch_train.py holds llama4's
+smoke loss and gradients to JAX's); no MoE config trains on one card, and
+the mesh branch trains with the dry-run (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from repro_torch.core.alid import resolve_device
 from repro_torch.distributed.context import (all_gather, all_reduce_sum,
                                              all_to_all, axes_size,
                                              axis_group, get_mesh_context)
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -201,6 +208,10 @@ def _dispatch_combine(params, cfg: MoEConfig, x: torch.Tensor, group=None,
     logits, gates, eidx = route(params["router"], cfg, x)
     aux = aux_loss(logits, eidx, cfg)
     _, keep, dst = dispatch_plan(eidx, e, cap)
+    if info is not None:
+        info.update(capacity=cap, dropped=int((~keep).sum()), eidx=eidx)
+        if _KEEP_INPUTS:
+            info.update(x=x, keep=keep)
 
     # every entry is scattered, the dropped ones onto the spare row E * C,
     # and the experts' output keeps a zero spare row for them to read:
@@ -209,6 +220,14 @@ def _dispatch_combine(params, cfg: MoEConfig, x: torch.Tensor, group=None,
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[dst] = x[tok_of]
     buf = buf[:-1].view(e, cap, d)
+    if group is None and ops.wants_grad(
+            x, *(w for w in params.values() if torch.is_tensor(w))):
+        # training (on the CPU: no MoE config trains on one card): the
+        # same products without `out=`, which autograd does not take
+        y = _swiglu_experts(params, buf).reshape(e * cap, d)
+        h = torch.cat([y, y.new_zeros((1, d))])
+        vals = h[dst].view(t, k, d) * gates.to(x.dtype)[..., None]
+        return _combine(vals, k, x.dtype), aux
     h = torch.empty((e * cap + 1, d), dtype=x.dtype, device=x.device)
     h[-1].zero_()
     into = h[:-1].view(e, cap, d)
@@ -225,14 +244,15 @@ def _dispatch_combine(params, cfg: MoEConfig, x: torch.Tensor, group=None,
         _swiglu_experts(params, buf, out=into)
 
     vals = h[dst].view(t, k, d) * gates.to(x.dtype)[..., None]
+    return _combine(vals, k, x.dtype), aux
+
+
+def _combine(vals: torch.Tensor, k: int, dtype) -> torch.Tensor:
+    """The k gated expert outputs (T, k, D) summed in f32 in k order."""
     out = vals[:, 0].float()
     for j in range(1, k):
         out = out + vals[:, j].float()
-    if info is not None:
-        info.update(capacity=cap, dropped=int((~keep).sum()), eidx=eidx)
-        if _KEEP_INPUTS:
-            info.update(x=x, keep=keep)
-    return out.to(x.dtype), aux
+    return out.to(dtype)
 
 
 def _shared_ffn(params, x):

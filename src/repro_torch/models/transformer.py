@@ -11,11 +11,19 @@ per pattern position, each leaf stacked over the layer groups (leading
 Attention goes through `kernels.ops.flash_attention`; every entry point
 takes `backend` ("auto" | "ref" | "kernel") and hands it down to that op.
 
-What has no counterpart here: the JAX package's sharding constraints
-(identity without a mesh, so `training=True` computes what
-`training=False` does), its `remat` field and the layer-group `scan` (a
-Python loop over the groups; there is no backward pass to checkpoint),
-and `models/flags.py`, which only steers XLA's cost probe.
+Training differentiates `forward` (`train.steps.lm_loss`): the attention
+kernel's backward is `csrc/flash_attention_bwd.cu`, and the token lookup's
+gradient sums by token through `ops.gather_rows` (no atomics), so a step's
+gradients are the same bits from run to run. `cfg.remat` checkpoints each
+layer group as the JAX package's `jax.checkpoint` of its scan body does
+(`torch.utils.checkpoint`, non-reentrant): the backward recomputes the
+group from its input, and since every kernel is deterministic the
+recompute gives the forward's bits, so remat on and off give equal
+gradients. What has no counterpart here: the JAX package's sharding
+constraints (identity without a mesh, so `training=True` computes what
+`training=False` does; the train steps refuse a mesh context until ROADMAP
+A16's dry-run), the layer-group `scan` (a Python loop over the groups), and
+`models/flags.py`, which only steers XLA's cost probe.
 
 Weights are drawn in slices straight into their stacked leaves
 (`layers.normal_init`), so a leaf larger than the card's room for
@@ -30,6 +38,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
 from repro_torch.core.alid import resolve_device
@@ -60,6 +69,7 @@ class LMConfig:
     embed_scale: bool = False            # gemma: scale embeddings by sqrt(d)
     post_norms: bool = False             # gemma2: post-attn/post-ffn RMSNorms
     dtype: Any = torch.bfloat16
+    remat: bool = True                   # checkpoint each layer group
 
     @property
     def n_groups(self) -> int:
@@ -248,8 +258,9 @@ def _block(p, cfg: LMConfig, kind: str, x, positions, cache=None,
     return x + f_out, aux
 
 
-def _embed(params, cfg: LMConfig, tokens):
-    x = params["embed"][tokens].to(cfg.dtype)
+def _embed(params, cfg: LMConfig, tokens, backend: str = "auto"):
+    x = ops.gather_rows(params["embed"], tokens, backend=backend).to(
+        cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32,
@@ -271,19 +282,29 @@ def forward(params: dict, cfg: LMConfig, tokens, training: bool = True,
     """Training/prefill forward. tokens: (B, S) -> (logits (B, S, V) f32,
     aux f32: the MoE layers' load-balance losses summed over the layers
     and divided by n_layers, as in the JAX package; 0.0 in a dense
-    model). `training` changes nothing here (see the module
-    docstring)."""
+    model). `training` changes nothing here (see the module docstring);
+    under autograd with `cfg.remat` each layer group is checkpointed."""
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, backend)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        group = take_group(params["blocks"], g)
+
+    def group_body(x, aux, group):
         for i, kind in enumerate(cfg.pattern):
             x, a = _block(group[f"layer{i}"], cfg, kind, x, positions,
                           backend=backend)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(cfg.n_groups):
+        group = take_group(params["blocks"], g)
+        if remat:
+            x, aux = checkpoint(group_body, x, aux, group,
+                                use_reentrant=False)
+        else:
+            x, aux = group_body(x, aux, group)
     return _head(params, cfg, x), aux / cfg.n_layers
 
 

@@ -11,10 +11,13 @@ clicks and dense features (`randint`, `bernoulli`, `normal`). Labels and
 weights can only match the reference if the port draws the same numbers,
 so this module ports that generator instead of using `torch.Generator`.
 
-A key is an int64 tensor of shape (2,) holding two uint32 words. The
-cipher runs on int32 tensors holding the uint32 bits (torch has no uint32
-arithmetic on the CPU): an int32 add wraps as a uint32 add does, and the
-logical right shift is the arithmetic one masked to the bits shifted in.
+A key is an int64 tensor of shape (2,) holding two uint32 words, or a
+stack of keys (..., 2): a draw from a stack gives one draw per key, the
+keys' dims first (a scan's per-step keys, `data.lm.lm_batch`, draw every
+step in one call). The cipher runs on int32 tensors holding the uint32
+bits (torch has no uint32 arithmetic on the CPU): an int32 add wraps as a
+uint32 add does, and the logical right shift is the arithmetic one masked
+to the bits shifted in.
 Half the bytes of int64 words, which matters where a draw is billions of
 elements (the MoE experts' weights).
 """
@@ -36,9 +39,11 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
 
 
-def _words(key: torch.Tensor) -> tuple[int, int]:
-    k = key.tolist()
-    return int(k[0]), int(k[1])
+def _words(key: torch.Tensor, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The key words as int32 tensors (..., 1) on `device`, to broadcast
+    against the counters."""
+    w = _to_i32(key.to(device))
+    return w[..., 0:1], w[..., 1:2]
 
 
 def _i32(v: int) -> int:
@@ -58,16 +63,18 @@ def _rounds(x0, x1, rot):
     return x0, x1
 
 
-def _threefry32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
+def _threefry32(k1: torch.Tensor, k2: torch.Tensor, x0: torch.Tensor,
+                x1: torch.Tensor):
     """The Threefry-2x32 block cipher (20 rounds), as `jax._src.prng`
-    computes it, on int32 tensors holding uint32 words."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = x0 + _i32(ks[0])
-    x1 = x1 + _i32(ks[1])
+    computes it, on int32 tensors holding uint32 words; the key words
+    broadcast against the counters."""
+    ks = (k1, k2, k1 ^ k2 ^ _i32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
     for i in range(5):
         x0, x1 = _rounds(x0, x1, _ROT0 if i % 2 == 0 else _ROT1)
-        x0 = x0 + _i32(ks[(i + 1) % 3])
-        x1 = x1 + _i32(ks[(i + 2) % 3] + i + 1)
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + (ks[(i + 2) % 3] + (i + 1))
     return x0, x1
 
 
@@ -92,32 +99,35 @@ def _counts(shape, device, start: int = 0) -> tuple[torch.Tensor,
     return _to_i32(idx >> 32), _to_i32(idx)
 
 
-def _bits_pair(key, shape, device, start: int = 0):
-    """The cipher's two int32 words for each element."""
-    k1, k2 = _words(key)
-    hi, lo = _counts(shape, device, start)
+def _bits_pair(key, n: int, device, start: int = 0):
+    """The cipher's two int32 words for each of n elements: (..., n)."""
+    k1, k2 = _words(key, device)
+    hi, lo = _counts((n,), device, start)
     return _threefry32(k1, k2, hi, lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split` (fold-like, partitionable): (num, 2) keys."""
-    b1, b2 = _bits_pair(key, (num,), key.device)
+    """`jax.random.split` (fold-like, partitionable): (..., num, 2) keys."""
+    b1, b2 = _bits_pair(key, num, key.device)
     return torch.stack([_u32(b1), _u32(b2)], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """`jax.random.fold_in`: the cipher of `key` applied to the counter
     (0, data mod 2**32), as `jax._src.prng.threefry_fold_in` computes it."""
-    k1, k2 = _words(key)
-    x0 = torch.zeros(1, dtype=torch.int32)
-    x1 = torch.tensor([_i32(int(data))], dtype=torch.int32)
+    k1, k2 = _words(key, key.device)
+    x0 = torch.zeros(1, dtype=torch.int32, device=key.device)
+    x1 = torch.tensor([_i32(int(data))], dtype=torch.int32,
+                      device=key.device)
     b1, b2 = _threefry32(k1, k2, x0, x1)
-    return torch.cat([_u32(b1), _u32(b2)])
+    return torch.cat([_u32(b1), _u32(b2)], dim=-1)
 
 
 def _bits32(key, shape, device, start: int = 0) -> torch.Tensor:
-    b1, b2 = _bits_pair(key, tuple(shape), device, start)
-    return (b1 ^ b2).reshape(tuple(shape))
+    """(..., *shape): the keys' dims, then the draw's."""
+    shape = tuple(shape)
+    b1, b2 = _bits_pair(key, math.prod(shape), device, start)
+    return (b1 ^ b2).reshape(tuple(key.shape[:-1]) + shape)
 
 
 def random_bits(key: torch.Tensor, shape, device="cpu",
@@ -197,9 +207,9 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int,
     minval = min(max(int(minval), lo32), hi32)
     maxval = min(max(int(maxval), lo32), hi32)
     span = (maxval - minval) & _M32 if maxval > minval else 1
-    k1, k2 = split(key)
-    higher = random_bits(k1, shape, device)
-    lower = random_bits(k2, shape, device)
+    sub = split(key)
+    higher = random_bits(sub[..., 0, :], shape, device)
+    lower = random_bits(sub[..., 1, :], shape, device)
     mult = (((2 ** 16 % span) ** 2) & _M32) % span
     offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
     return minval + offset % span

@@ -1,4 +1,5 @@
-"""The step functions of the JAX package's `train/steps.py` that the port
-runs: BST's serving and retrieval steps and the GNNs' forward-only loss.
-Training (the gradients, optimizers, the train steps) waits for backward
-kernels (ROADMAP A16)."""
+"""Training, ported from the JAX package's `train/`: the optimizers
+(`optimizers`), error-feedback gradient compression (`compression`), the
+train and serving steps (`steps`) and the host loop with checkpoints and
+resume (`trainer`). The train steps refuse a mesh context until ROADMAP
+A16's dry-run."""

@@ -275,7 +275,10 @@ def test_smem_estimator_reads_plans():
     assert report.ok, "\n" + report.summary()
     info = report.pass_info["contracts"]
     usage = info["smem_bytes_by_op"]
-    assert set(usage) == {c.name for c in contracts.OP_CASES if c.has_kernel}
+    assert set(usage) == {c.name for c in contracts.OP_CASES
+                          if c.has_kernel} | {"flash_attention_bwd",
+                                              "segment_matmul_bwd",
+                                              "embedding_bag_bwd"}
     assert all(0 <= b <= contracts.SMEM_BUDGET for b in usage.values())
     assert info["static_smem_by_source"].startswith("not run")
     assert usage["lid_sweep"] == lid_sweep.plan(32, 240, 128).smem
@@ -284,6 +287,12 @@ def test_smem_estimator_reads_plans():
     assert usage["affinity"] == affinity.plan(40_000, 40_000, 128,
                                               True).smem
     assert usage["assign_clusters"] == assign.plan(64, 2048, 240, 128).smem
+    from repro_torch.kernels.flash_attention import bwd_plan
+    assert usage["flash_attention_bwd"] == max(
+        max(p.dq_smem, p.dkdv_smem) for p in (
+            bwd_plan(h, kv, s, s, dh) for h, kv, s, dh in (
+                (32, 8, 5120, 80), (32, 16, 4096, 128), (40, 8, 9216, 128),
+                (12, 4, 256, 64), (4, 4, 100, 256), (8, 8, 21, 4))))
     assert usage["lsh_hash"] == max(lsh_hash.plan(n, d, L, m).smem for
                                     n, d, L, m in ((32, 8, 4, 3),
                                                    (1_000_000, 128, 4, 8),
@@ -304,7 +313,8 @@ def test_smem_budget_violation_fires():
     assert rules == {"smem-budget"}
     over = {v.message.split(" at ")[0] for v in report.violations}
     assert over == {"lsh_hash", "affinity_matvec", "lid_sweep",
-                    "assign_clusters", "affinity", "flash_attention"}
+                    "assign_clusters", "affinity", "flash_attention",
+                    "flash_attention_bwd"}
 
 
 def test_smem_budget_fires_on_a_plan_past_the_card():

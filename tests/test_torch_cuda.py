@@ -28,8 +28,11 @@ from repro_torch.core.peeling import ds_detect, iid_detect
 from repro_torch.core.rd import replicator_solve
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.flash_attention import compare_with_plain
+from repro_torch.kernels.embedding_bag import embedding_bag_bwd_cuda
+from repro_torch.kernels.flash_attention import (compare_with_plain,
+                                                 flash_attention_bwd_cuda)
 from repro_torch.kernels.lsh_hash import key_flips
+from repro_torch.kernels.segment_matmul import segment_matmul_bwd_cuda
 
 K = 0.45
 
@@ -1357,7 +1360,9 @@ def test_contract_check_on_card(dev):
         _build.STATIC_SMEM_SOURCES)
     assert all(b <= contracts.SMEM_BUDGET
                for b in info["smem_bytes_by_op"].values())
-    assert all(n > 0 for n in ops.launch_counts().values())
+    # the nine forward kernels; the checker runs no backward
+    assert all(n > 0 for name, n in ops.launch_counts().items()
+               if not name.endswith("_bwd"))
 
 
 @pytest.mark.cuda
@@ -1371,3 +1376,128 @@ def test_golden_ops_and_small_fit_on_card(dev):
     for spec in (EngineSpec(), EngineSpec(engine="sharded", n_shards=5)):
         problems, _ = golden.check_fit("fit_small", spec, device=dev)
         assert problems == []
+
+
+# ------------------------------------------------------------- backward --
+BWD_CASES = [
+    # (B, H, Hkv, S, dh, dtype, mask): the tiles route at GQA 1 / 4 / 8,
+    # every mask kind, dh 80 / 128 / 256, and the small route
+    (2, 4, 4, 70, 16, torch.float32, dict(causal=True)),
+    (1, 8, 2, 200, 80, torch.float32, dict(causal=True, window=64)),
+    (1, 8, 1, 150, 128, torch.bfloat16, dict(causal=True, chunk=64,
+                                               softcap=50.0)),
+    (1, 4, 4, 100, 256, torch.bfloat16, dict(causal=True)),
+    (3, 4, 4, 21, 4, torch.float32, dict(causal=False)),
+    (2, 8, 2, 17, 16, torch.bfloat16, dict(causal=True, softcap=10.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_plain(dev, case):
+    """dq, dk, dv of the backward kernel against `attention_bwd_ref` by
+    `compare_with_plain`'s rule (f32 rtol 2e-5 atol 1e-5; bf16 one ulp),
+    two calls bitwise equal, and the autograd path through
+    ops.flash_attention equal to the direct call."""
+    b, h, hkv, s, dh, dt, kw = case
+    g = torch.Generator(device="cpu").manual_seed(s * 7 + dh)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev, dt) for shape in
+                   ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh),
+                    (b, h, s, dh)))
+    out = ops.flash_attention(q, k, v, 0, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    want = kref.attention_bwd_ref(q, k, v, out, do, **kw)
+    rows = torch.ones((b, s), dtype=torch.bool, device=dev)
+    for x, y in zip(got, want):
+        assert compare_with_plain(x, y, rows)["bad"] == 0
+    again = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = ops.launch_counts()["flash_attention_bwd"]
+    ops.flash_attention(qq, kk, vv, 0, **kw).backward(do)
+    assert ops.launch_counts()["flash_attention_bwd"] > before
+    for x, y in zip((qq.grad, kk.grad, vv.grad), got):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_bwd_kernels_match_plain(dev, dtype):
+    """segment_matmul's backward (the row gather) and embedding_bag's (the
+    table's segment sum, sum and mean, -1 pads, ids past the table dropped)
+    bit-equal to their plain versions, and through autograd."""
+    rng = np.random.default_rng(5)
+    n, e, d = 300, 5000, 100
+    seg = torch.tensor(rng.integers(-1, n + 3, e), device=dev)
+    dout = torch.tensor(rng.normal(size=(n, d)), device=dev).to(dtype)
+    got = segment_matmul_bwd_cuda(dout, seg, e)
+    assert torch.equal(got, kref.segment_matmul_bwd_ref(dout, seg, e))
+    msg = torch.zeros((e, d), device=dev, dtype=dtype, requires_grad=True)
+    ops.segment_matmul(msg, seg, n).backward(dout)
+    assert torch.equal(msg.grad, got)
+    v, dim, nb = 700, 32, 400
+    idx = torch.tensor(rng.integers(-1, v + 3, nb * 8), device=dev)
+    bags = torch.arange(nb, device=dev).repeat_interleave(8)
+    d_bags = torch.tensor(rng.normal(size=(nb, dim)), device=dev).to(dtype)
+    for mode in ("sum", "mean"):
+        got = embedding_bag_bwd_cuda(d_bags, idx, bags, v, mode)
+        assert torch.equal(got, kref.embedding_bag_bwd_ref(
+            d_bags, idx, bags, v, mode))
+        table = torch.zeros((v, dim), device=dev, dtype=dtype,
+                            requires_grad=True)
+        ops.embedding_bag(table, idx, bags, nb, mode).backward(d_bags)
+        assert torch.equal(table.grad, got)
+
+
+@pytest.mark.cuda
+def test_train_steps_repeat_bitwise_on_card(dev):
+    """The LM (danube's smoke config in bf16, remat), GIN and BST train
+    steps through the kernels: two runs from the same state give the same
+    params and optimizer state bit for bit, and remat on and off the same
+    LM gradients."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.data.recsys import bst_batch
+    from repro_torch.data.graphs import synth_full_graph_batch
+    from repro_torch.random import PRNGKey
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig, tree_leaves, \
+        tree_map
+    opt = OptConfig(lr=1e-3, warmup=1, decay_steps=4)
+    lm = dataclasses.replace(get_arch("h2o-danube-1.8b").SMOKE_CONFIG,
+                             dtype=torch.bfloat16, remat=True)
+    gin = get_arch("gin-tu").SMOKE_CONFIG
+    bst = get_arch("bst").SMOKE_CONFIG
+    cases = [
+        ("lm", lm, S.make_lm_train_step(lm, opt),
+         lm_batch(0, batch=2, seq_len=64, vocab=lm.vocab, device=dev)),
+        ("gnn", gin, S.make_gnn_train_step(gin, opt, "node_ce"),
+         synth_full_graph_batch(200, 900, gin.d_in, "node_ce", gin.n_out, 1,
+                                device=dev)),
+        ("recsys", bst, S.make_bst_train_step(bst, opt),
+         bst_batch(1, batch=32, seq_len=bst.seq_len,
+                   item_vocab=bst.item_vocab, cat_vocab=bst.cat_vocab,
+                   multi_vocab=bst.multi_vocab, device=dev))]
+    ops.reset_launch_counts()
+    for kind, cfg, step, batch in cases:
+        params, state = S.init_train_state(PRNGKey(0), kind, cfg, opt,
+                                           device=dev)
+        runs = []
+        for _ in range(2):
+            p, s = tree_map(torch.clone, params), tree_map(torch.clone,
+                                                           state)
+            runs.append(step(p, s, batch)[:2])
+        for a, b in zip(tree_leaves(runs[0]), tree_leaves(runs[1])):
+            assert torch.equal(a, b), kind
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd"] > 0 and counts["segment_matmul"] > 0
+    assert counts["segment_matmul_bwd"] > 0 and \
+        counts["embedding_bag_bwd"] > 0
+    params, _ = S.init_train_state(PRNGKey(0), "lm", lm, opt, device=dev)
+    toks = cases[0][3]
+    grads = [S.value_and_grad(lambda p: S.lm_loss(
+        p, dataclasses.replace(lm, remat=r), toks), params)[1]
+        for r in (True, False)]
+    for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
+        assert torch.equal(a, b)

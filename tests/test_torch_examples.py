@@ -151,3 +151,38 @@ def test_torch_serve_lm_runs_on_the_cpu(capsys):
     lines = [ln for ln in ours.splitlines() if "generated" in ln]
     assert len(lines) == 4
     assert lines == [ln for ln in theirs.splitlines() if "generated" in ln]
+
+
+def test_torch_train_lm_100m_tiny_on_the_cpu():
+    """examples/torch_train_lm_100m.py --tiny trains deepseek's smoke
+    config on the CPU: the loss falls, and the first logged loss is the
+    JAX example's (the same weights, tokens and step; rtol 1e-5). The JAX
+    side starts from the port's init_params (within 4 f32 ulps of JAX's,
+    tests/test_torch_transformer.py), which skips JAX's slower eager
+    init."""
+    from repro.configs import get_arch as jax_arch
+    from repro.data.lm import lm_batch as jax_lm_batch
+    from repro.train import steps as jsteps
+    from repro.train.optimizers import OptConfig as JOpt
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm_100m", EXAMPLES / "torch_train_lm_100m.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    hist = mod.main(["--tiny", "--steps", "20", "--batch", "4", "--seq",
+                     "32", "--device", "cpu"])
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    cfg = jax_arch("deepseek-7b").SMOKE_CONFIG
+    opt = JOpt(lr=3e-4, warmup=20, decay_steps=20, grad_clip=1.0)
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.random import PRNGKey
+    tp = init_params(PRNGKey(0), get_arch("deepseek-7b").SMOKE_CONFIG,
+                     device="cpu")
+    params = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), tp)
+    state = jsteps.init_opt_state(opt, params)
+    step = jax.jit(jsteps.make_lm_train_step(cfg, opt))
+    for i in range(10):
+        params, state, m = step(params, state, jax_lm_batch(
+            jax.numpy.int32(i), batch=4, seq_len=32, vocab=cfg.vocab,
+            seed=0))
+    np.testing.assert_allclose(hist[0]["loss"], float(m["loss"]), rtol=1e-5)

@@ -313,3 +313,187 @@ def test_fit_on_card_refuses_other_norms():
     pts = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     with pytest.raises(NotImplementedError, match="p=1.0"):
         fit(pts, talid.ALIDConfig(p=1.0, max_rounds=1), device="cuda")
+
+
+# ------------------------------------------------------------- training ----
+def _grad_inputs():
+    """Each kernel op without a backward, called with an input that
+    requires grad."""
+    rng = np.random.default_rng(2)
+    v = torch.tensor(rng.normal(size=(2, 8, 4)).astype(np.float32),
+                     requires_grad=True)
+    idx = torch.arange(8, dtype=torch.int32).repeat(2, 1)
+    mask = torch.ones((2, 8), dtype=torch.bool)
+    x = torch.zeros((2, 8))
+    x[:, 0] = 1.0
+    return dict(
+        lsh_hash=lambda: ops.lsh_hash(v[0], torch.ones(2, 3, 4),
+                                      torch.zeros(2, 3), 1.0),
+        roi_filter=lambda: ops.roi_filter(v, v[:, 0], torch.ones(2), mask),
+        affinity_matvec=lambda: ops.affinity_matvec(v, idx, v, idx, x, 0.5),
+        lid_sweep=lambda: ops.lid_sweep(
+            v, idx, mask, x, x.clone(), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.bool), 0.5, n_steps=2, max_iters=4,
+            tol=1e-5),
+        assign=lambda: ops.assign_clusters(v[0], v, x, torch.ones(2), 0.5,
+                                           0.5),
+        affinity=lambda: ops.affinity(v, v[:, :3], 0.5),
+    )
+
+
+@pytest.mark.parametrize("op", ["lsh_hash", "roi_filter", "affinity_matvec",
+                                "lid_sweep", "assign", "affinity"])
+def test_kernel_op_without_backward_refuses_grad(op, monkeypatch):
+    """The six kernels with no backward kernel: where the op takes the
+    kernel path (forced here on CPU tensors, as a CUDA tensor would) and an
+    input requires grad, it raises before anything launches rather than
+    return a result cut from the graph; under no_grad the refusal is not
+    what stops it (the CPU tensor then meets the kernel's own check)."""
+    call = _grad_inputs()[op]
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        call()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert ops.launch_counts() == before
+
+
+def test_backward_kernel_ops_refuse_what_training_never_passes(monkeypatch):
+    """flash_attention's backward kernel takes no q_offset and no kv_start:
+    under autograd on the kernel path both raise before any launch."""
+    q = torch.randn(1, 2, 4, 8, requires_grad=True)
+    monkeypatch.setattr(ops, "resolve_backend", lambda backend, t: "kernel")
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        ops.flash_attention(q, q, q, 3)
+    with pytest.raises(NotImplementedError, match="kv_start"):
+        ops.flash_attention(q, q, q, 0,
+                            kv_start=torch.zeros(1, dtype=torch.int32))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("op", ["flash_attention_bwd", "segment_matmul_bwd",
+                                "embedding_bag_bwd"])
+def test_backward_kernels_on_cpu_raise(op):
+    """The backward kernels' wrappers raise on CPU tensors and launch
+    nothing; the CPU takes the plain versions (`kernels.ref.*_bwd_ref`)
+    through autograd of the "ref" route, never through these."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_bwd_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.segment_matmul import segment_matmul_bwd_cuda
+    rng = np.random.default_rng(3)
+    t = torch.tensor(rng.normal(size=(1, 2, 5, 4)).astype(np.float32))
+    ids = torch.tensor([0, 2, -1, 1, 5])
+    calls = dict(
+        flash_attention_bwd=lambda: flash_attention_bwd_cuda(t, t, t, t, t),
+        segment_matmul_bwd=lambda: segment_matmul_bwd_cuda(t[0, 0], ids, 5),
+        embedding_bag_bwd=lambda: embedding_bag_bwd_cuda(
+            t[0, 0], ids, ids.clamp(0, 4), 7))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[op]()
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("kind", ["lm", "gnn", "bst"])
+def test_train_steps_refuse_a_mesh(kind, monkeypatch):
+    """Under a mesh context a train step raises, naming ROADMAP A16's
+    dry-run, before it computes anything: it must not train unsharded."""
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig
+    monkeypatch.setattr(S, "get_mesh_context", lambda: object())
+    opt = OptConfig()
+    step = {"lm": lambda: S.make_lm_train_step(
+                get_arch("h2o-danube-1.8b").SMOKE_CONFIG, opt),
+            "gnn": lambda: S.make_gnn_train_step(
+                get_arch("gin-tu").SMOKE_CONFIG, opt, "node_ce"),
+            "bst": lambda: S.make_bst_train_step(
+                get_arch("bst").SMOKE_CONFIG, opt)}[kind]()
+    with pytest.raises(NotImplementedError, match="A16: the dry-run"):
+        step({}, {}, {})
+
+
+def test_training_entry_points_default_to_the_card():
+    """lm_batch, init_train_state, launch.train and opt_state_from_numpy
+    run on CUDA unless the caller asks for the CPU; where there is no card
+    they raise instead."""
+    from repro_torch.convert import opt_state_from_numpy
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import steps as S
+    from repro_torch.train.optimizers import OptConfig
+    lm = get_arch("h2o-danube-1.8b").SMOKE_CONFIG
+    state = {"step": np.zeros((), np.int32),
+             "leaves": {"w": {"m": np.zeros(2, np.float32)}}}
+    calls = [lambda: lm_batch(0, batch=1, seq_len=4, vocab=512),
+             lambda: S.init_train_state(PRNGKey(0), "lm", lm, OptConfig()),
+             lambda: train_cli.main(["--steps", "1"]),
+             lambda: opt_state_from_numpy(state)]
+    if torch.cuda.is_available():
+        assert calls[0]().is_cuda and calls[3]()["step"].is_cuda
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_smem_budget_counts_the_backward_kernels():
+    """The contract checker's smem-budget pass plans the backward kernels
+    at the training paths' shapes beside the nine forwards, every case
+    within the budget."""
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.report import Report
+    report = Report(str(ROOT))
+    contracts.check_smem(report, device="cpu")
+    info = report.pass_info[contracts.PASS]
+    ops_seen = {row["op"] for row in info["smem_cases"]}
+    assert {"flash_attention_bwd", "segment_matmul_bwd",
+            "embedding_bag_bwd"} <= ops_seen
+    assert not report.violations
+    assert 0 < info["smem_bytes_by_op"]["flash_attention_bwd"] <= \
+        contracts.SMEM_BUDGET
+
+
+def test_late_kernel_library_loads_at_its_first_call(monkeypatch):
+    """The kernel library's two parts: affinity_matvec.cu's entry points
+    (`_build.LATE_SOURCES`) come from the late library, built and loaded
+    at the first call of one of them, every other entry point from the
+    first; each signature is set in one library only."""
+    import types
+
+    from repro_torch.kernels import _build
+    built = []
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace(lib=self.path)
+            setattr(self, name, fn)
+            return fn
+
+    def fake_build(late=False):
+        built.append(late)
+        return Path("late.so" if late else "main.so")
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "_late_build", None)
+    lib = _build._Library()
+    assert built == [False]
+    assert lib.lsh_hash_launch.lib == "main.so"
+    assert lib.affinity_launch.lib == "main.so"
+    assert built == [False]
+    assert lib.affinity_matvec_bf16_launch.lib == "late.so"
+    assert lib.affinity_matvec_static_smem.lib == "late.so"
+    assert built == [False, True]
+    late = [n for n in _build.SIGNATURES if _build._is_late(n)]
+    assert sorted(late) == ["affinity_matvec_bf16_launch",
+                            "affinity_matvec_launch",
+                            "affinity_matvec_static_smem"]
+    for name in _build.SIGNATURES:
+        want = "late.so" if name in late else "main.so"
+        assert getattr(lib, name).argtypes == list(_build.SIGNATURES[name])
+        assert getattr(lib, name).lib == want

@@ -149,3 +149,26 @@ def test_bernoulli_exact(shape):
         got = trandom.bernoulli(trandom.PRNGKey(seed), torch.tensor(p))
         assert got.dtype == torch.bool
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_stacked_keys_draw_one_row_per_key():
+    """A stack of keys (T, 2) draws row t as `jax.vmap` does for key t:
+    split, bits, uniform and randint (`data.lm.lm_batch` draws a scan's
+    per-step keys this way)."""
+    jk = jax.random.split(jax.random.PRNGKey(4), 6)
+    tk = trandom.split(trandom.PRNGKey(4), 6)
+    np.testing.assert_array_equal(
+        trandom.split(tk).numpy(),
+        np.asarray(jax.vmap(jax.random.split)(jk), np.int64))
+    np.testing.assert_array_equal(
+        trandom.random_bits(tk, (3, 5)).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.bits(k, (3, 5), jnp.uint32))
+                   (jk), np.int64))
+    ju = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (9,)))(jk))
+    np.testing.assert_array_equal(
+        trandom.uniform(tk, (9,)).numpy().view(np.uint32), ju.view(np.uint32))
+    for lo, hi in ((0, 64), (0, 70_000)):
+        np.testing.assert_array_equal(
+            trandom.randint(tk, (9,), lo, hi).numpy(),
+            np.asarray(jax.vmap(lambda k: jax.random.randint(k, (9,), lo, hi))
+                       (jk)))
