@@ -304,17 +304,20 @@ run first, in that order, then phases 2-6, 10 and 11:
    MoE dispatches the same token shards, with the all-to-all's bytes and
    seconds; phase 12's launches are added to the kernel table's
    flash_attention rows;
-13. training (ROADMAP A16): (a) the three backward kernels, the port's
-   own (the JAX package differentiates its plain versions), against
-   their plain versions on the card: the attention backward
-   (`csrc/flash_attention_bwd.cu`) at danube's 32 / 8 heads x 80 over a
-   5,120-token row (window 4,096), a gemma2 global layer (32 / 16 x 128,
-   4,096, softcap 50), a llama4 chunked layer past one chunk (40 / 8 x
-   128, 9,216, chunk 8,192), all bf16, lm-100m's (8 x 12 / 4 x 64, 256)
-   and BST's (65,536 x 8 x 21 x 21 x 4, the small route) in f32, dq / dk
-   / dv by `compare_with_plain`'s rule and two calls bitwise equal, each
-   with its device time, per-call time, the plain version's, the bound
-   and SDPA's forward + backward where SDPA can express the mask; the
+13. training (ROADMAP A16): (a) the backward kernels, the port's own
+   (the JAX package differentiates its plain versions), against their
+   plain versions on the card: the attention backward at danube's 32 / 8
+   heads x 80 over a 5,120-token row (window 4,096), a gemma2 global
+   layer (32 / 16 x 128, 4,096, softcap 50), a llama4 chunked layer past
+   one chunk (40 / 8 x 128, 9,216, chunk 8,192), all bf16, each on the
+   tensor cores (`csrc/flash_bwd_wgmma.cu`) and on the SIMT tiles forced
+   (`csrc/flash_attention_bwd.cu`) in the same run, lm-100m's (8 x 12 /
+   4 x 64, 256, tiles) and BST's (65,536 x 8 x 21 x 21 x 4, the small
+   route) in f32, dq / dk / dv by `compare_with_plain`'s rule and two
+   calls bitwise equal, the wgmma forward's lse against its plain version
+   on danube's case, each with its device time, per-call time, TFLOP/s,
+   the plain version's, the bound and SDPA's forward + backward where
+   SDPA can express the mask; the
    segment_matmul backward at ogb_products' shape and the embedding_bag
    backward at BST train_batch's bags, bitwise, beside index_select /
    index_add_; (b) h2o-danube-1.8b's CONFIG at full width and depth
@@ -337,8 +340,8 @@ run first, in that order, then phases 2-6, 10 and 11:
    1e-5 relative, each leaf's 2-norm gap within 5e-3), two train steps
    bit-equal, step seconds and peak memory; (e) `launch.train --steps
    20` on the card, the loss falling; phase 13's launches (b)-(d) are
-   added to the kernel table's, which gains the three backward kernels'
-   rows (port_only);
+   added to the kernel table's, which gains the backward kernels' rows
+   (port_only; the attention backward's two routes a row each);
 
 then prints the kernel table as one JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -389,6 +392,7 @@ REPLACES = {
     # the backward kernels have no TPU kernel (port-only: the JAX package
     # differentiates its plain versions); each names its forward's
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:102",
+    "flash_attention_bwd_wgmma": "src/repro/kernels/flash_attention.py:102",
     "segment_matmul_bwd": "src/repro/kernels/segment_matmul.py:72",
     "embedding_bag_bwd": "src/repro/kernels/embedding_bag.py:56",
 }
@@ -398,9 +402,12 @@ FIT_KERNELS = ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep")
 # the CUDA kernels behind flash_attention and embedding_bag, by name in a
 # profile
 FLASH_KERNELS = ("flash_kernel", "flash_split_kernel", "flash_combine_kernel",
-                 "flash_small_kernel", "flash_wgmma_kernel")
+                 "flash_small_kernel", "flash_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
 # the source of a kernel table row where it is not csrc/<name>.cu
-SOURCES = {"flash_attention_wgmma": "src/repro_torch/csrc/flash_wgmma.cu",
+SOURCES = {"flash_attention_wgmma": "src/repro_torch/csrc/flash_wgmma.cuh",
+           "flash_attention_bwd_wgmma":
+               "src/repro_torch/csrc/flash_bwd_wgmma.cu",
            "segment_matmul_bwd": "src/repro_torch/csrc/segment_bwd.cu",
            "embedding_bag_bwd": "src/repro_torch/csrc/segment_bwd.cu"}
 BAG_KERNELS = ("bag_pass_kernel", "bag_sum_kernel")
@@ -2703,7 +2710,7 @@ def check_flash_attention(dev, out):
         torch.cuda.empty_cache()
     pre = timed["prefill"]
     # flash_attention.cu's kernels: the SIMT tiles kernel at the prefill
-    # shape (forced), the split kernel at decode; flash_wgmma.cu's kernel:
+    # shape (forced), the split kernel at decode; flash_wgmma.cuh's kernel:
     # the plan's at the prefill shape
     out["flash_attention"] = dict(
         {key: pre[key] for key in ("plain_ms", "library_ms", "bound_ms",
@@ -4943,39 +4950,58 @@ def sdpa_fwd_bwd(q, k, v, dout, mask_kw):
     return run
 
 
+def bwd_split_ms(kernel):
+    """Device ms of the wgmma backward's two kernels in one call of
+    kernel(), from torch.profiler's CUDA activity; None where the
+    profiler saw none of it (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel()
+        torch.cuda.synchronize()
+    ms = {"dq": 0.0, "dkdv": 0.0}
+    for e in prof.key_averages():
+        for part in ms:
+            if f"flash_bwd_{part}_wgmma_kernel" in e.key:
+                ms[part] += e.device_time_total / 1e3
+    return ms if all(ms.values()) else None
+
+
 def check_flash_bwd(dev, out) -> None:
-    """13a, the attention backward: the kernel (`flash_attention_bwd_cuda`,
-    two launches or the small route's one) against its plain version
+    """13a, the attention backward: the kernels (`flash_attention_bwd_cuda`:
+    the wgmma route's two launches for bf16, the SIMT tiles route's two,
+    the small route's one) against their plain version
     (`ref.attention_bwd_ref`) on the card, dq / dk / dv by
-    `compare_with_plain`'s rule, two calls bitwise equal, with its device
-    time, per-call time, the plain version's time, the bound and SDPA's
-    forward + backward where SDPA can express the mask."""
+    `compare_with_plain`'s rule, two calls bitwise equal; each bf16 case
+    on the wgmma route and on the tiles route forced, in the same run,
+    under the same gates; the forward's lse against `ref.attention_lse`
+    on danube's case; with each route's device time, per-call time,
+    TFLOP/s, the plain version's time, the bound and SDPA's forward +
+    backward where SDPA can express the mask."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import bwd_plan, \
         compare_with_plain, flash_attention_bwd_cuda, flash_attention_cuda
-    cases, err = {}, 0.0
+    cases, err = {}, {"wgmma": 0.0, "tiles": 0.0}
     for seed, (name, b, h, hkv, s, dh, dt, kw) in enumerate(FLASH_BWD_CASES):
         q, k, v = device_inputs(dev, b, h, hkv, s, s, dh, dt, 700 + seed)
         gen = torch.Generator(device=dev).manual_seed(800 + seed)
         dout = torch.randn((b, h, s, dh), generator=gen, device=dev).to(dt)
-        o = flash_attention_cuda(q, k, v, 0, **kw)
-        plan = bwd_plan(h, hkv, s, s, dh)
-
-        def kernel():
-            return flash_attention_bwd_cuda(q, k, v, o, dout, **kw)
+        o, lse = flash_attention_cuda(q, k, v, 0, return_lse=True, **kw)
+        plan = bwd_plan(h, hkv, s, s, dh, bf16=dt == torch.bfloat16)
+        if name == "danube":
+            lse_ref = ref.attention_lse(q, k, **kw)
+            lse_err = float((lse - lse_ref).abs().max())
+            lse_ok = bool(torch.allclose(lse, lse_ref, rtol=1e-6,
+                                         atol=1e-6))
+            print(f"[train] 13a forward lse {name}: max |lse - "
+                  f"attention_lse| {lse_err:.3e}, within rtol 1e-6 + atol "
+                  f"1e-6 {lse_ok}", flush=True)
+            need(lse_ok, "flash_attention: the wgmma forward's lse is "
+                 "outside rtol 1e-6 + atol 1e-6 of its plain version")
+            del lse_ref
 
         def plain():
             return ref.attention_bwd_ref(q, k, v, o, dout, **kw)
-        got, want = kernel(), plain()
-        again = kernel()
-        rows = torch.ones((b, s), dtype=torch.bool, device=dev)
-        bad = 0
-        for g, w in zip(got, want):
-            c = compare_with_plain(g, w, rows)
-            bad += c["bad"]
-            err = max(err, c["max_abs_err"])
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        del got, want, again
+        want = plain()
         pairs = attended_pairs(b, h, s, s, kw, dev)
         esz = q.element_size()
         # q, o, dout read and dq written; k, v read and dk, dv written
@@ -4983,42 +5009,93 @@ def check_flash_bwd(dev, out) -> None:
         b_ms, b_by = bound(n_bytes, 10 * dh * pairs,
                            BF16_FLOP_PER_S if dt == torch.bfloat16
                            else F32_FLOP_PER_S)
+        rows = torch.ones((b, s), dtype=torch.bool, device=dev)
+        plain_ms = graph_ms(plain, runs=1, replays=3)
         runs = 2 if pairs > 1e8 else 5
-        t = dict(ms=graph_ms(kernel, runs=runs, replays=3),
-                 call_ms=call_ms(kernel, runs=3),
-                 plain_ms=graph_ms(plain, runs=1, replays=3),
-                 plain_in_graph=True)
         fwd_ms = graph_ms(lambda: flash_attention_cuda(q, k, v, 0, **kw),
                           runs=runs, replays=3)
+        # the wgmma forward with its lse store, as training's recompute
+        fwd_lse_ms = graph_ms(lambda: flash_attention_cuda(
+            q, k, v, 0, return_lse=True, **kw), runs=runs, replays=3) \
+            if lse is not None else None
         lib = sdpa_fwd_bwd(q, k, v, dout, kw)
         lib_ms = call_ms(lib, runs=3) if lib is not None else None
-        cases[name] = dict(
-            shape=f"{b} x {h}/{hkv} x {s} x {dh} {str(dt)[6:]} {kw}",
-            route=plan.kernel, ms=t["ms"], call_ms=t["call_ms"],
-            plain_ms=t["plain_ms"], forward_ms=fwd_ms, bound_ms=b_ms,
-            bound_by=b_by, sdpa_fwd_bwd_ms=lib_ms, pairs=pairs,
-            bad=bad, repeat_bitwise=same,
-            tflops=10 * dh * pairs / (t["ms"] * 1e9))
-        print(f"[train] 13a flash backward {name} ({cases[name]['shape']}, "
-              f"route {plan.kernel}, rp {plan.rp} bc {plan.bc} bk "
-              f"{plan.bk}): outside compare_with_plain's rule {bad}, "
-              f"repeat bitwise {same}; {time_line(t)} forward_ms="
-              f"{fwd_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {pairs} attended "
-              f"pairs x 10 dh FLOP) sdpa_fwd_bwd_ms="
-              f"{'n/a (softcap)' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"(per call, a yardstick the port never calls); "
-              f"{cases[name]['tflops']:.2f} TFLOP/s at 10 dh a pair",
-              flush=True)
-        need(bad == 0, f"flash_attention backward {name}: the kernel is "
-             "outside compare_with_plain's rule of its plain version")
-        need(same, f"flash_attention backward {name}: two calls differ")
-        del q, k, v, o, dout
+        # the plan's route, and the SIMT tiles forced where it took wgmma
+        routes = [(plan.kernel, False)] + (
+            [("tiles", True)] if plan.kernel == "wgmma" else [])
+        for route, forced in routes:
+            key = name if not forced else f"{name}_tiles"
+
+            def kernel():
+                return flash_attention_bwd_cuda(q, k, v, o, dout, lse=lse,
+                                                force_tiles=forced, **kw)
+            got = kernel()
+            again = kernel()
+            bad = far = 0
+            for g, w in zip(got, want):
+                c = compare_with_plain(g, w, rows)
+                bad += c["bad"]
+                far += c["beyond_ulp"]
+                table = "wgmma" if route == "wgmma" else "tiles"
+                err[table] = max(err[table], c["max_abs_err"])
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del got, again
+            slow = forced and pairs > 1e8
+            t = dict(ms=graph_ms(kernel, runs=1 if slow else runs,
+                                 replays=2 if slow else 3),
+                     call_ms=call_ms(kernel, runs=1 if slow else 3),
+                     plain_ms=plain_ms, plain_in_graph=True)
+            split = bwd_split_ms(kernel) if route == "wgmma" else None
+            split_txt = "" if route != "wgmma" else (
+                "; profiled: no device activity seen (not measured)"
+                if split is None else f"; profiled: dQ {split['dq']:.4f} "
+                f"ms, dK / dV {split['dkdv']:.4f} ms")
+            cases[key] = dict(
+                shape=f"{b} x {h}/{hkv} x {s} x {dh} {str(dt)[6:]} {kw}",
+                route=route, ms=t["ms"], call_ms=t["call_ms"],
+                plain_ms=plain_ms, forward_ms=fwd_ms, bound_ms=b_ms,
+                bound_by=b_by, sdpa_fwd_bwd_ms=lib_ms, pairs=pairs,
+                bad=bad, beyond_ulp=far, repeat_bitwise=same,
+                tflops=10 * dh * pairs / (t["ms"] * 1e9),
+                forward_lse_ms=fwd_lse_ms, split_ms=split)
+            print(f"[train] 13a flash backward {key} ({cases[key]['shape']}"
+                  f", route {route}{' forced' if forced else ''}): outside "
+                  f"compare_with_plain's rule {bad} (more than one ulp from "
+                  f"the plain version, inside by its atol: {far}), repeat "
+                  f"bitwise {same}; "
+                  f"{time_line(t)} forward_ms={fwd_ms:.4f} bound_ms="
+                  f"{b_ms:.4f} ({b_by}: {pairs} attended pairs x 10 dh "
+                  f"FLOP) sdpa_fwd_bwd_ms="
+                  f"{'n/a (softcap)' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"(per call, a yardstick the port never calls); "
+                  f"{cases[key]['tflops']:.2f} TFLOP/s at 10 dh a pair"
+                  + split_txt
+                  + ("" if forced or fwd_lse_ms is None else
+                     f"; the forward with its lse store {fwd_lse_ms:.4f} "
+                     "ms"), flush=True)
+            need(bad == 0, f"flash_attention backward {key}: the kernel is "
+                 "outside compare_with_plain's rule of its plain version")
+            need(same, f"flash_attention backward {key}: two calls differ")
+        if plan.kernel == "wgmma":
+            print(f"[train] 13a flash backward {name}: wgmma "
+                  f"{cases[name]['ms']:.4f} ms, tiles forced "
+                  f"{cases[name + '_tiles']['ms']:.4f} ms "
+                  f"({cases[name + '_tiles']['ms'] / cases[name]['ms']:.2f}"
+                  f"x), SDPA forward + backward "
+                  f"{'n/a (softcap)' if lib_ms is None else f'{lib_ms:.4f}'}"
+                  f" ms, bound {b_ms:.4f} ms", flush=True)
+        del q, k, v, o, lse, dout, want
         torch.cuda.empty_cache()
-    head = cases["danube"]
-    out["flash_attention_bwd"] = dict(
-        max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=head["sdpa_fwd_bwd_ms"], cases=cases, port_only=True)
+    for row, head, mine in (("flash_attention_bwd_wgmma", "danube", "wgmma"),
+                            ("flash_attention_bwd", "danube_tiles", "tiles")):
+        c = cases[head]
+        out[row] = dict(
+            max_abs_err=err[mine], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["sdpa_fwd_bwd_ms"], cases={
+                k: v for k, v in cases.items()
+                if (v["route"] == "wgmma") == (mine == "wgmma")},
+            port_only=True)
 
 
 def check_segment_bwd(dev, out) -> None:
@@ -5112,9 +5189,13 @@ def train_counts() -> dict:
     """The launches since the last reset, by kernel table row."""
     from repro_torch.kernels import ops
     c = ops.launch_counts()
-    wg = ops.path_counts()["flash_attention"]["wgmma"]
+    paths = ops.path_counts()
+    wg = paths["flash_attention"]["wgmma"]
     c["flash_attention_wgmma"] = wg
     c["flash_attention"] -= wg
+    bw = paths["flash_attention_bwd"]
+    c["flash_attention_bwd_wgmma"] = bw["wgmma_dq"] + bw["wgmma_dkdv"]
+    c["flash_attention_bwd"] -= c["flash_attention_bwd_wgmma"]
     return c
 
 
@@ -5180,7 +5261,8 @@ def train_danube(dev) -> dict:
           f"backward kernels {bwd_paths}", flush=True)
     need(math.isfinite(loss), "13b: the loss is not finite")
     need(peak < 80e9, "13b: the peak passed the card's 80 GB")
-    need(counts["flash_attention_bwd"] > 0 and counts["segment_matmul"] > 0,
+    need(counts["flash_attention_bwd_wgmma"] > 0 and
+         counts["segment_matmul"] > 0,
          "13b: the backward kernels were not launched")
     need(counts["flash_attention_wgmma"] > 0, "13b: the forward did not "
          "run the wgmma kernel")
@@ -5216,7 +5298,10 @@ def recorded_attention_bwd(fault=None):
         grads = real(q, k, v, out, dout, **kw)
         if fault is not None and not rec:
             fault(*grads)
-        rec.append(((q, k, v, out, dout), kw,
+        # the plain backward computes its own lse: the forward's is not
+        # handed to it, so that a fault there shows too
+        plain_kw = {key: val for key, val in kw.items() if key != "lse"}
+        rec.append(((q, k, v, out, dout), plain_kw,
                     tuple(g.clone() for g in grads)))
         return grads
     ops.flash_attention_bwd_cuda = wrapped
@@ -5514,10 +5599,11 @@ def check_training(dev, stats) -> dict:
               bst["counts"]):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
-    for name in ("flash_attention_bwd", "segment_matmul_bwd",
-                 "embedding_bag_bwd", "embedding_bag", "segment_matmul"):
+    for name in ("flash_attention_bwd", "flash_attention_bwd_wgmma",
+                 "segment_matmul_bwd", "embedding_bag_bwd", "embedding_bag",
+                 "segment_matmul"):
         need(counts.get(name, 0) > 0, f"phase 13 never launched {name}")
-    stats["flash_attention_bwd"]["training"] = dict(
+    stats["flash_attention_bwd_wgmma"]["training"] = dict(
         danube_step_s=danube["step_s"], danube_peak=danube["peak"],
         danube_tokens_per_s=danube["tokens_per_s"],
         danube_loss=danube["loss"],
@@ -5618,9 +5704,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.start_background_build()
     _build.library()
+    secs = _build.COMPILE_SECONDS
+    slow = max((k for k in secs if k not in _build.LATE_SOURCES),
+               key=secs.get, default=None)
     print(f"[env] kernel build and load {time.perf_counter() - t0:.2f}s "
           f"(the late library, {', '.join(_build.LATE_SOURCES)}, builds "
-          "meanwhile)")
+          f"meanwhile); compile seconds: flash_bwd_wgmma.cu "
+          f"{secs.get('flash_bwd_wgmma', float('nan')):.1f}, flash_wgmma.cu "
+          f"{secs.get('flash_wgmma', float('nan')):.1f}, flash_wgmma_lse.cu "
+          f"{secs.get('flash_wgmma_lse', float('nan')):.1f}, the slowest "
+          f"{slow}.cu {secs.get(slow, float('nan')):.1f}")
     stamp("the build")
     print_ptxas(_build.BUILD_DIR / "ptxas.txt")
     stats: dict = {}

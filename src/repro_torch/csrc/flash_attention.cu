@@ -16,7 +16,7 @@
 // masked or not. Here kernels/flash_attention.py `kernel_plan` picks one of
 // four kernels by shape and dtype: the three below, and for bf16 prefill
 // with dh a multiple of 16 up to 128 the tensor-core kernel of
-// flash_wgmma.cu; all sum in f32 and round the output once to q's type.
+// flash_wgmma.cuh; all sum in f32 and round the output once to q's type.
 //
 // 1. `flash_kernel` (prefill in f32 or at another dh, and anything the
 //    others do not take): one block of 256 threads takes a tile of query
@@ -803,11 +803,12 @@ cudaError_t launch_small_dh(const Params& p, int batch, int smem_bytes,
 
 }  // namespace
 
-// path: 0 tiles, 1 split, 2 small (kernels/flash_attention.py
+// path: 0 tiles, 1 split, 2 small, 3 wgmma (kernels/flash_attention.py
 // `kernel_plan`). hb, ppt, bc (the tile plan) and smem_bytes come from its
-// `smem_plan` / `split_smem_bytes` / `small_smem_bytes`; vec (elements a
-// K / V load) from `split_vec`; scratch holds the split partials (B x Hkv
-// x n_split x rows x (dh + 2) floats).
+// `smem_plan` / `wgmma_plan` / `split_smem_bytes` / `small_smem_bytes`;
+// vec (elements a K / V load) from `split_vec`; scratch holds the split
+// partials (B x Hkv x n_split x rows x (dh + 2) floats); lse, where not
+// null, the wgmma route's (B, H, Sq) f32 log-sum-exp of each row.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* kv_start,
     void* out, int batch, int h, int hkv, int sq, int sk, int dh,
@@ -816,7 +817,7 @@ extern "C" int flash_attention_launch(
     long long v_ss, int q_offset, int causal, int window, int chunk,
     float softcap, float scale, int is_bf16, int path, int hb, int ppt,
     int bc, int smem_bytes, int batch_on_z, int n_split, int split_lo,
-    int split_len, int vec, void* scratch, void* stream) {
+    int split_len, int vec, void* scratch, float* lse, void* stream) {
   if (batch <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
       sk <= 0 || dh <= 0 || dh > 256 || path < 0 || path > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -828,6 +829,7 @@ extern "C" int flash_attention_launch(
   p.kv_start = kv_start;
   p.out = out;
   p.scratch = static_cast<float*>(scratch);
+  p.lse = lse;
   p.h = h;
   p.hkv = hkv;
   p.sq = sq;

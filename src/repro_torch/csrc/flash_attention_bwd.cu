@@ -15,8 +15,9 @@
 // The JAX package has no backward kernel: it differentiates its plain
 // attention (src/repro/kernels/ref.py `attention_ref`) where the TPU
 // kernel `flash_attention_pallas` serves the forward. This source is the
-// port's own. kernels/flash_attention.py `bwd_plan` picks one of two
-// routes:
+// port's own. kernels/flash_attention.py `bwd_plan` sends bf16 at dh 64,
+// 80 and 128 to the tensor cores (flash_bwd_wgmma.cu) and every other call
+// to one of two routes here:
 //
 // 1. "tiles": two kernels and no atomics, so the result is the same bits
 //    from run to run. `flash_bwd_dq_kernel`, one block per (batch row, kv
@@ -44,8 +45,8 @@
 //
 // What bounds it on an H100: operations. The tiles route computes four
 // products of an attended (row, key) pair's dh in each kernel, 16 dh
-// FLOP a pair, on the SIMT units (67 TFLOP/s f32); tensor cores are later
-// work (ROADMAP B).
+// FLOP a pair, on the SIMT units (67 TFLOP/s f32): f32 (lm-100m), dh 256,
+// and bf16 where the caller forces it (`force_tiles`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +62,7 @@ using repro_flash::attends;
 using repro_flash::floor_div;
 using repro_flash::ld4;
 using repro_flash::logit;
+using repro_flash::q_range;
 using repro_flash::store;
 using repro_flash::to_f32;
 
@@ -398,20 +400,6 @@ __global__ void __launch_bounds__(kThreads)
     p.lse[i] = ms[r];
     p.dsum[i] = dd[r];
   }
-}
-
-// the query positions [*qlo, *qhi] that can attend some key in [j0, j1]
-__device__ __forceinline__ void q_range(const Params& m, int j0, int j1,
-                                        int* qlo, int* qhi) {
-  int lo = 0, hi = m.sq - 1;
-  if (m.causal) lo = max(lo, j0);
-  if (m.window > 0) hi = min(hi, j1 + m.window - 1);
-  if (m.chunk > 0) {
-    lo = max(lo, floor_div(j0, m.chunk) * m.chunk);
-    hi = min(hi, (floor_div(j1, m.chunk) + 1) * m.chunk - 1);
-  }
-  *qlo = lo;
-  *qhi = hi;
 }
 
 template <typename T>

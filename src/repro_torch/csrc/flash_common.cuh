@@ -1,5 +1,5 @@
 // Pieces shared by the attention kernels of flash_attention.cu and
-// flash_wgmma.cu: the launch parameters, the mask in logical positions,
+// flash_wgmma.cuh: the launch parameters, the mask in logical positions,
 // the attended range of a tile, and the dynamic shared-memory opt-in.
 #pragma once
 
@@ -16,6 +16,8 @@ struct Params {
   const int* kv_start;
   void* out;
   float* scratch;                       // the split kernel's partials
+  float* lse;  // flash_wgmma_kernel: (B, H, Sq) f32 natural log-sum-exp
+               // of each real row (+inf where it attends nothing), or null
   int h, hkv, sq, sk, dh;
   long long q_sb, q_sh, q_ss;  // strides (elements); the dh stride is 1
   long long k_sb, k_sh, k_ss;
@@ -64,6 +66,38 @@ __device__ __forceinline__ bool attends(const Params& p, int kp, int qp) {
     ok = ok && floor_div(kp, p.chunk) == floor_div(qp, p.chunk);
   }
   return ok;
+}
+
+// every query position of [qf, ql] attends every key position of [kp0,
+// kp1] (logical positions; the caller knows both ranges real)
+__device__ __forceinline__ bool all_attend(const Params& p, int kp0, int kp1,
+                                           int qf, int ql) {
+  if (kp0 < 0) return false;
+  if (p.causal && kp1 > qf) return false;
+  if (p.window > 0 && kp0 <= ql - p.window) return false;
+  if (p.chunk > 0) {
+    const int c = floor_div(kp0, p.chunk);
+    if (floor_div(kp1, p.chunk) != c || floor_div(qf, p.chunk) != c ||
+        floor_div(ql, p.chunk) != c) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// the query positions [*qlo, *qhi] that can attend some key in [j0, j1]
+// (no kv_start, no q_offset: the backward's positions are slots)
+__device__ __forceinline__ void q_range(const Params& m, int j0, int j1,
+                                        int* qlo, int* qhi) {
+  int lo = 0, hi = m.sq - 1;
+  if (m.causal) lo = max(lo, j0);
+  if (m.window > 0) hi = min(hi, j1 + m.window - 1);
+  if (m.chunk > 0) {
+    lo = max(lo, floor_div(j0, m.chunk) * m.chunk);
+    hi = min(hi, (floor_div(j1, m.chunk) + 1) * m.chunk - 1);
+  }
+  *qlo = lo;
+  *qhi = hi;
 }
 
 // the kv slots [lo, hi] that some query at slots first..last can attend
@@ -139,9 +173,13 @@ __device__ __forceinline__ void tile_of_block(const Params& p, int* b,
   }
 }
 
-// the tensor-core prefill kernel of flash_wgmma.cu, for bf16 q, k, v with
-// p.dh a multiple of 16 up to 128 (kernels/flash_attention.py `kernel_plan`)
+// the tensor-core prefill kernel of flash_wgmma.cuh, for bf16 q, k, v with
+// p.dh a multiple of 16 up to 128 (kernels/flash_attention.py
+// `kernel_plan`); with p.lse set (dh 64, 80, 128) its lse-writing kernels
 cudaError_t launch_wgmma(const Params& p, int batch, int smem_bytes,
                          cudaStream_t stream);
+// those lse-writing kernels (flash_wgmma_lse.cu)
+cudaError_t launch_wgmma_lse(const Params& p, int batch, int smem_bytes,
+                             cudaStream_t stream);
 
 }  // namespace repro_flash

@@ -19,6 +19,7 @@
 //    matrices along N) cstride.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +69,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from global to shared memory, asynchronously (through L1); zero
+// where !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -151,6 +160,59 @@ __device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t (&a)[4],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x N) += A (64 x 16, registers) B (16 x N, shared, MN-major: a
+// tile of core_off's layout whose rows are the k depth, 8-row groups
+// `gstride` bytes apart and core matrices along N CSTRIDE apart), N a
+// multiple of 16: cut into products of 64, 32 and 16 columns from column C
+// on (the B of P V, of dS K, of P^T dO)
+template <int N, int CSTRIDE, int C = 0>
+__device__ __forceinline__ void mma_rs_cols(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b_addr,
+                                            uint32_t gstride) {
+  const uint64_t db = desc(b_addr + C / 8 * CSTRIDE, gstride, CSTRIDE);
+  if constexpr (N - C >= 64) {
+    mma_rs_n64(d + C / 2, a, db);
+    mma_rs_cols<N, CSTRIDE, C + 64>(d, a, b_addr, gstride);
+  } else if constexpr (N - C >= 32) {
+    mma_rs_n32(d + C / 2, a, db);
+    mma_rs_cols<N, CSTRIDE, C + 32>(d, a, b_addr, gstride);
+  } else if constexpr (N - C >= 16) {
+    mma_rs_n16(d + C / 2, a, db);
+  }
+}
+
+// 2^x (the SFU's approximation, relative error ~2^-22; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 as the bf16 pair of one A-operand register (the first in the
+// low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 as three packed bf16 terms t[0] + t[1] + t[2]: t[0] = bf16(x),
+// t[1] = bf16(x - t[0]), t[2] = bf16(x - t[0] - t[1]), their sum x to
+// about 2^-27 of itself. Products with each term carry x nearly exact
+// where one bf16 rounding (2^-9) or two terms (2^-18) would not: in a sum
+// that cancels ten-thousand-fold, 2^-18 a term is an ulp of the result
+template <int N>
+__device__ __forceinline__ void split_bf16(float x0, float x1,
+                                           uint32_t (&t)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
 }
 
 }  // namespace sm90

@@ -29,6 +29,7 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -40,6 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the sources of the second library (module docstring); their C entry
 # points all start with "<source>_"
 LATE_SOURCES = ("affinity_matvec",)
+# seconds from the start of a build in this process to each source's
+# object, by source stem (the sources compile in parallel, so the longest
+# is the build's wall time)
+COMPILE_SECONDS: dict[str, float] = {}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -75,10 +80,11 @@ SIGNATURES = {
     # q, k, v, kv_start, out, batch, h, hkv, sq, sk, dh, q, k and v
     # strides (b, h, s), q_offset, causal, window, chunk, softcap, scale,
     # is_bf16, path (tiles, split, small, wgmma), hb, ppt, bc, smem_bytes,
-    # batch_on_z, n_split, split_lo, split_len, vec, scratch, stream
+    # batch_on_z, n_split, split_lo, split_len, vec, scratch, lse (the
+    # wgmma route's, or null), stream
     "flash_attention_launch": (P, P, P, P, P, I, I, I, I, I, I, L, L, L, L,
                                L, L, L, L, L, I, I, I, I, F, F, I, I, I, I,
-                               I, I, I, I, I, I, I, P, P),
+                               I, I, I, I, I, I, I, P, P, P),
     # q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, h, hkv, sq, sk, dh,
     # q, k and v strides (b, h, s), causal, window, chunk, softcap, scale,
     # is_bf16, path (tiles, small), hb, ppt, rp, bc, bk, dq / small smem
@@ -86,6 +92,12 @@ SIGNATURES = {
     "flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                                    I, I, L, L, L, L, L, L, L, L, L, I, I, I,
                                    F, F, I, I, I, I, I, I, I, I, I, P),
+    # q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, h, hkv, sq, sk, dh,
+    # q, k and v strides (b, h, s), causal, window, chunk, softcap, scale,
+    # hb, ppt, dq smem bytes, dkdv smem bytes, stream
+    "flash_bwd_wgmma_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               I, L, L, L, L, L, L, L, L, L, I, I, I, F, F,
+                               I, I, I, I, P),
     # msg, perm, bounds, out, n_seg, d, is_bf16, vec, group, stream
     "segment_matmul_launch": (P, P, P, P, L, I, I, I, I, P),
     # d_out, seg_ids, d_msg, n_rows, n_seg, d, is_bf16, ids64, vec, stream
@@ -106,7 +118,9 @@ for _name in ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep"):
 # (`static_smem`, csrc/static_smem.cuh)
 STATIC_SMEM_SOURCES = ("lsh_hash", "roi_filter", "affinity_matvec",
                        "lid_sweep", "assign", "affinity", "flash_attention",
-                       "flash_wgmma", "flash_attention_bwd", "embedding_bag",
+                       "flash_wgmma", "flash_wgmma_lse",
+                       "flash_attention_bwd", "flash_bwd_wgmma",
+                       "embedding_bag",
                        "segment_matmul", "segment_bwd")
 for _name in STATIC_SMEM_SOURCES:
     # int* bytes
@@ -147,16 +161,26 @@ def build(late: bool = False) -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
+            log = Path(tmp) / (src.stem + ".log")
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            with open(log, "w") as out:
+                procs.append((src, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=out, stderr=subprocess.STDOUT)))
+        pending = list(procs)
+        while pending:
+            for item in list(pending):
+                if item[2].poll() is not None:
+                    COMPILE_SECONDS[item[0].stem] = time.perf_counter() - t0
+                    pending.remove(item)
+            if pending:
+                time.sleep(0.05)
         reports = []
-        for src, proc in procs:
-            out, _ = proc.communicate()
+        for src, log, proc in procs:
+            out = log.read_text()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
             reports.append(out)

@@ -1,9 +1,10 @@
 """CUDA wrapper of the attention kernels (`csrc/flash_attention.cu`,
-`csrc/flash_wgmma.cu`), which replace the TPU kernel
+`csrc/flash_wgmma.cuh`), which replace the TPU kernel
 `flash_attention_pallas` of the JAX package, and the plan that picks one
 of them by shape and dtype (`kernel_plan`); and of their backward
-(`csrc/flash_attention_bwd.cu`, the port's own: the JAX package
-differentiates its plain attention), planned by `bwd_plan`."""
+(`csrc/flash_bwd_wgmma.cu` on the tensor cores,
+`csrc/flash_attention_bwd.cu` on the SIMT units; the port's own: the JAX
+package differentiates its plain attention), planned by `bwd_plan`."""
 
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ _WARPS = 8
 # most)
 WGMMA_ROWS = 64
 WGMMA_DH = 128
+# the head dims of the wgmma backward (the zoo's bf16 models: 64, danube's
+# 80, and 128), and of the wgmma forward's kernels that write lse for it:
+# a kernel each, so the build stays short
+WGMMA_BWD_DH = (64, 80, 128)
 _PATHS = ("tiles", "split", "small", "wgmma")
 
 
@@ -178,7 +183,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0, *, causal: bool = True,
                          window=None, chunk=None, softcap=None, scale=None,
                          kv_start=None, batch_on_z=None,
-                         force_tiles: bool = False) -> torch.Tensor:
+                         force_tiles: bool = False,
+                         return_lse: bool = False):
     """q (B, H, Sq, dh), k and v (B, Hkv, Sk, dh) on the card, all f32 or
     all bf16, H a multiple of Hkv, dh <= 256 -> (B, H, Sq, dh) in q's
     dtype. q, k and v may be any views whose last dim is contiguous (the
@@ -189,7 +195,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one or the other, for timing the two; `force_tiles` runs the SIMT
     tiles kernel where the plan took wgmma). One launch, two for "split"
     (its partials, then their combine). `flash_attention_cuda.by_path`
-    counts the launches of each kernel."""
+    counts the launches of each kernel.
+
+    `return_lse`: return (out, lse), lse the (B, H, Sq) f32 natural
+    log-sum-exp of each row's attended logits (+inf for a row that attends
+    nothing), which the wgmma kernel writes beside its output for the
+    backward's wgmma route (bf16, dh in WGMMA_BWD_DH); for such q the call
+    runs the wgmma kernel where the plan took "split". lse is None where
+    the call ran another kernel or dh is not one of those."""
     dev = require_cuda("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -215,9 +228,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bf16=q.dtype == torch.bfloat16)
     if force_tiles and plan.kernel == "wgmma":
         plan = Plan("tiles")
+    wants_lse = return_lse and q.dtype == torch.bfloat16 and \
+        dh in WGMMA_BWD_DH
+    if wants_lse and plan.kernel == "split":
+        plan = Plan("wgmma")
     out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=dev)
+    lse = None
+    if wants_lse and plan.kernel == "wgmma":
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0 or sk == 0:
-        return out.zero_()
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("inf"))
+        return (out, lse) if return_lse else out
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     if kv_start is None:
         kv_start = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -254,11 +277,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), int(q.dtype == torch.bfloat16),
         _PATHS.index(plan.kernel), hb, ppt, bc, smem, int(bool(batch_on_z)),
         plan.n_split, plan.split_lo, plan.split_len, vec,
-        0 if scratch is None else scratch.data_ptr(), _build.stream_ptr(dev))
+        0 if scratch is None else scratch.data_ptr(),
+        0 if lse is None else lse.data_ptr(), _build.stream_ptr(dev))
     _build.check("flash_attention", err)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.by_path[plan.kernel] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
@@ -267,16 +291,19 @@ flash_attention_cuda.by_path = dict.fromkeys(_PATHS, 0)
 
 # ------------------------------------------------------------- backward --
 BWD_PATHS = ("tiles", "small")
-# launches of the backward kernels, counted apart: the tiles route's two
-# and the small route's one
-BWD_KERNELS = ("dq", "dkdv", "small")
+# launches of the backward kernels, counted apart: the tiles route's two,
+# the small route's one and the wgmma route's two
+BWD_KERNELS = ("dq", "dkdv", "small", "wgmma_dq", "wgmma_dkdv")
+# keys a block of the wgmma dK / dV kernel (two warpgroups of 64)
+WGMMA_BWD_KEYS = 2 * WGMMA_ROWS
 
 
 class BwdPlan(NamedTuple):
-    """The backward route of a call and, for "tiles", its tiles: hb q
-    heads times ppt positions (rp rows, padded to 4) a query tile, bc keys
-    a kv tile in the dQ kernel, bk keys a block in the dK / dV kernel, and
-    each kernel's dynamic shared bytes (the small route's in dq_smem)."""
+    """The backward route of a call and, for "tiles" and "wgmma", its
+    tiles: hb q heads times ppt positions (rp rows: padded to 4, or the
+    wgmma warpgroups' 64 each) a query tile, bc keys a kv tile in the dQ
+    kernel, bk keys a block in the dK / dV kernel, and each kernel's
+    dynamic shared bytes (the small route's in dq_smem)."""
     kernel: str
     hb: int = 0
     ppt: int = 0
@@ -312,18 +339,40 @@ def bwd_small_smem(dh: int) -> int:
     return 4 * _WARPS * (4 * SMALL_S * dp + 2 * SMALL_S * (SMALL_S + 1))
 
 
-def bwd_plan(h: int, hkv: int, sq: int, sk: int, dh: int) -> BwdPlan:
+def wgmma_bwd_smem(dh: int, warpgroups: int) -> tuple[int, int]:
+    """Dynamic shared bytes of the wgmma backward's kernels, in tiles of 64
+    rows of bf16 core matrices (8 rows x 16 bytes, 144 bytes apart along a
+    row): the dQ kernel's Q and dO tiles (one each a warpgroup) and two
+    stages of K and V tiles; the dK / dV kernel's K and V tiles (two
+    warpgroups) and two stages of Q and dO tiles with their rows' lse and
+    D (f32)."""
+    tile = (WGMMA_ROWS // 8) * (dh // 8) * 144
+    return ((2 * warpgroups + 2 * 2) * tile,
+            (2 * 2 + 2 * 2) * tile + 2 * 2 * WGMMA_ROWS * 4)
+
+
+def bwd_plan(h: int, hkv: int, sq: int, sk: int, dh: int, *,
+             bf16: bool = False) -> BwdPlan:
     """The backward's route: "small" where Sq and Sk are at most 32 and dh
-    at most 16 (BST), else "tiles" with the forward tile kernel's query
-    rows (all rep heads of a kv head times as many positions as fill 64
-    rows, 32 past dh = 96) and the largest key tiles of 64, 32 or 16 that
-    fit each kernel's shared memory."""
+    at most 16 (BST); "wgmma", the tensor cores, for bf16 with dh in
+    WGMMA_BWD_DH: the dQ kernel takes the wgmma forward's query tiles
+    (`wgmma_plan`), the dK / dV kernel 128 keys a block; else "tiles", the
+    SIMT kernels, with the forward tile kernel's query rows (all rep heads
+    of a kv head times as many positions as fill 64 rows, 32 past dh =
+    96) and the largest key tiles of 64, 32 or 16 that fit each kernel's
+    shared memory."""
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention backward: head_dim {dh} > "
                          f"{MAX_HEAD_DIM}")
     if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH:
         return BwdPlan("small", dq_smem=bwd_small_smem(dh))
     rep = h // hkv
+    if bf16 and dh in WGMMA_BWD_DH:
+        hb, ppt, _ = wgmma_plan(dh, rep, sq)
+        warpgroups = -(-(hb * ppt) // WGMMA_ROWS)
+        return BwdPlan("wgmma", hb, ppt, warpgroups * WGMMA_ROWS,
+                       WGMMA_ROWS, WGMMA_BWD_KEYS,
+                       *wgmma_bwd_smem(dh, warpgroups))
     rows = 64 if dh <= 96 else 32
     hb = min(rep, rows)
     ppt = min(max(1, rows // hb), sq)
@@ -343,7 +392,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, *, causal: bool = True,
                              window=None, chunk=None, softcap=None,
-                             scale=None):
+                             scale=None, lse=None,
+                             force_tiles: bool = False):
     """dQ, dK, dV of `flash_attention_cuda(q, k, v, 0, causal=, window=,
     chunk=, softcap=, scale=)` with output `out` for its gradient `dout`:
     (B, H, Sq, dh), (B, Hkv, Sk, dh) twice, in q's dtype, summed in f32 and
@@ -352,8 +402,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     their strides (the last dim contiguous), `out` and `dout` made
     contiguous. Training passes no q_offset and no kv_start, so neither
     is taken. `bwd_plan`'s route: two launches ("tiles": dQ with lse and D,
-    then dK / dV) or one ("small"); `flash_attention_bwd_cuda.by_path`
-    counts each kernel's."""
+    then dK / dV; "wgmma": dQ with D, then dK / dV) or one ("small");
+    `flash_attention_bwd_cuda.by_path` counts each kernel's.
+
+    `lse`: the (B, H, Sq) f32 log-sum-exp that the wgmma forward wrote
+    for this call (`flash_attention_cuda(..., return_lse=True)`), which
+    the wgmma route reads; where it is None that route runs the wgmma
+    forward first for it (the same kernel, so the same bits). The other
+    routes ignore it. `force_tiles` runs the SIMT tiles route where the
+    plan took wgmma. A wgmma route that fails raises: nothing falls back
+    to another route."""
     dev = require_cuda("flash_attention backward", q, k, v, out, dout)
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != q.dtype for t in (k, v, out, dout)):
@@ -376,10 +434,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    plan = bwd_plan(h, hkv, sq, sk, dh)
+    bf16 = q.dtype == torch.bfloat16
+    plan = bwd_plan(h, hkv, sq, sk, dh, bf16=bf16)
+    if force_tiles and plan.kernel == "wgmma":
+        plan = bwd_plan(h, hkv, sq, sk, dh)
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     out, dout = out.contiguous(), dout.contiguous()
     scale = dh ** -0.5 if scale is None else scale
+    if plan.kernel == "wgmma":
+        return _bwd_wgmma(q, k, v, out, dout, plan, lse, dq, dk, dv,
+                          causal=causal, window=window, chunk=chunk,
+                          softcap=softcap, scale=scale)
     lse = dsum = None
     if plan.kernel == "tiles":
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
@@ -409,6 +474,50 @@ flash_attention_bwd_cuda.launches = 0
 flash_attention_bwd_cuda.by_path = dict.fromkeys(BWD_KERNELS, 0)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its base and its strides but the last lie on whole
+    16 bytes (the wgmma kernels' copies move 16 bytes), else a contiguous
+    copy."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _bwd_wgmma(q, k, v, out, dout, plan: BwdPlan, lse, dq, dk, dv, *,
+               causal, window, chunk, softcap, scale):
+    """The wgmma route of `flash_attention_bwd_cuda`: dQ (and D), then
+    dK / dV, both reading the forward's lse."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if lse is None:
+        _, lse = flash_attention_cuda(q, k, v, 0, causal=causal,
+                                      window=window, chunk=chunk,
+                                      softcap=softcap, scale=scale,
+                                      return_lse=True)
+    if lse is None or lse.dtype != torch.float32 or \
+            tuple(lse.shape) != (b, h, sq) or lse.device != q.device:
+        got = None if lse is None else (lse.dtype, tuple(lse.shape))
+        raise ValueError(f"flash_attention backward: lse must be the "
+                         f"forward's ({b}, {h}, {sq}) float32 on "
+                         f"{q.device}, got {got}")
+    q, k, v, out, dout = (_aligned16(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dsum = torch.empty_like(lse)
+    err = _build.library().flash_bwd_wgmma_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), b, h, hkv, sq, sk, dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
+        int(window or 0), int(chunk or 0), float(softcap or 0.0),
+        float(scale), plan.hb, plan.ppt, plan.dq_smem, plan.dkdv_smem,
+        _build.stream_ptr(q.device))
+    _build.check("flash_attention backward (wgmma)", err)
+    flash_attention_bwd_cuda.launches += 2
+    flash_attention_bwd_cuda.by_path["wgmma_dq"] += 1
+    flash_attention_bwd_cuda.by_path["wgmma_dkdv"] += 1
+    return dq, dk, dv
+
+
 def _bf16_ordinal(x: torch.Tensor) -> torch.Tensor:
     """bf16 values as integers in the order of their values (adjacent bf16
     numbers differ by 1)."""
@@ -430,17 +539,20 @@ def compare_with_plain(got: torch.Tensor, want: torch.Tensor,
     zero. Both paths compute in f32 and round once to q's dtype.
 
     Returns the number of compared entries outside the rule, the largest
-    absolute difference on compared rows, and the number of nonzero
-    entries on rows that attend nothing."""
+    absolute difference on compared rows, the number of nonzero entries on
+    rows that attend nothing, and (bf16) the compared entries more than
+    one ulp apart, which only the atol keeps inside the rule."""
     rows = attended[:, None, :, None].expand_as(got)
     g, w = got.float(), want.float()
     diff = (g - w).abs()
+    far = torch.zeros_like(rows)
     if got.dtype == torch.bfloat16:
-        ok = ((_bf16_ordinal(got) - _bf16_ordinal(want)).abs() <= 1) | \
-            (diff <= 1e-5)
+        far = (_bf16_ordinal(got) - _bf16_ordinal(want)).abs() > 1
+        ok = ~far | (diff <= 1e-5)
     else:
         ok = diff <= 1e-5 + 2e-5 * w.abs()
     return dict(bad=int((~ok & rows).sum()),
                 max_abs_err=float(diff[rows].max()) if bool(rows.any())
                 else 0.0,
-                masked_nonzero=int(((g != 0) & ~rows).sum()))
+                masked_nonzero=int(((g != 0) & ~rows).sum()),
+                beyond_ulp=int((far & rows).sum()))

@@ -321,7 +321,9 @@ def flash_attention(q, k, v, q_offset: int = 0, *, causal: bool = True,
     the JAX package; both compute the same products.
 
     Differentiable on both routes; on the kernel route the backward is
-    `csrc/flash_attention_bwd.cu`, which takes no `q_offset` and no
+    `flash_attention_bwd_cuda` (`csrc/flash_bwd_wgmma.cu` for bf16 at dh
+    64 / 80 / 128, reading the lse the forward keeps; else
+    `csrc/flash_attention_bwd.cu`), which takes no `q_offset` and no
     `kv_start` (training passes neither): a call with either whose inputs
     require grad raises NotImplementedError."""
     mode = resolve_backend(backend, q)
@@ -388,19 +390,23 @@ def gather_rows(table, idx, *, backend: str = "auto"):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The attention kernel and its backward kernel (kernel route)."""
+    """The attention kernel and its backward kernel (kernel route). The
+    forward keeps the lse that the wgmma kernel writes, where it ran,
+    for the backward's wgmma route (which otherwise recomputes it; remat
+    re-runs this forward, and so the lse with it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        out = flash_attention_cuda(q, k, v, 0, **kw)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_cuda(q, k, v, 0, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse=lse,
+                                              **ctx.kw)
         return dq, dk, dv, None
 
 

@@ -435,9 +435,50 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None, chunk=None,
                          **kw) for i in range(0, sq, block_q)], dim=2)
 
 
+def _bwd_logits(q, kf, i: int, n: int, *, causal, window, chunk, softcap,
+                scale):
+    """Query rows i .. i + n - 1 of q (B, H, Sq, dh) against kf (B, Hkv,
+    Sk, dh) f32: (qb (B, Hkv, rep n, dh) f32, the logits after scale and
+    softcap with masked pairs -inf (B, Hkv, rep, n, Sk), the mask (n,
+    Sk)), for `attention_bwd_ref` and `attention_lse` alike."""
+    b, h, _, dh = q.shape
+    hkv, sk = kf.shape[1], kf.shape[2]
+    rep = h // hkv
+    qb = q[:, :, i:i + n].float().reshape(b, hkv, rep * n, dh)
+    s = torch.matmul(qb, kf.transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.view(b, hkv, rep, n, sk)
+    mask = attention_mask(n, sk, i, causal=causal, window=window,
+                          chunk=chunk, device=q.device)
+    return qb, s.masked_fill(~mask, float("-inf")), mask
+
+
+def attention_lse(q, k, *, causal: bool = True, window=None, chunk=None,
+                  softcap=None, scale=None, block_q: int = 1024):
+    """(B, H, Sq) f32: each query row's natural log-sum-exp over its
+    attended logits (scale, softcap and mask as `attention_bwd_ref`: q_offset
+    0, no kv_start), +inf for a row that attends nothing (so that exp(S -
+    lse) is 0 there). The plain version of the lse the wgmma forward
+    writes and the wgmma backward reads; `attention_bwd_ref(..., lse=)`
+    given it returns bitwise what it computes without."""
+    b, h, sq, dh = q.shape
+    scale = (dh ** -0.5) if scale is None else scale
+    kf = k.float()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for i in range(0, sq, block_q):
+        n = min(block_q, sq - i)
+        _, s, _ = _bwd_logits(q, kf, i, n, causal=causal, window=window,
+                              chunk=chunk, softcap=softcap, scale=scale)
+        blk = torch.logsumexp(s, dim=-1, keepdim=True)
+        lse[:, :, i:i + n] = blk.masked_fill(blk == float("-inf"),
+                                             float("inf")).view(b, h, n)
+    return lse
+
+
 def attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
                       window=None, chunk=None, softcap=None, scale=None,
-                      block_q: int = 1024):
+                      block_q: int = 1024, lse=None):
     """The backward of `attention_ref` (q_offset 0, no kv_start: training's
     calls), written out: (dq, dk, dv) in q's dtype, computed in f32 from
     q, k, v, the forward's output `out` and its gradient `dout`. With S
@@ -446,12 +487,17 @@ def attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
         dP = dout V^T, dS = P o (dP - D) o (1 - (S / c)^2 under softcap c),
         dq = scale dS K, dk = scale sum_rep dS^T Q, dv = sum_rep P^T dout,
     dk and dv summed over each kv head's query heads. This is the plain
-    version the backward kernels (`csrc/flash_attention_bwd.cu`) are held
-    to; torch's autograd of `attention_ref` computes the same function
-    (D from the softmax's own output). Rows of q are taken `block_q` at a
+    version the backward kernels (`csrc/flash_bwd_wgmma.cu`,
+    `csrc/flash_attention_bwd.cu`) are held to; torch's autograd of
+    `attention_ref` computes the same function (D from the softmax's own
+    output). Rows of q are taken `block_q` at a
     time, so the live logits are (B, H, block_q, Sk). A row that attends
     nothing gets P = 0 here (the kernel's 0 output), not the plain
-    forward's uniform average."""
+    forward's uniform average.
+
+    `lse` ((B, H, Sq) f32 or None): each row's log-sum-exp, as the wgmma
+    forward keeps it (`attention_lse` is its plain version), used in place
+    of the one computed here; +inf marks a row that attends nothing."""
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -462,19 +508,16 @@ def attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
     dq = torch.empty((b, h, sq, dh), dtype=torch.float32, device=q.device)
     for i in range(0, sq, block_q):
         n = min(block_q, sq - i)
-        qb = q[:, :, i:i + n].float().reshape(b, hkv, rep * n, dh)
+        qb, s, mask = _bwd_logits(q, kf, i, n, causal=causal, window=window,
+                                  chunk=chunk, softcap=softcap, scale=scale)
         ob = dout[:, :, i:i + n].float()
         dsum = (ob * out[:, :, i:i + n].float()).sum(-1)
         ob = ob.reshape(b, hkv, rep * n, dh)
-        s = torch.matmul(qb, kf.transpose(-1, -2)) * scale
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        s = s.view(b, hkv, rep, n, sk)
-        mask = attention_mask(n, sk, i, causal=causal, window=window,
-                              chunk=chunk, device=q.device)
-        s = s.masked_fill(~mask, float("-inf"))
-        lse = torch.logsumexp(s, dim=-1, keepdim=True)
-        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        if lse is None:
+            lse_b = torch.logsumexp(s, dim=-1, keepdim=True)
+        else:
+            lse_b = lse[:, :, i:i + n].float().reshape(b, hkv, rep, n, 1)
+        p = torch.where(mask, torch.exp(s - lse_b), 0.0)
         dp = torch.matmul(ob, vf.transpose(-1, -2)).view(b, hkv, rep, n, sk)
         ds = p * (dp - dsum.view(b, hkv, rep, n, 1))
         if softcap is not None:
@@ -485,7 +528,7 @@ def attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
         dq[:, :, i:i + n] = torch.matmul(ds, kf).view(b, h, n, dh)
         dk += torch.matmul(ds.transpose(-1, -2), qb)
         dv += torch.matmul(p.transpose(-1, -2), ob)
-        del s, p, dp, ds
+        del s, p, dp, ds, lse_b
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 

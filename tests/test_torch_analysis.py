@@ -290,9 +290,11 @@ def test_smem_estimator_reads_plans():
     from repro_torch.kernels.flash_attention import bwd_plan
     assert usage["flash_attention_bwd"] == max(
         max(p.dq_smem, p.dkdv_smem) for p in (
-            bwd_plan(h, kv, s, s, dh) for h, kv, s, dh in (
-                (32, 8, 5120, 80), (32, 16, 4096, 128), (40, 8, 9216, 128),
-                (12, 4, 256, 64), (4, 4, 100, 256), (8, 8, 21, 4))))
+            bwd_plan(h, kv, s, s, dh, bf16=bf16) for h, kv, s, dh, bf16 in (
+                (32, 8, 5120, 80, True), (32, 16, 4096, 128, True),
+                (40, 8, 9216, 128, True), (32, 8, 5120, 80, False),
+                (12, 4, 256, 64, False), (4, 4, 100, 256, True),
+                (8, 8, 21, 4, False))))
     assert usage["lsh_hash"] == max(lsh_hash.plan(n, d, L, m).smem for
                                     n, d, L, m in ((32, 8, 4, 3),
                                                    (1_000_000, 128, 4, 8),
@@ -300,6 +302,8 @@ def test_smem_estimator_reads_plans():
     routes = {(r["op"], r["route"]) for r in info["smem_cases"]}
     assert {("flash_attention", k) for k in
             ("tiles", "wgmma", "split", "small")} <= routes
+    assert {("flash_attention_bwd", k) for k in
+            ("tiles", "wgmma", "small")} <= routes
     assert {("lsh_hash", "stream"), ("lsh_hash", "probe"),
             ("affinity", "symmetric"), ("affinity", "general"),
             ("assign_clusters", "tiles"),

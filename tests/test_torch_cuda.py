@@ -29,8 +29,10 @@ from repro_torch.core.rd import replicator_solve
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.embedding_bag import embedding_bag_bwd_cuda
-from repro_torch.kernels.flash_attention import (compare_with_plain,
-                                                 flash_attention_bwd_cuda)
+from repro_torch.kernels.flash_attention import (bwd_plan,
+                                                 compare_with_plain,
+                                                 flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.lsh_hash import key_flips
 from repro_torch.kernels.segment_matmul import segment_matmul_bwd_cuda
 
@@ -1380,15 +1382,25 @@ def test_golden_ops_and_small_fit_on_card(dev):
 
 # ------------------------------------------------------------- backward --
 BWD_CASES = [
-    # (B, H, Hkv, S, dh, dtype, mask): the tiles route at GQA 1 / 4 / 8,
-    # every mask kind, dh 80 / 128 / 256, and the small route
-    (2, 4, 4, 70, 16, torch.float32, dict(causal=True)),
-    (1, 8, 2, 200, 80, torch.float32, dict(causal=True, window=64)),
+    # (B, H, Hkv, S, dh, dtype, mask, force_tiles): the wgmma route (bf16,
+    # dh 64 / 80 / 128) at GQA rep 1 / 4 / 5 / 8, lengths off the 64-row
+    # tiles, every mask kind and softcaps; the tiles route (f32, dh 256,
+    # and bf16 forced) and the small route
+    (2, 4, 4, 70, 16, torch.float32, dict(causal=True), False),
+    (1, 8, 2, 200, 80, torch.float32, dict(causal=True, window=64), False),
     (1, 8, 1, 150, 128, torch.bfloat16, dict(causal=True, chunk=64,
-                                               softcap=50.0)),
-    (1, 4, 4, 100, 256, torch.bfloat16, dict(causal=True)),
-    (3, 4, 4, 21, 4, torch.float32, dict(causal=False)),
-    (2, 8, 2, 17, 16, torch.bfloat16, dict(causal=True, softcap=10.0)),
+                                               softcap=50.0), False),
+    (1, 4, 4, 100, 256, torch.bfloat16, dict(causal=True), False),
+    (3, 4, 4, 21, 4, torch.float32, dict(causal=False), False),
+    (2, 8, 2, 17, 16, torch.bfloat16, dict(causal=True, softcap=10.0),
+     False),
+    (1, 8, 2, 300, 80, torch.bfloat16, dict(causal=True, window=64), False),
+    (2, 4, 4, 130, 64, torch.bfloat16, dict(causal=True), False),
+    (1, 10, 2, 200, 128, torch.bfloat16, dict(causal=True, chunk=96), False),
+    (1, 4, 4, 77, 64, torch.bfloat16, dict(causal=False), False),
+    (2, 16, 2, 90, 80, torch.bfloat16, dict(causal=True, softcap=10.0),
+     False),
+    (1, 8, 2, 200, 80, torch.bfloat16, dict(causal=True, window=64), True),
 ]
 
 
@@ -1398,25 +1410,76 @@ def test_flash_attention_bwd_matches_plain(dev, case):
     """dq, dk, dv of the backward kernel against `attention_bwd_ref` by
     `compare_with_plain`'s rule (f32 rtol 2e-5 atol 1e-5; bf16 one ulp),
     two calls bitwise equal, and the autograd path through
-    ops.flash_attention equal to the direct call."""
-    b, h, hkv, s, dh, dt, kw = case
+    ops.flash_attention equal to the direct call; on the wgmma route the
+    forward's lse within rtol 1e-6 + atol 1e-6 of `attention_lse`, and the
+    call given that lse equal to the call that recomputes it."""
+    b, h, hkv, s, dh, dt, kw, forced = case
     g = torch.Generator(device="cpu").manual_seed(s * 7 + dh)
     q, k, v, do = (torch.randn(shape, generator=g).to(dev, dt) for shape in
                    ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh),
                     (b, h, s, dh)))
     out = ops.flash_attention(q, k, v, 0, **kw)
-    got = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    plan = bwd_plan(h, hkv, s, s, dh, bf16=dt == torch.bfloat16)
+    route = "tiles" if forced else plan.kernel
+    paths = dict(flash_attention_bwd_cuda.by_path)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, force_tiles=forced,
+                                   **kw)
+    ran = {n for n, c in flash_attention_bwd_cuda.by_path.items()
+           if c > paths[n]}
+    assert ran == {"wgmma": {"wgmma_dq", "wgmma_dkdv"},
+                   "tiles": {"dq", "dkdv"}, "small": {"small"}}[route]
     want = kref.attention_bwd_ref(q, k, v, out, do, **kw)
     rows = torch.ones((b, s), dtype=torch.bool, device=dev)
     for x, y in zip(got, want):
         assert compare_with_plain(x, y, rows)["bad"] == 0
-    again = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, do, force_tiles=forced,
+                                     **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    direct = got
+    if route == "wgmma":
+        out2, lse = flash_attention_cuda(q, k, v, 0, return_lse=True, **kw)
+        assert torch.equal(out2, out)
+        torch.testing.assert_close(lse, kref.attention_lse(q, k, **kw),
+                                   rtol=1e-6, atol=1e-6)
+        given = flash_attention_bwd_cuda(q, k, v, out, do, lse=lse, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, given))
+    elif forced:
+        direct = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     before = ops.launch_counts()["flash_attention_bwd"]
     ops.flash_attention(qq, kk, vv, 0, **kw).backward(do)
     assert ops.launch_counts()["flash_attention_bwd"] > before
-    for x, y in zip((qq.grad, kk.grad, vv.grad), got):
+    for x, y in zip((qq.grad, kk.grad, vv.grad), direct):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_where_the_forward_splits(dev):
+    """A short query over a long kv (rep x Sq <= 8), whose forward plan is
+    "split": under grad the forward runs the wgmma kernel for its lse,
+    and the wgmma backward holds to the plain one."""
+    from repro_torch.kernels.flash_attention import kernel_plan
+    b, h, hkv, sq, sk, dh = 2, 4, 2, 2, 600, 64
+    kw = dict(causal=False)
+    assert kernel_plan(b, h, hkv, sq, sk, dh, causal=False,
+                       bf16=True).kernel == "split"
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+                   for shape in ((b, h, sq, dh), (b, hkv, sk, dh),
+                                 (b, hkv, sk, dh), (b, h, sq, dh)))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    paths = dict(flash_attention_cuda.by_path)
+    out = ops.flash_attention(qq, kk, vv, 0, **kw)
+    assert flash_attention_cuda.by_path["wgmma"] == paths["wgmma"] + 1
+    out.backward(do)
+    want = kref.attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    rows = torch.ones((b, sq), dtype=torch.bool, device=dev)
+    for x, y in zip((qq.grad, kk.grad, vv.grad), want):
+        r = rows if x.shape[2] == sq else torch.ones(
+            (b, sk), dtype=torch.bool, device=dev)
+        assert compare_with_plain(x, y, r)["bad"] == 0
+    direct = flash_attention_bwd_cuda(q, k, v, out.detach(), do, **kw)
+    for x, y in zip((qq.grad, kk.grad, vv.grad), direct):
         assert torch.equal(x, y)
 
 

@@ -72,12 +72,20 @@ def test_attention_bwd_ref_against_autograd_and_jax(mask, rep):
     auto = (tq.grad, tk.grad, tv.grad)
     mine = tref.attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(),
                                   out.detach(), torch.tensor(do), **kw)
+    # with the lse given, as the wgmma forward keeps it for the backward
+    lse = tref.attention_lse(tq.detach(), tk.detach(), **kw)
+    with_lse = tref.attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(),
+                                      out.detach(), torch.tensor(do),
+                                      lse=lse, **kw)
     jg = _jax_vjp(lambda a, b_, c: jref.attention_ref(a, b_, c, **kw),
                   (q, k, v), do)
-    for name, m, a, j in zip(("dq", "dk", "dv"), mine, auto, jg):
+    for name, m, m2, a, j in zip(("dq", "dk", "dv"), mine, with_lse, auto,
+                                 jg):
         assert m.dtype == torch.float32 and m.shape == a.shape
         _rel_close(m.numpy(), a.numpy(), f"{name} vs autograd, {mask}")
         _rel_close(m.numpy(), np.asarray(j), f"{name} vs jax.vjp, {mask}")
+        _rel_close(m2.numpy(), np.asarray(j),
+                   f"{name} with lse vs jax.vjp, {mask}")
 
 
 def test_attention_bwd_ref_blocks_and_bf16():
@@ -101,6 +109,77 @@ def test_attention_bwd_ref_blocks_and_bf16():
     for a, b_ in zip(g16, g32):
         assert a.dtype == torch.bfloat16
         assert torch.equal(a, b_.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("mask", sorted(MASKS))
+@pytest.mark.parametrize("sk", [13, 6])
+def test_attention_lse_is_the_masked_logsumexp(mask, sk):
+    """attention_lse is torch.logsumexp of each row's scaled, capped,
+    masked logits, +inf on a row that attends nothing (Sk = 6 < Sq = 13
+    leaves the windowed and chunked rows past the keys empty), across
+    query blocks; and attention_bwd_ref given it returns bitwise what it
+    returns without it."""
+    kw = MASKS[mask]
+    rng = np.random.default_rng(31 + sk)
+    b, hkv, rep, s, dh = 2, 2, 3, 13, 8
+    q, do = (torch.tensor(rng.normal(size=(b, hkv * rep, s, dh)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(b, hkv, sk, dh)).astype(
+        np.float32)) for _ in range(2))
+    scale = dh ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q,
+                          k.repeat_interleave(rep, 1)) * scale
+    if kw.get("softcap"):
+        logits = kw["softcap"] * torch.tanh(logits / kw["softcap"])
+    m = tref.attention_mask(s, sk, causal=kw["causal"],
+                            window=kw.get("window"), chunk=kw.get("chunk"))
+    want = torch.logsumexp(logits.masked_fill(~m, float("-inf")), -1)
+    empty = ~m.any(-1)
+    want = torch.where(empty, float("inf"), want)
+    for block_q in (1024, 4):
+        got = tref.attention_lse(q, k, block_q=block_q, **kw)
+        assert got.dtype == torch.float32 and got.shape == (b, hkv * rep, s)
+        assert bool((got[:, :, empty] == float("inf")).all())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        out = tref.attention_ref(q, k, v, **kw)
+        plain = tref.attention_bwd_ref(q, k, v, out, do, block_q=block_q,
+                                       **kw)
+        given = tref.attention_bwd_ref(q, k, v, out, do, block_q=block_q,
+                                       lse=got, **kw)
+        for a, b_ in zip(plain, given):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dh,bf16,want", [
+    (64, True, "wgmma"), (80, True, "wgmma"), (128, True, "wgmma"),
+    (64, False, "tiles"), (80, False, "tiles"), (128, False, "tiles"),
+    (256, True, "tiles"), (256, False, "tiles"), (96, True, "tiles")])
+def test_bwd_plan_routes_by_dtype(dh, bf16, want):
+    """The backward's plan: bf16 at dh 64 / 80 / 128 on the tensor cores
+    ("wgmma"), f32 and the other head dims on the SIMT "tiles"; every
+    plan's shared bytes within one block's SMEM_MAX; the wgmma dQ kernel
+    takes the forward's query tiles."""
+    from repro_torch.kernels import flash_attention as fa
+    for h, hkv, s in ((32, 8, 5120), (32, 16, 4096), (40, 8, 9216),
+                      (8, 1, 150), (4, 4, 77), (64, 1, 300)):
+        pl = fa.bwd_plan(h, hkv, s, s, dh, bf16=bf16)
+        assert pl.kernel == want
+        assert 0 < pl.dq_smem <= fa.SMEM_MAX and \
+            0 < pl.dkdv_smem <= fa.SMEM_MAX
+        if want == "wgmma":
+            hb, ppt, _ = fa.wgmma_plan(dh, h // hkv, s)
+            assert (pl.hb, pl.ppt) == (hb, ppt)
+            assert pl.rp == 64 * -(-(hb * ppt) // 64) and pl.rp <= 128
+            assert pl.bk == fa.WGMMA_BWD_KEYS
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bwd_plan_small_route_for_bst(bf16):
+    """BST's 21 x 21 x 4 problems take the small route whatever the
+    dtype."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.bwd_plan(8, 8, 21, 21, 4, bf16=bf16).kernel == "small"
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
