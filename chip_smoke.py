@@ -666,6 +666,33 @@ def check_roi_filter(dev, out):
           f"bitwise_equal={same} {time_line(t)} bound_ms={b_ms:.4f} "
           f"({b_by}) library_ms=null (no single PyTorch call computes "
           "distance + radius mask + -inf scores)")
+    out["roi_filter"]["routes"] = roi_routes(
+        "roi_filter", (vc, center, radius, valid), (wd, wv, wn), b_ms, b_by)
+
+
+def roi_routes(what: str, args: tuple, want: tuple, b_ms: float,
+               b_by: str) -> dict:
+    """Each of roi_filter's routes forced on the same inputs: bit-equal to
+    the plain version's outputs `want` (gated), its device time beside
+    the bound, and which route the plan takes."""
+    from repro_torch.kernels.roi_filter import ROUTES, plan, roi_filter_cuda
+    vc = args[0]
+    pl = plan(vc.shape[0] * vc.shape[1], vc.shape[2], vc.dtype,
+              aligned=vc.data_ptr() % 16 == 0)
+    res = {"plan": pl.route}
+    for route in ROUTES:
+        got = roi_filter_cuda(*args, route=route)
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        need(same, f"{what} route {route}: differs from its plain version")
+        ms = graph_ms(lambda r=route: roi_filter_cuda(*args, route=r))
+        res[route] = dict(ms=ms, bitwise_equal=same,
+                          share_of_bound=b_ms / ms)
+        print(f"[kernel] {what} route {route}"
+              f"{' (the plan)' if route == pl.route else ''}: "
+              f"kernel_ms={ms:.4f} (device time, CUDA graph) bound_ms="
+              f"{b_ms:.4f} ({b_by}) share of the bound {b_ms / ms:.3f} "
+              f"bitwise_equal={same}", flush=True)
+    return res
 
 
 def matvec_bound(bsz: int, m: int, n: int, d: int) -> tuple[float, str]:
@@ -940,7 +967,9 @@ def check_bf16_kernels(dev, out, data):
     rows = bsz * per_seed
     b = bound(2 * rows * d + 4 * bsz * (d + 1) + rows * (1 + 9),
               3 * rows * d)
-    out["roi_filter"]["bf16"] = bf16_entry(t, err, b, out["roi_filter"]["ms"])
+    out["roi_filter"]["bf16"] = bf16_entry(
+        t, err, b, out["roi_filter"]["ms"], routes=roi_routes(
+            "roi_filter bf16", (vc, center, radius, valid), want, *b))
     print(bf16_line("roi_filter", t, b, out["roi_filter"]["ms"]))
     del vc, got, want, up
 

@@ -256,9 +256,9 @@ def _flash_bwd(h, hkv, s, dh, bf16=False):
     backward's launches at one training shape."""
     from repro_torch.kernels import flash_attention as fa
     pl = fa.bwd_plan(h, hkv, s, s, dh, bf16=bf16)
+    source = {"wgmma": "flash_bwd_wgmma", "small": "flash_bwd_small"}
     return (pl.kernel, max(pl.dq_smem, pl.dkdv_smem),
-            "flash_bwd_wgmma" if pl.kernel == "wgmma"
-            else "flash_attention_bwd")
+            source.get(pl.kernel, "flash_attention_bwd"))
 
 
 def _plan(module: str, *shape):
@@ -283,8 +283,11 @@ SMEM_CASES = (
      lambda: _plan("lsh_hash", 1_000_000, 128, 4, 8)),
     ("lsh_hash", "CIVS probe 3,584 x 128, L 4 x m 8",
      lambda: _plan("lsh_hash", 3584, 128, 4, 8)),
-    ("roi_filter", "case 64 x 8", _none("roi_filter")),
-    ("roi_filter", "32 x 7,168 x 128", _none("roi_filter")),
+    ("roi_filter", "case 64 x 8", lambda: _plan("roi_filter", 64, 8)),
+    ("roi_filter", "32 x 7,168 x 128",
+     lambda: _plan("roi_filter", 32 * 7168, 128)),
+    ("roi_filter", "32 x 7,168 x 128 bf16",
+     lambda: _plan("roi_filter", 32 * 7168, 128, torch.bfloat16)),
     ("affinity_matvec", "case 32 x 64 x 8",
      lambda: _plan("affinity_matvec", 32, 64, 8)),
     ("affinity_matvec", "32 x 240 x 240 x 128",

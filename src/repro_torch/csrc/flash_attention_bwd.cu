@@ -16,10 +16,9 @@
 // attention (src/repro/kernels/ref.py `attention_ref`) where the TPU
 // kernel `flash_attention_pallas` serves the forward. This source is the
 // port's own. kernels/flash_attention.py `bwd_plan` sends bf16 at dh 64,
-// 80 and 128 to the tensor cores (flash_bwd_wgmma.cu) and every other call
-// to one of two routes here:
-//
-// 1. "tiles": two kernels and no atomics, so the result is the same bits
+// 80 and 128 to the tensor cores (flash_bwd_wgmma.cu), BST's small
+// problems to flash_bwd_small.cu, and every other call to the route here,
+// "tiles": two kernels and no atomics, so the result is the same bits
 //    from run to run. `flash_bwd_dq_kernel`, one block per (batch row, kv
 //    head, tile of query rows: the rep heads of the kv head times as many
 //    positions as fill 64 rows, 32 past dh = 96; the forward's tiles):
@@ -35,18 +34,12 @@
 //    P^T dO to dV and dS^T Q to dK in shared memory. Queries, dO, keys and
 //    values are staged transposed as f32 ([dh][rows]), so one 16-byte load
 //    feeds four products in every product of the pass.
-// 2. "small" (BST: Sq, Sk <= 32, dh <= 16), one kernel: a warp per (batch
-//    row, kv head), a lane per query, the whole key range in shared memory;
-//    for each of the kv head's query heads in order, lane i forms row i of
-//    P and dS and its dQ, then lane j sums column j of dS Q and P dO over
-//    the rows in order into its dK and dV. Eight warps a block, so one
-//    block holds eight problems: a 64-row tile per (batch row, head) would
-//    leave most of it idle at BST's 21 x 21 x 4.
+// The small route (BST: Sq, Sk <= 32, dh <= 16) is csrc/flash_bwd_small.cu.
 //
 // What bounds it on an H100: operations. The tiles route computes four
-// products of an attended (row, key) pair's dh in each kernel, 16 dh
-// FLOP a pair, on the SIMT units (67 TFLOP/s f32): f32 (lm-100m), dh 256,
-// and bf16 where the caller forces it (`force_tiles`).
+// products of an attended (row, key) pair's dh in each kernel, 16 dh FLOP
+// a pair, on the SIMT units (67 TFLOP/s f32): f32 (lm-100m), dh 256, and
+// bf16 where the caller forces it (`force_tiles`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,8 +63,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmallS = 32;
-constexpr int kSmallDh = 16;
 
 struct Bwd {
   Params m;              // q, k, v, strides, masks, scale, softcap, dh
@@ -86,7 +77,6 @@ struct Bwd {
   int hb, ppt, n_hc, rp, bc, bk, dh4;  // tile plan, see bwd_plan
   int q_tiles;           // query tiles a (head chunk) row: ceil(Sq / ppt)
   int k_tiles;           // key tiles: ceil(Sk / bk)
-  int dh_pad;            // the small route's dh rounded up to 4, 8 or 16
   int fold;              // the batch folded into grid.x (past 65,535 rows)
 };
 
@@ -586,150 +576,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------------ 2. small ----
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_small_kernel(const Bwd p, long long n_problems) {
-  extern __shared__ float4 smem4[];
-  const Params& m = p.m;
-  const int dh = m.dh, dp = p.dh_pad, sq = m.sq, sk = m.sk;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // a warp's slice: K, V [32][dp], Q, dO [32][dp], P, dS [32][33]
-  float* base = reinterpret_cast<float*>(smem4) +
-                warp * (4 * kSmallS * dp + 2 * kSmallS * (kSmallS + 1));
-  float* ks = base;
-  float* vs = ks + kSmallS * dp;
-  float* qs = vs + kSmallS * dp;
-  float* os = qs + kSmallS * dp;
-  float* pm = os + kSmallS * dp;
-  float* sm = pm + kSmallS * (kSmallS + 1);
-  const int rep = m.h / m.hkv;
-  const T* q = static_cast<const T*>(m.q);
-  const T* k = static_cast<const T*>(m.k);
-  const T* v = static_cast<const T*>(m.v);
-  const T* o = static_cast<const T*>(p.o);
-  const T* dout = static_cast<const T*>(p.dout);
-  T* dq = static_cast<T*>(p.dq);
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
-
-  for (long long prob_i = blockIdx.x * static_cast<long long>(kWarps) + warp;
-       prob_i < n_problems;
-       prob_i += static_cast<long long>(gridDim.x) * kWarps) {
-    const int b = static_cast<int>(prob_i / m.hkv);
-    const int g = static_cast<int>(prob_i - static_cast<long long>(b) * m.hkv);
-    __syncwarp();
-    for (int d = 0; d < dp; ++d) {
-      float kx = 0.f, vx = 0.f;
-      if (lane < sk && d < dh) {
-        kx = to_f32(k[b * m.k_sb + g * m.k_sh + lane * m.k_ss + d]);
-        vx = to_f32(v[b * m.v_sb + g * m.v_sh + lane * m.v_ss + d]);
-      }
-      ks[lane * dp + d] = kx;
-      vs[lane * dp + d] = vx;
-    }
-    float dka[kSmallDh], dva[kSmallDh];
-#pragma unroll
-    for (int d = 0; d < kSmallDh; ++d) {
-      dka[d] = 0.f;
-      dva[d] = 0.f;
-    }
-    for (int hq = g * rep; hq < (g + 1) * rep; ++hq) {
-      const bool row = lane < sq;
-      const long long rbase =
-          ((static_cast<long long>(b) * m.h + hq) * sq + lane) * dh;
-      float qi[kSmallDh], oi[kSmallDh];
-      float dsum = 0.f;
-#pragma unroll
-      for (int d = 0; d < kSmallDh; ++d) {
-        float qx = 0.f, ox = 0.f;
-        if (row && d < dh) {
-          qx = to_f32(q[b * m.q_sb + hq * m.q_sh + lane * m.q_ss + d]);
-          ox = to_f32(dout[rbase + d]);
-          dsum = fmaf(ox, to_f32(o[rbase + d]), dsum);
-        }
-        qi[d] = qx;
-        oi[d] = ox;
-        if (d < dp) {
-          qs[lane * dp + d] = qx;
-          os[lane * dp + d] = ox;
-        }
-      }
-      __syncwarp();
-      // row `lane` of the logits, its lse, then P and dS
-      float s[kSmallS];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kSmallS; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < kSmallDh; ++d) {
-          if (d < dh) dot = fmaf(qi[d], ks[j * dp + d], dot);
-        }
-        const bool ok = row && j < sk && attends(m, j, lane);
-        s[j] = masked_logit(m, ok, dot);
-        mx = fmaxf(mx, s[j]);
-      }
-      float l = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSmallS; ++j) {
-        if (s[j] != -INFINITY) l += expf(s[j] - mx);
-      }
-      const float lse = l > 0.f ? mx + logf(l) : INFINITY;
-      float dqi[kSmallDh];
-#pragma unroll
-      for (int d = 0; d < kSmallDh; ++d) dqi[d] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSmallS; ++j) {
-        float dpv = 0.f;
-#pragma unroll
-        for (int d = 0; d < kSmallDh; ++d) {
-          if (d < dh) dpv = fmaf(oi[d], vs[j * dp + d], dpv);
-        }
-        const float pr = prob(s[j], lse);
-        const float ds = dscore(m, s[j], lse, dpv, dsum);
-        pm[lane * (kSmallS + 1) + j] = pr;
-        sm[lane * (kSmallS + 1) + j] = ds;
-#pragma unroll
-        for (int d = 0; d < kSmallDh; ++d) {
-          if (d < dh) dqi[d] = fmaf(ds, ks[j * dp + d], dqi[d]);
-        }
-      }
-      if (row) {
-#pragma unroll
-        for (int d = 0; d < kSmallDh; ++d) {
-          if (d < dh) store(dq + rbase + d, dqi[d]);
-        }
-      }
-      __syncwarp();
-      // column `lane`: dK += dS^T Q, dV += P^T dO over the rows in order
-      for (int i = 0; i < sq; ++i) {
-        const float pr = pm[i * (kSmallS + 1) + lane];
-        const float ds = sm[i * (kSmallS + 1) + lane];
-#pragma unroll
-        for (int d = 0; d < kSmallDh; ++d) {
-          if (d < dp) {
-            dka[d] = fmaf(ds, qs[i * dp + d], dka[d]);
-            dva[d] = fmaf(pr, os[i * dp + d], dva[d]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-    if (lane < sk) {
-      const long long kbase =
-          ((static_cast<long long>(b) * m.hkv + g) * sk + lane) * dh;
-#pragma unroll
-      for (int d = 0; d < kSmallDh; ++d) {
-        if (d < dh) {
-          store(dk + kbase + d, dka[d]);
-          store(dv + kbase + d, dva[d]);
-        }
-      }
-    }
-  }
-}
-
 // (per_row blocks, kv heads, batch) with the batch on grid.z up to
 // 65,535 rows, folded into grid.x past that (one launch while it fits)
 template <typename K>
@@ -763,26 +609,13 @@ cudaError_t launch_tiles(const Bwd& p, int dq_smem, int dkdv_smem,
                      &kv_limit, stream);
 }
 
-template <typename T>
-cudaError_t launch_small(const Bwd& p, int smem_bytes, cudaStream_t stream) {
-  static int limit = 48 * 1024;
-  cudaError_t err = allow_smem(flash_bwd_small_kernel<T>, smem_bytes, &limit);
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(p.batch) * p.m.hkv;
-  const long long blocks = (n + kWarps - 1) / kWarps;
-  const unsigned grid = static_cast<unsigned>(
-      blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL);
-  flash_bwd_small_kernel<T><<<grid, kThreads, smem_bytes, stream>>>(p, n);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v through their strides (b, h, s; dh contiguous); o, dout, dq
 // (B, H, Sq, dh) and dk, dv (B, Hkv, Sk, dh) contiguous; lse, dsum (B, H,
-// Sq) f32 scratch of the tiles route. path 0 = tiles, 1 = small; the plan
-// (hb, ppt, rp, bc, bk, shared bytes) from kernels/flash_attention.py
-// `bwd_plan`.
+// Sq) f32 scratch. path 0 = tiles (the only one here: the small route is
+// csrc/flash_bwd_small.cu); the plan (hb, ppt, rp, bc, bk, shared bytes)
+// from kernels/flash_attention.py `bwd_plan`.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
@@ -793,8 +626,7 @@ extern "C" int flash_attention_bwd_launch(
     int is_bf16, int path, int hb, int ppt, int rp, int bc, int bk,
     int dq_smem, int dkdv_smem, void* stream) {
   if (batch <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
-      sk <= 0 || dh <= 0 || dh > 256 || hkv > 65535 || path < 0 ||
-      path > 1) {
+      sk <= 0 || dh <= 0 || dh > 256 || hkv > 65535 || path != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Bwd p = {};
@@ -830,15 +662,6 @@ extern "C" int flash_attention_bwd_launch(
   p.dsum = dsum;
   p.batch = batch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (path == 1) {
-    if (sq > kSmallS || sk > kSmallS || dh > kSmallDh) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.dh_pad = dh <= 4 ? 4 : (dh <= 8 ? 8 : 16);
-    return static_cast<int>(is_bf16 ? launch_small<__nv_bfloat16>(p, dq_smem,
-                                                                   st)
-                                    : launch_small<float>(p, dq_smem, st));
-  }
   const int rep = h / hkv;
   if (hb <= 0 || ppt <= 0 || rp % 4 != 0 || bc % 4 != 0 || bk % 4 != 0 ||
       rp < hb * ppt || rp <= 0 || bc <= 0 || bk <= 0) {
@@ -864,8 +687,6 @@ extern "C" int flash_attention_bwd_static_smem(int* bytes) {
       {repro_smem::fn(flash_bwd_dq_kernel<float>),
        repro_smem::fn(flash_bwd_dq_kernel<__nv_bfloat16>),
        repro_smem::fn(flash_bwd_dkdv_kernel<float>),
-       repro_smem::fn(flash_bwd_dkdv_kernel<__nv_bfloat16>),
-       repro_smem::fn(flash_bwd_small_kernel<float>),
-       repro_smem::fn(flash_bwd_small_kernel<__nv_bfloat16>)},
+       repro_smem::fn(flash_bwd_dkdv_kernel<__nv_bfloat16>)},
       bytes);
 }

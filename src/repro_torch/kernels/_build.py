@@ -57,8 +57,9 @@ SIGNATURES = {
     # x, proj, bias, out, n, d, n_tables, n_proj, points a thread,
     # points a block, threads, smem_bytes, seg, stream
     "lsh_hash_launch": (P, P, P, P, I, I, I, I, I, I, I, I, F, P),
-    # vc, center, radius, valid, dist, ok, neg, rows, per_seed, d, stream
-    "roi_filter_launch": (P, P, P, P, P, P, P, I, I, I, P),
+    # vc, center, radius, valid, dist, ok, neg, rows, per_seed, d, route
+    # (ring, rows), stage_rows, stream
+    "roi_filter_launch": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     # q, q_idx, c, c_idx, w, out, batch, m, n, d, k, smem_rows, rows,
     # classes, ubits, tc, groups, gpp, smem_bytes, stream
     "affinity_matvec_launch": (P, P, P, P, P, P, I, I, I, I, F, I, I, I, I,
@@ -87,11 +88,17 @@ SIGNATURES = {
                                I, I, I, I, I, I, I, P, P, P),
     # q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, h, hkv, sq, sk, dh,
     # q, k and v strides (b, h, s), causal, window, chunk, softcap, scale,
-    # is_bf16, path (tiles, small), hb, ppt, rp, bc, bk, dq / small smem
-    # bytes, dkdv smem bytes, stream
+    # is_bf16, path (0: tiles), hb, ppt, rp, bc, bk, dq smem bytes, dkdv
+    # smem bytes, stream
     "flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                                    I, I, L, L, L, L, L, L, L, L, L, I, I, I,
                                    F, F, I, I, I, I, I, I, I, I, I, P),
+    # q, k, v, o, dout, dq, dk, dv, batch, h, hkv, sq, sk, dh, q, k and v
+    # strides (b, h, s), causal, window, chunk, softcap, scale, is_bf16,
+    # problems a block, smem bytes, stream
+    "flash_bwd_small_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, L,
+                               L, L, L, L, L, L, L, L, I, I, I, F, F, I, I,
+                               I, P),
     # q, k, v, o, dout, dq, dk, dv, lse, dsum, batch, h, hkv, sq, sk, dh,
     # q, k and v strides (b, h, s), causal, window, chunk, softcap, scale,
     # hb, ppt, dq smem bytes, dkdv smem bytes, stream
@@ -119,7 +126,8 @@ for _name in ("lsh_hash", "roi_filter", "affinity_matvec", "lid_sweep"):
 STATIC_SMEM_SOURCES = ("lsh_hash", "roi_filter", "affinity_matvec",
                        "lid_sweep", "assign", "affinity", "flash_attention",
                        "flash_wgmma", "flash_wgmma_lse",
-                       "flash_attention_bwd", "flash_bwd_wgmma",
+                       "flash_attention_bwd", "flash_bwd_small",
+                       "flash_bwd_wgmma",
                        "embedding_bag",
                        "segment_matmul", "segment_bwd")
 for _name in STATIC_SMEM_SOURCES:

@@ -290,7 +290,9 @@ flash_attention_cuda.by_path = dict.fromkeys(_PATHS, 0)
 
 
 # ------------------------------------------------------------- backward --
-BWD_PATHS = ("tiles", "small")
+# the routes of csrc/flash_attention_bwd.cu's entry point (the small route
+# is csrc/flash_bwd_small.cu's, the wgmma route csrc/flash_bwd_wgmma.cu's)
+BWD_PATHS = ("tiles",)
 # launches of the backward kernels, counted apart: the tiles route's two,
 # the small route's one and the wgmma route's two
 BWD_KERNELS = ("dq", "dkdv", "small", "wgmma_dq", "wgmma_dkdv")
@@ -303,7 +305,8 @@ class BwdPlan(NamedTuple):
     tiles: hb q heads times ppt positions (rp rows: padded to 4, or the
     wgmma warpgroups' 64 each) a query tile, bc keys a kv tile in the dQ
     kernel, bk keys a block in the dK / dV kernel, and each kernel's
-    dynamic shared bytes (the small route's in dq_smem)."""
+    dynamic shared bytes; for "small", hb problems (batch row, kv head) a
+    block and their bytes in dq_smem."""
     kernel: str
     hb: int = 0
     ppt: int = 0
@@ -332,11 +335,31 @@ def bwd_dkdv_smem(dh: int, rp: int, bk: int) -> int:
                 + 2 * bk * dh4 + 2 * rp)
 
 
-def bwd_small_smem(dh: int) -> int:
-    """A warp's K, V, Q and dO (32 rows of dh rounded up to 4, 8 or 16) and
-    its P and dS (32 x 33), for each of a block's 8 warps, as f32."""
+# threads of the small backward's block
+SMALL_BWD_THREADS = 256
+
+
+def small_bwd_floats(rep: int, sq: int, sk: int, dh: int) -> int:
+    """f32 words one problem (a batch row's kv head) of the small backward
+    keeps in shared memory: K and V (sk rows of dh rounded up to 4, 8 or
+    16), Q and dO (its rep x sq query rows) and three floats a row (max,
+    1 / sum, D), rounded up to a multiple of 4 (`small_floats` in
+    csrc/flash_bwd_small.cu)."""
     dp = next(w for w in (4, 8, 16) if dh <= w)
-    return 4 * _WARPS * (4 * SMALL_S * dp + 2 * SMALL_S * (SMALL_S + 1))
+    rows = rep * sq
+    return -(-(2 * sk * dp + 2 * rows * dp + 3 * rows) // 4) * 4
+
+
+def small_bwd_problems(rep: int, sq: int, sk: int) -> int:
+    """Problems a block of the small backward takes: as many as its
+    threads hold query rows (and keys), at least one."""
+    return max(1, SMALL_BWD_THREADS // max(rep * sq, sk))
+
+
+def bwd_small_smem(rep: int, sq: int, sk: int, dh: int) -> int:
+    """Dynamic shared bytes of the small backward's block."""
+    return 4 * small_bwd_problems(rep, sq, sk) * small_bwd_floats(
+        rep, sq, sk, dh)
 
 
 def wgmma_bwd_smem(dh: int, warpgroups: int) -> tuple[int, int]:
@@ -354,19 +377,22 @@ def wgmma_bwd_smem(dh: int, warpgroups: int) -> tuple[int, int]:
 def bwd_plan(h: int, hkv: int, sq: int, sk: int, dh: int, *,
              bf16: bool = False) -> BwdPlan:
     """The backward's route: "small" where Sq and Sk are at most 32 and dh
-    at most 16 (BST); "wgmma", the tensor cores, for bf16 with dh in
-    WGMMA_BWD_DH: the dQ kernel takes the wgmma forward's query tiles
-    (`wgmma_plan`), the dK / dV kernel 128 keys a block; else "tiles", the
-    SIMT kernels, with the forward tile kernel's query rows (all rep heads
-    of a kv head times as many positions as fill 64 rows, 32 past dh =
-    96) and the largest key tiles of 64, 32 or 16 that fit each kernel's
-    shared memory."""
+    at most 16 (BST) and a problem's rows fit one block's shared memory
+    (`small_bwd_problems` of them a block); "wgmma", the tensor cores, for
+    bf16 with dh in WGMMA_BWD_DH: the dQ kernel takes the wgmma forward's
+    query tiles (`wgmma_plan`), the dK / dV kernel 128 keys a block; else
+    "tiles", the SIMT kernels, with the forward tile kernel's query rows
+    (all rep heads of a kv head times as many positions as fill 64 rows,
+    32 past dh = 96) and the largest key tiles of 64, 32 or 16 that fit
+    each kernel's shared memory."""
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention backward: head_dim {dh} > "
                          f"{MAX_HEAD_DIM}")
-    if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH:
-        return BwdPlan("small", dq_smem=bwd_small_smem(dh))
     rep = h // hkv
+    if sq <= SMALL_S and sk <= SMALL_S and dh <= SMALL_DH and \
+            bwd_small_smem(rep, sq, sk, dh) <= SMEM_MAX:
+        return BwdPlan("small", hb=small_bwd_problems(rep, sq, sk),
+                       dq_smem=bwd_small_smem(rep, sq, sk, dh))
     if bf16 and dh in WGMMA_BWD_DH:
         hb, ppt, _ = wgmma_plan(dh, rep, sq)
         warpgroups = -(-(hb * ppt) // WGMMA_ROWS)
@@ -445,28 +471,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return _bwd_wgmma(q, k, v, out, dout, plan, lse, dq, dk, dv,
                           causal=causal, window=window, chunk=chunk,
                           softcap=softcap, scale=scale)
-    lse = dsum = None
-    if plan.kernel == "tiles":
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-        dsum = torch.empty_like(lse)
-    err = _build.library().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        0 if lse is None else lse.data_ptr(),
-        0 if dsum is None else dsum.data_ptr(), b, h, hkv, sq, sk, dh,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
-        int(window or 0), int(chunk or 0), float(softcap or 0.0),
-        float(scale), int(q.dtype == torch.bfloat16),
-        BWD_PATHS.index(plan.kernel), plan.hb, plan.ppt, plan.rp, plan.bc,
-        plan.bk, plan.dq_smem, plan.dkdv_smem, _build.stream_ptr(dev))
-    _build.check("flash_attention backward", err)
-    if plan.kernel == "tiles":
-        flash_attention_bwd_cuda.launches += 2
-        flash_attention_bwd_cuda.by_path["dq"] += 1
-        flash_attention_bwd_cuda.by_path["dkdv"] += 1
-    else:
+    mask = (int(bool(causal)), int(window or 0), int(chunk or 0),
+            float(softcap or 0.0), float(scale), int(bf16))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if plan.kernel == "small":
+        err = _build.library().flash_bwd_small_launch(
+            *ptrs, b, h, hkv, sq, sk, dh, *strides, *mask, plan.hb,
+            plan.dq_smem, _build.stream_ptr(dev))
+        _build.check("flash_attention backward (small)", err)
         flash_attention_bwd_cuda.launches += 1
         flash_attention_bwd_cuda.by_path["small"] += 1
+        return dq, dk, dv
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    err = _build.library().flash_attention_bwd_launch(
+        *ptrs, lse.data_ptr(), dsum.data_ptr(), b, h, hkv, sq, sk, dh,
+        *strides, *mask, BWD_PATHS.index(plan.kernel), plan.hb, plan.ppt,
+        plan.rp, plan.bc, plan.bk, plan.dq_smem, plan.dkdv_smem,
+        _build.stream_ptr(dev))
+    _build.check("flash_attention backward", err)
+    flash_attention_bwd_cuda.launches += 2
+    flash_attention_bwd_cuda.by_path["dq"] += 1
+    flash_attention_bwd_cuda.by_path["dkdv"] += 1
     return dq, dk, dv
 
 

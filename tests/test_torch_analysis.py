@@ -307,7 +307,8 @@ def test_smem_estimator_reads_plans():
     assert {("lsh_hash", "stream"), ("lsh_hash", "probe"),
             ("affinity", "symmetric"), ("affinity", "general"),
             ("assign_clusters", "tiles"),
-            ("assign_clusters", "lanes")} <= routes
+            ("assign_clusters", "lanes"),
+            ("roi_filter", "ring"), ("roi_filter", "rows")} <= routes
 
 
 def test_smem_budget_violation_fires():
@@ -316,9 +317,9 @@ def test_smem_budget_violation_fires():
     rules = {v.rule for v in report.violations}
     assert rules == {"smem-budget"}
     over = {v.message.split(" at ")[0] for v in report.violations}
-    assert over == {"lsh_hash", "affinity_matvec", "lid_sweep",
-                    "assign_clusters", "affinity", "flash_attention",
-                    "flash_attention_bwd"}
+    assert over == {"lsh_hash", "roi_filter", "affinity_matvec",
+                    "lid_sweep", "assign_clusters", "affinity",
+                    "flash_attention", "flash_attention_bwd"}
 
 
 def test_smem_budget_fires_on_a_plan_past_the_card():

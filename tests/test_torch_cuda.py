@@ -1564,3 +1564,138 @@ def test_train_steps_repeat_bitwise_on_card(dev):
         for r in (True, False)]
     for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
         assert torch.equal(a, b)
+
+
+def _nan_equal(a, b):
+    """Bit for bit where finite, NaN where the other is NaN (a NaN's
+    payload is the card's or the CPU's own)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()) and \
+        torch.equal(torch.signbit(a) | torch.isnan(a),
+                    torch.signbit(b) | torch.isnan(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["ring", "rows"])
+@pytest.mark.parametrize("bsz,per_seed,d", [
+    (32, 7168, 128), (32, 900, 128), (32, 301, 128), (1, 240, 128),
+    (3, 777, 100), (2, 1001, 257), (5, 17, 24)])
+def test_roi_filter_routes_bitwise(dev, bsz, per_seed, d, route, dtype):
+    """Both routes of `roi_filter_cuda` bit-equal to `roi_filter_ref` at
+    the main path's 32 x 7,168 x 128, 4b's shard widths, one lane (the
+    online path) and ragged widths; bf16 rows bit-equal to their upcast
+    rows; NaN / Inf in invalid rows give ok = False, neg = -inf and move
+    no other row; each call counted on its route."""
+    from repro_torch.kernels.roi_filter import plan, roi_filter_cuda
+    g = torch.Generator(device="cpu").manual_seed(bsz * per_seed + d)
+    vc = torch.randn((bsz, per_seed, d), generator=g).to(dev)
+    center = torch.randn((bsz, d), generator=g).to(dev)
+    radius = torch.full((bsz,), 0.98 * np.sqrt(2 * d), device=dev)
+    valid = (torch.rand((bsz, per_seed), generator=g) < 0.7).to(dev)
+    valid[0, :3] = False
+    valid[-1, -1] = False
+    vc = vc.to(dtype)
+    if route == "ring" and plan(bsz * per_seed, d, dtype,
+                                min_rows=0).route != "ring":
+        with pytest.raises(ValueError):    # rows too wide for a stage
+            roi_filter_cuda(vc, center, radius, valid, route=route)
+        return
+    clean = roi_filter_cuda(vc, center, radius, valid, route=route)
+    vc[0, :2] = float("nan")
+    vc[0, 2] = float("inf")
+    vc[-1, -1] = float("-inf")
+    before = dict(roi_filter_cuda.by_path)
+    got = roi_filter_cuda(vc, center, radius, valid, route=route)
+    assert roi_filter_cuda.by_path[route] == before[route] + 1
+    want = kref.roi_filter_ref(vc, center, radius, valid)
+    assert _nan_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    keep = torch.ones_like(valid)
+    keep[0, :3] = False
+    keep[-1, -1] = False
+    assert torch.equal(got[0][keep], clean[0][keep])
+    assert torch.equal(got[2][keep], clean[2][keep])
+    assert not bool(got[1][~keep].any())
+    assert bool((got[2][~keep] == float("-inf")).all())
+    if dtype == torch.bfloat16:   # the upcast rows on their plan's route
+        up = roi_filter_cuda(vc.float(), center, radius, valid)
+        assert all(_nan_equal(a, b) for a, b in zip(got, up))
+
+
+@pytest.mark.cuda
+def test_roi_filter_plan_on_the_card(dev):
+    """The wrapper takes its plan's route: the ring at the main path's
+    rows, the rows route below RING_MIN_ROWS and on rows that do not start
+    on 16 bytes (a view one row in), which a forced ring refuses; each
+    bit-equal to the plain version."""
+    from repro_torch.kernels import roi_filter as roi
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n, d = 32 * 7168, 128
+    flat = torch.randn(n * d + 1, generator=g).to(dev)
+    center = torch.randn((1, d), generator=g).to(dev)
+    radius = torch.full((1,), 15.0, device=dev)
+    for vc, want in ((flat[:n * d].view(n, d), "ring"),
+                     (flat[:(roi.RING_MIN_ROWS - 8) * d].view(-1, d),
+                      "rows"),
+                     (flat[1:].view(n, d), "rows")):   # 4 bytes in
+        valid = torch.ones((1, vc.shape[0]), dtype=torch.bool, device=dev)
+        before = dict(roi.roi_filter_cuda.by_path)
+        got = roi.roi_filter_cuda(vc[None], center, radius, valid)
+        assert roi.roi_filter_cuda.by_path[want] == before[want] + 1
+        plain = kref.roi_filter_ref(vc[None], center, radius, valid)
+        assert all(torch.equal(x, y) for x, y in zip(got, plain))
+    with pytest.raises(ValueError):
+        roi.roi_filter_cuda(flat[1:].view(1, n, d), center, radius,
+                            torch.ones((1, n), dtype=torch.bool, device=dev),
+                            route="ring")
+
+
+SMALL_BWD_CASES = [
+    # (B, H, Hkv, Sq, Sk, dh, dtype, mask): BST's train batch on the
+    # model's transposed views, then the edges of the small route
+    (65_536, 8, 8, 21, 21, 4, torch.float32, dict(causal=False)),
+    (4_096, 8, 8, 21, 21, 4, torch.bfloat16, dict(causal=False)),
+    (5, 2, 1, 1, 1, 1, torch.float32, dict(causal=True)),
+    (7, 4, 2, 17, 17, 8, torch.float32, dict(causal=True)),
+    (3, 4, 2, 32, 32, 16, torch.float32, dict(causal=False)),
+    (3, 4, 4, 32, 17, 4, torch.float32, dict(causal=True, window=5)),
+    (3, 4, 2, 21, 21, 16, torch.bfloat16, dict(causal=True,
+                                              softcap=10.0)),
+    (2, 32, 2, 21, 21, 4, torch.float32, dict(causal=True, chunk=6)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMALL_BWD_CASES)
+def test_flash_attention_bwd_small_route(dev, case):
+    """The small backward on its route within `compare_with_plain`'s rule
+    of `attention_bwd_ref` (f32: 1e-5 + 2e-5 |want|; bf16 one ulp), two
+    calls bitwise equal, one launch counted: BST's 65,536 x 8 x 21 x 21 x 4
+    on the (B, 21, 8, 4) projections' views and the route's edges (Sq, Sk 1
+    / 17 / 32, dh 1 / 8 / 16, rep 2 and 16, masks and softcap)."""
+    b, h, hkv, sq, sk, dh, dt, kw = case
+    rng = np.random.default_rng(b + h + sq + dh)
+    if h == hkv and sq == sk:         # the model's views, as BST makes them
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, sq, h * dh), dtype=np.float32)).to(dev, dt)
+            .view(b, sq, h, dh).transpose(1, 2) for _ in range(3))
+    else:
+        q = torch.from_numpy(rng.standard_normal(
+            (b, h, sq, dh), dtype=np.float32)).to(dev, dt)
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, hkv, sk, dh), dtype=np.float32)).to(dev, dt)
+            for _ in range(2))
+    assert bwd_plan(h, hkv, sq, sk, dh,
+                    bf16=dt == torch.bfloat16).kernel == "small"
+    out = ops.flash_attention(q, k, v, 0, **kw)
+    do = torch.from_numpy(rng.standard_normal(
+        tuple(out.shape), dtype=np.float32)).to(dev, dt)
+    before = flash_attention_bwd_cuda.by_path["small"]
+    got = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    assert flash_attention_bwd_cuda.by_path["small"] == before + 1
+    want = kref.attention_bwd_ref(q, k, v, out, do, **kw)
+    for x, y, n in zip(got, want, (sq, sk, sk)):
+        rows = torch.ones((b, n), dtype=torch.bool, device=dev)
+        assert compare_with_plain(x, y, rows)["bad"] == 0
+    again = flash_attention_bwd_cuda(q, k, v, out, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))

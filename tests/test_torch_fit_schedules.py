@@ -21,7 +21,9 @@ op, rounded on its own, as the kernels' __fmul_rn / __fadd_rn are.
 - lid_sweep's argmax key orders scores as torch.argmax does.
 
 The plans that pick these schedules (`affinity_matvec.plan`,
-`lid_sweep.plan`) are checked here too.
+`lid_sweep.plan`) are checked here too, and so are `csrc/roi_filter.cu`'s
+ring route (chunks of rows through shared-memory stages, 8 rows a warp
+reduced by a reduce-scatter over the lanes) and `roi_filter.plan`.
 """
 
 import numpy as np
@@ -33,6 +35,7 @@ from repro_torch.kernels.affinity_matvec import MAX_N, column_classes, \
     leaf_groups
 from repro_torch.kernels.affinity_matvec import plan as matvec_plan
 from repro_torch.kernels.lid_sweep import plan as sweep_plan
+from repro_torch.kernels import roi_filter as roi
 
 
 def bitrev(p: int, bits: int) -> int:
@@ -317,3 +320,168 @@ def test_matvec_plan():
                for m in (1, 240) for n in (1, 37, 240) for d in (16, 700))
     with pytest.raises(ValueError):
         matvec_plan(8, MAX_N + 1, 16)
+
+
+# ------------------------------------------------------------ roi_filter --
+def _scatter_step(vals: torch.Tensor, off: int) -> torch.Tensor:
+    """One reduce-scatter step of `reduce_rows8` over (groups, 32 lanes, N
+    rows): a lane whose bit `off` is set keeps rows [N/2, N) and the other
+    lane of its pair rows [0, N/2), each adding its partner's copy."""
+    n = vals.shape[-1]
+    lane = torch.arange(32)
+    upper = ((lane & off) != 0)[None, :, None]
+    lo, hi = vals[..., :n // 2], vals[..., n // 2:]
+    keep = torch.where(upper, hi, lo)
+    give = torch.where(upper, lo, hi)
+    return keep + give[:, lane ^ off]
+
+
+def ring_emulate(vc, center, radius, valid, stage_rows, blocks,
+                 stages=roi.STAGES, warps=roi.RING_WARPS):
+    """The ring route of `roi_filter_cuda` step for step: chunk c
+    (stage_rows rows) goes to warp c mod W of the grid's W = blocks x warps
+    warps, into that warp's stage (c div W) mod stages; each of the chunk's
+    groups of 8 rows is reduced by its lanes: lane l sums each row's
+    squares at t = l, l + 32, ... from the staged rows, then the
+    reduce-scatter (offsets 16, 8, 4; 2, 1 within four lanes) leaves row k
+    in lane 4k. Returns (dist, ok, neg) and how often each row was
+    written."""
+    bsz, per_seed, d = vc.shape
+    flat = vc.reshape(-1, d)
+    rows = flat.shape[0]
+    dist = torch.full((rows,), float("nan"))
+    written = torch.zeros(rows, dtype=torch.int64)
+    n_chunks = -(-rows // stage_rows)
+    n_warps = blocks * warps
+    seen = set()
+    for c in range(n_chunks):
+        warp, turn = c % n_warps, c // n_warps
+        stage = turn % stages
+        assert (warp, turn) not in seen and warp // warps < blocks
+        seen.add((warp, turn))
+        r0 = c * stage_rows
+        nr = min(stage_rows, rows - r0)
+        nbytes = nr * d * flat.element_size()
+        # the bulk copy's bytes are a multiple of 16; the tail by hand
+        assert nbytes - nbytes // 16 * 16 < 16 and stage < stages
+        staged = torch.zeros((stage_rows, d), dtype=flat.dtype)
+        staged[:nr] = flat[r0:r0 + nr]
+        for g0 in range(0, nr, 8):
+            grp = staged[g0:g0 + 8].float()                   # (8, d)
+            ids = torch.arange(r0 + g0, r0 + g0 + 8)
+            seed = torch.clamp(ids, max=rows - 1) // per_seed
+            cen = center[seed]
+            acc = None
+            for t0 in range(0, d, 32):
+                t = torch.arange(t0, t0 + 32)
+                diff = grp[:, t.clamp(max=d - 1)] - cen[:, t.clamp(max=d - 1)]
+                sq = torch.where(t[None] < d, diff * diff, 0.0)   # (8, 32)
+                acc = sq if acc is None else acc + sq
+            vals = acc.t()[None]                           # (1, 32 lanes, 8)
+            for off in (16, 8, 4):
+                vals = _scatter_step(vals, off)
+            s = vals[0, :, 0]
+            s = s + s[torch.arange(32) ^ 2]
+            s = s + s[torch.arange(32) ^ 1]
+            for k in range(8):
+                row = r0 + g0 + k
+                if g0 + k < nr:
+                    dist[row] = torch.sqrt(s[4 * k])
+                    written[row] += 1
+    r = radius[torch.arange(rows) // per_seed]
+    ok = valid.reshape(-1) & (dist <= r)
+    neg = torch.where(ok, -dist, float("-inf"))
+    return (dist.reshape(bsz, per_seed), ok.reshape(bsz, per_seed),
+            neg.reshape(bsz, per_seed)), written
+
+
+def _nan_bits_equal(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()) and \
+        torch.equal(torch.signbit(a) | torch.isnan(a),
+                    torch.signbit(b) | torch.isnan(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,per_seed,d", [
+    (3, 37, 128), (2, 203, 100), (4, 29, 257), (1, 5, 100), (2, 61, 24)])
+def test_roi_ring_schedule_equals_plain(dtype, bsz, per_seed, d):
+    """The ring's stage order and reduce-scatter, bit for bit against
+    `roi_filter_ref` (and on bf16 rows against the upcast rows): ragged
+    row counts, groups that straddle seeds, a last chunk whose bytes are
+    not a multiple of 16, and NaN / Inf in invalid rows, which must come
+    out ok = False, neg = -inf and leave every other row alone."""
+    rng = np.random.default_rng(bsz * 1000 + per_seed + d)
+    vc = _rows(rng, (bsz, per_seed, d)).to(dtype)
+    center = _rows(rng, (bsz, d))
+    valid = torch.tensor(rng.uniform(size=(bsz, per_seed)) < 0.7)
+    valid[0, 0] = False
+    vc[0, 0, :3] = float("nan")
+    vc[-1, -1] = float("inf")
+    valid[-1, -1] = False
+    dist_all = torch.sqrt(ref.pinned_sum(
+        (vc.float() - center[:, None]) ** 2))
+    radius = torch.quantile(dist_all[torch.isfinite(dist_all)], 0.5) * \
+        torch.ones(bsz)
+    # one block, so that each warp takes several chunks
+    esize = vc.element_size()
+    stage_rows = 8 if d * esize > 1024 else 16
+    rows = bsz * per_seed
+    got, written = ring_emulate(vc, center, radius, valid, stage_rows, 1)
+    want = ref.roi_filter_ref(vc, center, radius, valid)
+    assert bool((written == 1).all())
+    assert _nan_bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert not bool(got[1][0, 0]) and got[2][0, 0] == float("-inf")
+    assert not bool(got[1][-1, -1]) and got[2][-1, -1] == float("-inf")
+    if dtype == torch.bfloat16:
+        up = ring_emulate(vc.float(), center, radius, valid, stage_rows,
+                          1)[0]
+        assert all(_nan_bits_equal(a, b) for a, b in zip(got, up))
+    # the plan's own stages on the same rows
+    real = roi.plan(rows, d, dtype, min_rows=0)
+    if real.route == "ring":
+        # a block for every RING_WARPS chunks, at most the blocks the
+        # card's SMs hold: here, two
+        chunks = -(-rows // real.stage_rows)
+        again, written = ring_emulate(
+            vc, center, radius, valid, real.stage_rows,
+            min(-(-chunks // roi.RING_WARPS), 2))
+        assert bool((written == 1).all())
+        assert all(_nan_bits_equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype,rows,want", [
+    (torch.float32, 32 * 7168, ("ring", 8, 32768)),
+    (torch.bfloat16, 32 * 7168, ("ring", 8, 16384)),
+    (torch.float32, 32 * 900, ("ring", 8, 32768)),
+    (torch.float32, roi.RING_MIN_ROWS - 1, ("rows", 0, 0)),
+    (torch.bfloat16, 240, ("rows", 0, 0))])
+def test_roi_filter_plan(dtype, rows, want):
+    """The main path's 32 x 7,168 x 128 takes the ring: stages of one
+    8-row group (4 KB of f32 rows, 2 KB of bf16), two a warp, four warps a
+    block; below RING_MIN_ROWS, the rows."""
+    pl = roi.plan(rows, 128, dtype)
+    assert tuple(pl) == want
+
+
+def test_roi_filter_plan_edges():
+    """Rows not on 16 bytes and rows too wide for a stage take the rows
+    route; a narrow row's stage holds the fewest rows (a multiple of 8)
+    that reach STAGE_BYTES, up to STAGE_MAX_ROWS; every ring's block fits
+    the 227 KB of shared memory an H100 block may ask."""
+    n = 32 * 7168
+    assert roi.plan(n, 128, aligned=False).route == "rows"
+    assert roi.plan(n, 257).route == "rows"
+    assert roi.plan(n, 257, torch.bfloat16).stage_rows == 8
+    assert roi.plan(n, 24).stage_rows == 24
+    assert roi.plan(n, 24, torch.bfloat16).stage_rows == 32
+    assert roi.plan(n, 100, torch.bfloat16).stage_rows == 16
+    for d in (1, 3, 24, 100, 128, 257, 512, 1000, 4096):
+        for dt in (torch.float32, torch.bfloat16):
+            pl = roi.plan(n, d, dt)
+            if pl.route == "ring":
+                assert pl.stage_rows % 8 == 0 and \
+                    8 <= pl.stage_rows <= roi.STAGE_MAX_ROWS
+                assert pl.smem == roi.RING_WARPS * roi.STAGES * \
+                    pl.stage_rows * d * torch.empty((), dtype=dt).itemsize
+                assert pl.smem <= 227 * 1024

@@ -182,6 +182,151 @@ def test_bwd_plan_small_route_for_bst(bf16):
     assert fa.bwd_plan(8, 8, 21, 21, 4, bf16=bf16).kernel == "small"
 
 
+def small_bwd_emulate(q, k, v, out, dout, plan, *, causal, window=None,
+                      chunk=None, softcap=None, scale=None):
+    """`flash_bwd_small_kernel` (csrc/flash_attention_bwd.cu) on the CPU,
+    in its mapping and order: blocks of `plan.hb` (batch row, kv head)
+    problems; phase 1 lays the flat (problem, query row) pairs over 256
+    threads in rounds, each row forming its logits, max, e_j = exp(s_j -
+    max) once, 1 / sum, P, dP, dS and dQ (dS K summed over the keys in
+    order); phase 2 lays (problem, key) over the threads, each key forming
+    P and dS again from the row's max and 1 / sum (the same operations)
+    and summing dS Q and P dO over its kv head's query heads, then rows,
+    in order. Each product and add is an f32 op of its own (the kernel
+    fuses them: the rule below absorbs that). Returns (dq, dk, dv) and
+    how often each query row and each key was taken."""
+    from repro_torch.kernels.flash_attention import SMALL_BWD_THREADS
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep, rows, per = h // hkv, h // hkv * sq, plan.hb
+    scale = dh ** -0.5 if scale is None else scale
+    n = b * hkv
+    qf = q.float().reshape(n, rows, dh)
+    gf = dout.float().reshape(n, rows, dh)
+    of = out.float().reshape(n, rows, dh)
+    kf, vf = k.float().reshape(n, sk, dh), v.float().reshape(n, sk, dh)
+    mask = tref.attention_mask(sq, sk, causal=causal, window=window,
+                               chunk=chunk).repeat(rep, 1)      # (rows, sk)
+    took_rows = torch.zeros((n, rows), dtype=torch.int64)
+    took_keys = torch.zeros((n, sk), dtype=torch.int64)
+    for blk in range(-(-n // per)):
+        first = blk * per
+        npb = min(per, n - first)
+        for e0 in range(0, npb * rows, SMALL_BWD_THREADS):
+            for e in range(e0, min(e0 + SMALL_BWD_THREADS, npb * rows)):
+                took_rows[first + e // rows, e % rows] += 1
+        for e in range(npb * sk):
+            took_keys[first + e // sk, e % sk] += 1
+
+    def dot(a, c):                     # the d-sum in order
+        acc = torch.zeros(torch.broadcast_shapes(a.shape, c.shape)[:-1])
+        for d in range(dh):
+            acc = acc + a[..., d] * c[..., d]
+        return acc
+
+    def logit(x):
+        x = x * scale
+        return softcap * torch.tanh(x / softcap) if softcap else x
+
+    def ds_of(pr, dp, dsum, s):
+        ds = pr * (dp - dsum)
+        if softcap:
+            t = s / softcap
+            ds = ds * (1.0 - t * t)
+        return ds * scale
+
+    # phase 1: every (problem, row) at once, the keys in order
+    dsum = dot(gf, of)                                        # (n, rows)
+    s_all = logit(dot(qf[:, :, None], kf[:, None]))          # (n, rows, sk)
+    s = torch.where(mask, s_all, float("-inf"))
+    mx = s.max(-1).values
+    ev = torch.where(mask, torch.exp(s - mx[..., None]), 0.0)
+    tot = torch.zeros_like(mx)
+    for j in range(sk):
+        tot = tot + ev[..., j]
+    inv = torch.where(tot > 0, 1.0 / tot, 0.0)
+    dq = torch.zeros_like(qf)
+    for j in range(sk):
+        pr = ev[..., j] * inv
+        dp = dot(gf, vf[:, None, j])
+        # softcap's factor reads the pair's logit, masked or not (P = 0)
+        ds = ds_of(pr, dp, dsum, s_all[..., j])
+        dq = dq + ds[..., None] * kf[:, None, j]
+    # phase 2: every (problem, key) at once, the rows in order
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for r in range(rows):
+        on = mask[r][None, :, None]                             # (1, sk, 1)
+        sr = logit(dot(kf, qf[:, None, r]))                     # (n, sk)
+        pr = torch.exp(sr - mx[:, r, None]) * inv[:, r, None]
+        dp = dot(vf, gf[:, None, r])
+        ds = ds_of(pr, dp, dsum[:, r, None], sr)
+        dk = torch.where(on, dk + ds[..., None] * qf[:, None, r], dk)
+        dv = torch.where(on, dv + pr[..., None] * gf[:, None, r], dv)
+    return ((dq.reshape(b, h, sq, dh), dk.reshape(b, hkv, sk, dh),
+             dv.reshape(b, hkv, sk, dh)), took_rows, took_keys)
+
+
+def _small_case(b, h, hkv, sq, sk, dh, kw, seed):
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(seed)
+    q, dout = (torch.tensor(rng.normal(size=(b, h, sq, dh)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(b, hkv, sk, dh)).astype(
+        np.float32)) for _ in range(2))
+    out = tref.attention_ref(q, k, v, **kw)
+    plan = fa.bwd_plan(h, hkv, sq, sk, dh)
+    assert plan.kernel == "small"
+    got, rows, keys = small_bwd_emulate(q, k, v, out, dout, plan, **kw)
+    want = tref.attention_bwd_ref(q, k, v, out, dout, **kw)
+    assert bool((rows == 1).all()) and bool((keys == 1).all())
+    for g, w in zip(got, want):
+        c = fa.compare_with_plain(
+            g, w, torch.ones((b, g.shape[2]), dtype=torch.bool))
+        assert c["bad"] == 0, c
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("dh", [1, 4, 8, 16])
+@pytest.mark.parametrize("s", [1, 17, 21, 32])
+def test_small_bwd_schedule_within_the_rule(s, dh, rep, causal):
+    """The small route's lane mapping and summation order (emulated)
+    against `attention_bwd_ref` by `compare_with_plain`'s f32 rule (|got -
+    want| <= 1e-5 + 2e-5 |want|), every query row and key taken once, at
+    Sq = Sk = 1, 17, 21, 32, dh 1 / 4 / 8 / 16, rep 1 and 2."""
+    _small_case(3, 2 * rep, 2, s, s, dh, dict(causal=causal),
+                seed=s * 100 + dh * 10 + rep + causal)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,dh,kw", [
+    (3, 8, 8, 21, 21, 4, dict(causal=False)),              # BST
+    (2, 4, 2, 17, 32, 8, dict(causal=True, window=5)),
+    (2, 4, 4, 32, 17, 4, dict(causal=True, chunk=6)),
+    (2, 4, 2, 21, 21, 16, dict(causal=True, softcap=3.0)),
+    (1, 32, 2, 21, 21, 4, dict(causal=False)),             # rows in rounds
+])
+def test_small_bwd_schedule_masks_and_rounds(b, h, hkv, sq, sk, dh, kw):
+    """The same at BST's shape, Sq != Sk under window and chunk masks,
+    softcap, and rep x Sq past one block's 256 threads (rounds)."""
+    _small_case(b, h, hkv, sq, sk, dh, kw, seed=sq * sk + dh + h)
+
+
+def test_bwd_plan_small_blocks_and_bytes():
+    """The small route's plan: 12 of BST's 21-row problems a block, each
+    ~1.6 KB of shared memory (K, V, Q, dO at dh 4 and three floats a row);
+    a problem whose rows outgrow a block's shared memory takes the tiles
+    route."""
+    from repro_torch.kernels import flash_attention as fa
+    pl = fa.bwd_plan(8, 8, 21, 21, 4)
+    assert (pl.kernel, pl.hb, pl.dq_smem) == ("small", 12, 12 * 4 * 400)
+    assert fa.bwd_plan(2, 1, 32, 32, 16).hb == 4
+    assert fa.bwd_plan(32, 2, 21, 21, 4).hb == 1
+    assert fa.small_bwd_floats(1, 21, 21, 4) % 4 == 0
+    big = fa.bwd_plan(1024, 1, 32, 32, 16)
+    assert big.kernel == "tiles"
+    assert fa.bwd_small_smem(1024, 32, 32, 16) > fa.SMEM_MAX
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_segment_matmul_bwd_ref_against_autograd_and_jax(dtype):
     """The messages' gradient is d_out gathered by segment, 0 for the -1
